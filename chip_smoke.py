@@ -6,18 +6,34 @@
 Phases, one line each (flush=True); any failure raises and the exit code is
 not 0:
   1. device     the card, and nvidia-smi's name and power limit
-  2. build      nvcc builds every CUDA kernel of the path from ldm3d_torch/csrc
+  2. build      nvcc builds every CUDA kernel of the two paths from
+                ldm3d_torch/csrc, one compiler per source, all at once
   3. kernel     each kernel against its plain PyTorch version on the card,
                 with CUDA-event times beside its bound and a library yardstick:
                 device time from a replayed CUDA graph of 200 calls, and
                 eager time (host work per call included) beside it
-  4. unet_step  one full-width U-Net step on the card against the CPU, f32
+  4. attention_grad  gradients through the attention kernel's autograd
+                Function against plain autograd, at the train shape
+  5. unet_step  one full-width U-Net step on the card against the CPU, f32
                 with TF32 off
-  5. serve      GenerationService at full flagship width from a seeded random
-                init answers three requests in process; the launch counters
-                are zeroed before the first and read after the last
-  6. kernels    one JSON line per the whole run's kernel numbers
-  7. last line  {"ok": true, "device": {...}}
+  6. serve      main path 1: GenerationService at full flagship width from a
+                seeded random init answers three requests in process; the
+                launch counters are zeroed before the first and read after
+                the last
+  7. breakdown  a request's U-Net step and decode times
+  8. encode     the full-width encoder + STE quantizer on the card against
+                the CPU, f32 with TF32 off
+  9. train      main path 2: a seeded full-width DiffusionTrainer encodes two
+                batches of 8 volumes (as --cache_latents does), derives the
+                latent scale, and takes 3 steps on volumes and 3 on cached
+                latents; the counters are zeroed before and read after
+ 10. train_compare  one latent step at batch 2 on the card against the CPU
+                with injected draws: loss, gradients, parameter changes
+ 11. train_breakdown  encode and step times, attention's share of a step,
+                and a torch.profiler table of two latent steps (device time
+                by kernel, the device's busy share)
+ 12. kernels    one JSON line with the whole run's kernel numbers
+ 13. last line  {"ok": true, "device": {...}}
 No socket, no thread, no profiler trace; nothing is written but the kernel
 build under ldm3d_torch/_build/. Imports nothing of JAX.
 """
@@ -30,6 +46,7 @@ import subprocess
 import sys
 import time
 from functools import partial
+from typing import Dict
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,12 +54,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import ldm3d_torch.ops.attention as attn  # noqa: E402
-from ldm3d_torch.core.config import flagship_cfg  # noqa: E402
+import ldm3d_torch.ops.quantize as cbq  # noqa: E402
+from ldm3d_torch.core.config import TrainConfig, flagship_cfg  # noqa: E402
+from ldm3d_torch.models.layers import init_params_  # noqa: E402
 from ldm3d_torch.models.unet3d import (AttentionBlock,  # noqa: E402
                                        CrossAttentionBlock, UNet3D)
+from ldm3d_torch.models.vqvae import VQVAE  # noqa: E402
 from ldm3d_torch.ops import _build  # noqa: E402
 from ldm3d_torch.serve import GenerationService  # noqa: E402
-from ldm3d_torch.train.dm_trainer import DiffusionTrainer  # noqa: E402
+from ldm3d_torch.train.dm_trainer import (DiffusionTrainer,  # noqa: E402
+                                          auto_latent_scale)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense), at a 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -59,6 +80,34 @@ REQUESTS = [dict(num=16, context=1, seed=1), dict(num=16, context=0, seed=2),
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 UNET_REL_TOL = 1e-4   # card vs CPU, f32 without TF32, relative to max |cpu|
 REPEAT_REL_TOL = 1e-5  # the repeated request vs the first
+# Codebook indices, kernel vs plain: equal, or else the float64 distances
+# of the two picks differ by at most CB_DIST_TOL. Both sum D = 256 float32
+# products of O(1) values in other orders; at distances of O(500) that is
+# an error of a few 1e-4, so only near-ties may pick differently.
+CB_DIST_TOL = 1e-2
+# Attention gradients, kernel Function vs plain autograd at [8, 64, 512]:
+# the backward recomputes the plain version, so only the forward's
+# rounding (1e-4 at most, ATTN_TOL) can reach them, through nothing: the
+# backward never reads the kernel's output.
+ATTN_GRAD_TOL = 1e-5
+ENCODE_SIZE = 128      # the volume the encode phase checks against the CPU
+TRAIN_BATCH = 8        # TrainConfig.batch_size
+TRAIN_STEPS = 3        # steps on volumes, then as many on cached latents
+# Train step, card vs CPU (f32 without TF32), from one state with a fresh
+# optimizer:
+#  - the loss to 1e-4 relative (5e-6 is the forward's agreement);
+#  - Adam's first moment (0.1 x the gradient) to 1e-3 of its largest
+#    value: cuDNN and oneDNN pick their own backward algorithms for each
+#    3D conv and sum weight gradients over up to 2 x 8^3 x 27 products in
+#    other orders; 1.0e-4 was measured on an H100 80GB HBM3;
+#  - parameter changes, lr * g / (|g| + 1e-8) after one step, to 1e-2 lr
+#    where |g| >= 1e-6: there a gradient error of 1e-6 of the largest
+#    gradient moves the step by under 1e-2 lr; below, Adam scales float32
+#    noise (e.g. of a conv bias that BatchNorm removes) to any step.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_DELTA_ATOL = 1e-2 * TrainConfig().learning_rate
+PROFILE_TOP = 15       # kernels listed by the train step's profile
 
 
 def say(phase: str, **kv) -> None:
@@ -129,6 +178,30 @@ def attention_bound_ms(b, nq, nkv, c, dtype) -> tuple[float, str]:
         "operations"
 
 
+class _NoTF32:
+    """float32 without TF32 for convolutions and matmuls inside the block;
+    PyTorch's defaults (TF32 convolutions, full-f32 matmuls) after it."""
+
+    def __enter__(self):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def codebook_bound_ms(n, k, d, dtype) -> tuple[float, str]:
+    """Least time for the work: x and the codebook read once, ||c||^2 read
+    and the indices written once over HBM, or 2 * n * d * k operations at
+    the type's peak."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = ((n + k) * d * item + 4 * k + 4 * n) / HBM_BYTES_PER_S
+    t_ops = 2 * n * d * k / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
 def attention_calls_per_step(unet: UNet3D) -> int:
     """Two calls per cross-attention block (self, then cross), one per
     self-attention block: 12 for the flagship."""
@@ -153,18 +226,21 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = _build.load(attn.KERNEL)
-    usage = [ln.split(":", 1)[-1].strip() for ln in built.ptxas.splitlines()
-             if "registers" in ln or "spill" in ln]
-    say("build", kernel=built.name, nvcc_s=round(built.seconds, 3),
-        ptxas=sorted(set(usage)), total_s=round(time.perf_counter() - t0, 3))
+    for built in _build.load_all([attn.KERNEL, cbq.KERNEL]):
+        usage = [ln.split(":", 1)[-1].strip()
+                 for ln in built.ptxas.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        say("build", kernel=built.name, nvcc_s=round(built.seconds, 3),
+            ptxas=sorted(set(usage)))
+    say("build", total_s=round(time.perf_counter() - t0, 3))
 
 
-def phase_kernel(card: str) -> dict:
-    """Kernel against `_attention_reference` at the path's shapes; returns
-    the numbers of the shape and type the served path runs."""
+def phase_kernel(card: str) -> Dict[str, dict]:
+    """Kernel against `_attention_reference` at the paths' shapes; returns
+    the numbers of each case."""
     cases = [  # name, B, nq, nkv, C, dtype
         ("self_f32", 16, 64, 64, 512, torch.float32),     # served path
+        ("train_f32", 8, 64, 64, 512, torch.float32),     # train path
         ("self_bf16", 16, 64, 64, 512, torch.bfloat16),
         ("cross_ragged_f32", 16, 64, 37, 512, torch.float32),
         ("cross_ragged_bf16", 16, 64, 37, 512, torch.bfloat16),
@@ -172,7 +248,7 @@ def phase_kernel(card: str) -> dict:
         ("long_c64_bf16", 2, 4096, 4096, 64, torch.bfloat16),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    main = None
+    results = {}
     for name, b, nq, nkv, c, dt in cases:
         q = torch.randn(b, nq, c, generator=gen, device="cuda").to(dt)
         k = torch.randn(b, nkv, c, generator=gen, device="cuda").to(dt)
@@ -199,11 +275,100 @@ def phase_kernel(card: str) -> dict:
         if not ok:
             raise RuntimeError(f"voxel_attention {name}: max_abs_err {err} "
                                f"> {ATTN_TOL[dt]}")
-        if main is None:
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        library_ms=lib_ms, eager_ms=eager["ms"],
-                        bound_ms=bound, bound_by=by)
-    return main
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, eager_ms=eager["ms"],
+                             bound_ms=bound, bound_by=by,
+                             shape=[b, nq, nkv, c], dtype=str(dt))
+    return results
+
+
+def _codebook_case(gen, n, k, d, dtype, dup: bool):
+    x = torch.randn(n, d, generator=gen, device="cuda")
+    cb = torch.randn(k, d, generator=gen, device="cuda")
+    if dup:   # codes 1, k/2 and k-1 equal; 64 rows sit exactly on them
+        cb[k // 2] = cb[1]
+        cb[k - 1] = cb[1]
+        x[:64] = cb[1]
+    return x.to(dtype), cb
+
+
+def phase_codebook(card: str) -> Dict[str, dict]:
+    """Codebook kernel against `_nearest_indices_reference` at the train
+    shape [4096, 256] x [1024, 256], in f32 and bf16, with a ragged N and
+    with duplicated codes (which must give the first index exactly)."""
+    cases = [  # name, N, K, D, dtype, duplicated codes
+        ("train_f32", 4096, 1024, 256, torch.float32, False),  # train path
+        ("train_bf16", 4096, 1024, 256, torch.bfloat16, False),
+        ("ragged_f32", 4095, 1024, 256, torch.float32, False),
+        ("duplicates_f32", 4096, 1024, 256, torch.float32, True),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    results = {}
+    for name, n, k, d, dt, dup in cases:
+        x, cb = _codebook_case(gen, n, k, d, dt, dup)
+        idx = cbq.nearest_codebook_indices_cuda(x, cb)
+        torch.cuda.synchronize()
+        ref = cbq._nearest_indices_reference(x, cb)
+        # float64 distances of the values multiplied
+        dist = (cb.double() ** 2).sum(-1)[None, :] \
+            - 2.0 * x.double() @ cb.to(dt).double().T
+        rows = torch.arange(n, device="cuda")
+        gap = (dist[rows, idx.long()] - dist[rows, ref.long()]).abs()
+        err = float(gap.max())
+        differ = int((idx != ref).sum())
+        ok = err <= CB_DIST_TOL and idx.dtype == torch.int32 \
+            and idx.shape == (n,)
+        if dup:
+            ok = ok and bool((idx[:64] == 1).all())
+        c_sq = cb.float().square().sum(-1)
+        cb_t = cb.to(dt).T.contiguous()
+        kernel = partial(cbq.nearest_codebook_indices_cuda, x, cb)
+        plain = partial(cbq._nearest_indices_reference, x, cb)
+
+        def library():   # addmm + argmin on the precomputed ||c||^2
+            return torch.argmin(torch.addmm(c_sq.to(dt), x, cb_t, alpha=-2),
+                                dim=1)
+        ms, plain_ms, lib_ms = (graph_ms(kernel, 200), graph_ms(plain, 50),
+                                graph_ms(library, 200))
+        eager = dict(ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 50),
+                     library_ms=cuda_ms(library, 200))
+        bound, by = codebook_bound_ms(n, k, d, dt)
+        say("kernel", kernel=cbq.KERNEL, case=name, shape=[n, k, d],
+            dtype=str(dt), indices_differ=differ, max_abs_err=err,
+            tol=CB_DIST_TOL, first_index_on_ties=dup or None, ok=ok, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, eager=eager,
+            bound_ms=bound, bound_by=by, card=card)
+        if not ok:
+            raise RuntimeError(f"codebook_nearest {name}: distance gap "
+                               f"{err} > {CB_DIST_TOL} or ties broken "
+                               "wrongly")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, eager_ms=eager["ms"],
+                             bound_ms=bound, bound_by=by, shape=[n, k, d],
+                             dtype=str(dt))
+    return results
+
+
+def phase_attention_grad() -> None:
+    """Gradients of q, k, v through the kernel's autograd Function against
+    plain autograd at the train shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    q, k, v = (torch.randn(8, 64, 512, generator=gen, device="cuda")
+               .requires_grad_(True) for _ in range(3))
+    g = torch.randn(8, 64, 512, generator=gen, device="cuda")
+    before = attn.launches
+    out = attn.voxel_attention(q, k, v)
+    launched = attn.launches - before
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    ref = torch.autograd.grad(attn._attention_reference(q, k, v,
+                                                        512 ** -0.5),
+                              (q, k, v), g)
+    errs = [(a - b).abs().max().item() for a, b in zip(grads, ref)]
+    ok = out.requires_grad and launched == 1 and max(errs) <= ATTN_GRAD_TOL
+    say("attention_grad", shape=[8, 64, 512], requires_grad=out.requires_grad,
+        launches=launched, max_abs_err_qkv=errs, tol=ATTN_GRAD_TOL, ok=ok)
+    if not ok:
+        raise RuntimeError(f"attention_grad: {errs}, launches {launched}")
 
 
 def phase_unet_step(trainer: DiffusionTrainer) -> None:
@@ -220,17 +385,11 @@ def phase_unet_step(trainer: DiffusionTrainer) -> None:
     t = torch.tensor([cfg.timesteps - 1, 17])
     null = cfg.unet.context_dim + 1 if cfg.unet.cfg_dropout > 0 else 0
     c = torch.tensor([1, null])   # a class, and the null row if there is one
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        with torch.no_grad():
-            before = attn.launches
-            out = unet(x.cuda(), t.cuda(), c.cuda()).cpu()
-            step_launches = attn.launches - before
-            ref = cpu_unet(x, t, c)
-    finally:
-        torch.backends.cudnn.allow_tf32 = True    # PyTorch's defaults
-        torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad(), _NoTF32():
+        before = attn.launches
+        out = unet(x.cuda(), t.cuda(), c.cuda()).cpu()
+        step_launches = attn.launches - before
+        ref = cpu_unet(x, t, c)
     rel = ((out - ref).abs().max() / ref.abs().max()).item()
     ok = rel <= UNET_REL_TOL and bool(torch.isfinite(out).all())
     say("unet_step", batch=2, attention_launches=step_launches,
@@ -254,6 +413,7 @@ def phase_serve(svc: GenerationService, card: str) -> dict:
     say("serve", resident_bytes=torch.cuda.memory_allocated())
     outs = []
     attn.reset_launches()   # the main path starts here
+    cbq.reset_launches()
     for req in REQUESTS:
         before = attn.launches
         torch.cuda.reset_peak_memory_stats()
@@ -275,13 +435,16 @@ def phase_serve(svc: GenerationService, card: str) -> dict:
                                f"{vols.shape}, launches {n}")
         outs.append(vols)
     total = attn.launches   # read right after the main path
+    codebook = cbq.launches
     rel = float(np.abs(outs[2] - outs[0]).max() / np.abs(outs[0]).max())
     say("serve", repeat_rel_err=rel, tol=REPEAT_REL_TOL,
         attention_launches=total,
         expected=calls_per_request * len(REQUESTS))
-    if rel > REPEAT_REL_TOL or total != calls_per_request * len(REQUESTS):
-        raise RuntimeError(f"serve: repeat rel_err {rel}, launches {total}")
-    return {attn.KERNEL: total}
+    if rel > REPEAT_REL_TOL or total != calls_per_request * len(REQUESTS) \
+            or codebook != 0:
+        raise RuntimeError(f"serve: repeat rel_err {rel}, launches {total}, "
+                           f"codebook launches {codebook}")
+    return {attn.KERNEL: total, cbq.KERNEL: codebook}
 
 
 def phase_breakdown(trainer: DiffusionTrainer, main: dict) -> None:
@@ -306,31 +469,315 @@ def phase_breakdown(trainer: DiffusionTrainer, main: dict) -> None:
         attention_eager_share=calls * main["eager_ms"] / step_ms)
 
 
+def _seeded_volumes(rng, b: int, size: int) -> torch.Tensor:
+    """Seeded volumes in [0, 1], NDHWC float32 [b, size^3, 1]."""
+    return torch.from_numpy(rng.random((b, size, size, size, 1),
+                                       dtype=np.float32))
+
+
+def phase_encode() -> None:
+    """The full-width encoder + STE quantizer on the card against the CPU
+    at batch 1, f32 with TF32 off."""
+    cfg = flagship_cfg()
+    gen = torch.Generator().manual_seed(SEED)
+    cpu_vq = init_params_(VQVAE(cfg.vqvae), gen).eval()
+    card_vq = VQVAE(cfg.vqvae).cuda().eval()
+    card_vq.load_state_dict(cpu_vq.state_dict())
+    vol = _seeded_volumes(np.random.default_rng(SEED), 1, ENCODE_SIZE)
+    with torch.no_grad(), _NoTF32():
+        z = card_vq.encode(vol.cuda())
+        q, aux = card_vq.quantizer(z)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z_ref = cpu_vq.encode(vol)
+        q_ref, aux_ref = cpu_vq.quantizer(z_ref)
+        cpu_s = time.perf_counter() - t0
+    z, q, idx = z.cpu(), q.cpu(), aux.indices.cpu().reshape(-1)
+    idx_ref = aux_ref.indices.reshape(-1)
+    rel = float((z - z_ref).abs().max() / z_ref.abs().max())
+    # a pick may differ only at a near-tie of the distances
+    cb = cpu_vq.quantizer.codebook.detach().double()
+    flat = z_ref.reshape(-1, cb.shape[1]).double()
+    dist = (cb ** 2).sum(-1)[None] - 2.0 * flat @ cb.T
+    rows = torch.arange(flat.shape[0])
+    gap = float((dist[rows, idx.long()] - dist[rows, idx_ref.long()])
+                .abs().max())
+    same = idx == idx_ref
+    q_err = float((q.reshape(-1, cb.shape[1])[same]
+                   - q_ref.reshape(-1, cb.shape[1])[same]).abs().max())
+    s = ENCODE_SIZE // cfg.vqvae.spatial_factor
+    ok = (rel <= UNET_REL_TOL and gap <= CB_DIST_TOL and q_err <= 1e-4
+          and bool(torch.isfinite(q).all())
+          and q.shape == (1, s, s, s, cfg.vqvae.quantizer.embedding_dim))
+    say("encode", volume=[1, ENCODE_SIZE, ENCODE_SIZE, ENCODE_SIZE, 1],
+        latents=list(q.shape), cpu_s=cpu_s, rel_err_z=rel, tol=UNET_REL_TOL,
+        indices_differ=int((~same).sum()), distance_gap=gap,
+        gap_tol=CB_DIST_TOL, max_abs_err_quantized=q_err,
+        perplexity=float(aux.perplexity), ok=ok)
+    if not ok:
+        raise RuntimeError(f"encode: rel_err {rel}, gap {gap}, q_err {q_err}")
+
+
+def phase_train(card: str) -> dict:
+    """Main path 2: a seeded full-width trainer encodes two batches of
+    volumes (--cache_latents), derives the latent scale, and takes
+    TRAIN_STEPS steps on volumes and as many on cached latents."""
+    cfg = flagship_cfg()
+    tc = TrainConfig(batch_size=TRAIN_BATCH, ema_decay=0.999, seed=SEED)
+    trainer = DiffusionTrainer(cfg, device="cuda",
+                               train_cfg=tc).init_random(SEED)
+    rng = np.random.default_rng(SEED + 3)
+    size = cfg.volume_size
+    vols = [_seeded_volumes(rng, TRAIN_BATCH, size).cuda() for _ in range(2)]
+    ctxs = [torch.from_numpy(rng.integers(0, cfg.unet.context_dim + 1,
+                                          TRAIN_BATCH)).cuda()
+            for _ in range(2)]
+    say("train", trained_weights=False, init=f"seeded random, seed {SEED}",
+        config="flagship", batch=TRAIN_BATCH, volume=size, dtype="float32",
+        tf32_conv=torch.backends.cudnn.allow_tf32,
+        tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
+        ema_decay=tc.ema_decay, learning_rate=tc.learning_rate)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.reset_launches()   # the main path starts here
+    cbq.reset_launches()
+    t0 = time.perf_counter()
+    lat = torch.cat([trainer.encode_latents(v) for v in vols])
+    torch.cuda.synchronize()
+    encode_ms = 1e3 * (time.perf_counter() - t0) / len(vols)
+    lat_std = float(lat.std())
+    new_cfg = auto_latent_scale(lat_std, trainer.cfg)
+    rescaled = new_cfg is not trainer.cfg
+    if rescaled:
+        lat = lat * (new_cfg.latent_scale / trainer.cfg.latent_scale)
+        trainer.set_latent_scale(new_cfg.latent_scale,
+                                 new_cfg.clip_sample_range)
+    say("train", encoded=list(lat.shape), encode_ms_per_batch=encode_ms,
+        latent_std=lat_std, auto_latent_scale_rescaled=rescaled,
+        latent_scale=trainer.cfg.latent_scale,
+        clip_sample_range=trainer.cfg.clip_sample_range)
+    step_ms: Dict[str, list] = {"volume": [], "latents": []}
+    losses: Dict[str, list] = {"volume": [], "latents": []}
+    for kind in ("volume", "latents"):
+        for i in range(TRAIN_STEPS):
+            j = i % 2
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "volume":
+                m = trainer.train_step(vols[j], ctxs[j])
+            else:
+                m = trainer.train_step_latents(
+                    lat[j * TRAIN_BATCH:(j + 1) * TRAIN_BATCH], ctxs[j])
+            torch.cuda.synchronize()
+            step_ms[kind].append(1e3 * (time.perf_counter() - t0))
+            losses[kind].append({k: float(v) for k, v in m.items()})
+    counts = {attn.KERNEL: attn.launches, cbq.KERNEL: cbq.launches}
+    peak = torch.cuda.max_memory_allocated()   # read right after the path
+    calls = attention_calls_per_step(trainer.model.unet)
+    expected = {attn.KERNEL: calls * 2 * TRAIN_STEPS,
+                cbq.KERNEL: len(vols) + TRAIN_STEPS}
+    finite = all(np.isfinite(v) for kind in losses for m in losses[kind]
+                 for v in m.values())
+    say("train", step_ms=step_ms, losses=losses, launches=counts,
+        expected=expected, max_memory_allocated=peak, finite=finite,
+        card=card)
+    if not finite or counts != expected:
+        raise RuntimeError(f"train: finite {finite}, launches {counts}")
+    return dict(trainer=trainer, latents=lat, vols=vols, counts=counts,
+                encode_ms=encode_ms, step_ms=step_ms, peak=peak)
+
+
+def _twin(trainer: DiffusionTrainer, device: str) -> DiffusionTrainer:
+    tc = TrainConfig(batch_size=2, ema_decay=trainer.train_cfg.ema_decay)
+    twin = DiffusionTrainer(trainer.cfg, device=device, train_cfg=tc)
+    twin.model.load_state_dict(trainer.model.state_dict())
+    return twin
+
+
+def phase_train_compare(trainer: DiffusionTrainer, lat: torch.Tensor
+                        ) -> None:
+    """One latent step at batch 2 on the card against the CPU, from the
+    train phase's weights with a fresh optimizer and injected draws, f32
+    with TF32 off: the loss, Adam's first moment (0.1 x the gradient) and
+    every U-Net parameter's change."""
+    card, cpu = _twin(trainer, "cuda"), _twin(trainer, "cpu")
+    rng = np.random.default_rng(SEED + 4)
+    x = lat[:2].cpu()
+    draws = dict(t=torch.from_numpy(rng.integers(0, trainer.cfg.timesteps,
+                                                 2)),
+                 noise=torch.from_numpy(rng.standard_normal(
+                     tuple(x.shape)).astype(np.float32)),
+                 drop=torch.tensor([False, True]))
+    ctx = torch.tensor([1, 0])
+    before = {n: p.detach().cpu().clone()
+              for n, p in cpu.model.unet.named_parameters()}
+    with _NoTF32():
+        m_card = card.train_step_latents(
+            x.cuda(), ctx.cuda(), **{k: v.cuda() for k, v in draws.items()})
+        m_cpu = cpu.train_step_latents(x, ctx, **draws)
+        torch.cuda.synchronize()
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) \
+        / abs(float(m_cpu["loss"]))
+    pairs = [(n, p, q) for (n, p), q in zip(card.model.unet.named_parameters(),
+                                            cpu.model.unet.parameters())]
+    mu = {n: (card.optimizer.state[p]["exp_avg"].cpu(),
+              cpu.optimizer.state[q]["exp_avg"]) for n, p, q in pairs}
+    scale = max(float(b.abs().max()) for _, b in mu.values())
+    grad_errs = {n: float((a - b).abs().max()) / scale
+                 for n, (a, b) in mu.items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    delta_err, compared, total = 0.0, 0, 0
+    for n, p, q in pairs:
+        # |g| after one step: sqrt(v / (1 - b2))
+        g = cpu.optimizer.state[q]["exp_avg_sq"].sqrt() / (1 - 0.999) ** 0.5
+        sure = g >= 1e-6
+        d_card = p.detach().cpu() - before[n]
+        d_cpu = q.detach() - before[n]
+        if sure.any():
+            delta_err = max(delta_err,
+                            float((d_card - d_cpu)[sure].abs().max()))
+        compared += int(sure.sum())
+        total += sure.numel()
+    ok = (loss_rel <= TRAIN_LOSS_RTOL and grad_errs[worst] <= TRAIN_GRAD_RTOL
+          and delta_err <= TRAIN_DELTA_ATOL and compared > 0)
+    say("train_compare", batch=2, loss_card=float(m_card["loss"]),
+        loss_cpu=float(m_cpu["loss"]), loss_rel_err=loss_rel,
+        loss_tol=TRAIN_LOSS_RTOL, grad_rel_err=grad_errs[worst],
+        grad_worst=worst, grad_tol=TRAIN_GRAD_RTOL,
+        max_delta_err=delta_err, delta_tol=TRAIN_DELTA_ATOL,
+        deltas_compared=compared, weights=total, ok=ok)
+    if not ok:
+        raise RuntimeError(f"train_compare: loss {loss_rel}, grad "
+                           f"{grad_errs[worst]} ({worst}), delta "
+                           f"{delta_err}, compared {compared}")
+
+
+_KERNEL_GROUPS = (  # first match wins, by substring of the kernel name
+    ("voxel_attention kernel", ("voxel_attention",)),
+    ("codebook kernel", ("codebook_nearest",)),
+    ("adam + ema (foreach)", ("multi_tensor_apply",)),
+    ("conv (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad")),
+    ("gemm (cuBLAS)", ("gemm", "gemv", "kernel2")),
+)
+
+
+def _profile_step(trainer: DiffusionTrainer, lat: torch.Tensor,
+                  ctx: torch.Tensor, step_ms: float, steps: int = 2) -> dict:
+    """Device time by kernel over `steps` latent steps (torch.profiler),
+    grouped by kind; the device's busy share against the unprofiled step
+    time `step_ms` (the profiler's own host work slows the step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step_latents(lat, ctx)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
+         for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)
+         and e.self_device_time_total > 0), key=lambda k: -k[1])
+    groups: Dict[str, float] = {name: 0.0 for name, _ in _KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for name, ms, _ in kernels:
+        group = next((g for g, words in _KERNEL_GROUPS
+                      if any(w in name.lower() for w in words)), "other")
+        groups[group] += ms
+    device_ms = sum(ms for _, ms, _ in kernels)
+    return dict(steps=steps, step_ms=step_ms,
+                profiled_wall_ms_per_step=wall_ms / steps,
+                device_ms_per_step=device_ms,
+                busy_share=device_ms / step_ms,
+                kernels_per_step=sum(n for _, _, n in kernels),
+                groups_ms_per_step=groups,
+                top=[[name[:90], ms, n] for name, ms, n in
+                     kernels[:PROFILE_TOP]])
+
+
+def phase_train_breakdown(train: dict, attn_case: dict) -> None:
+    """Where a train step's time goes, after the counted path: steady-state
+    encode and step times, the attention calls' forward (kernel) and
+    forward + backward (plain-version backward) at the train shape, and a
+    profile of two latent steps; launches here are not counted."""
+    trainer, lat, vols = train["trainer"], train["latents"], train["vols"]
+    ctx = torch.ones(TRAIN_BATCH, dtype=torch.long, device="cuda")
+    batch = lat[:TRAIN_BATCH]
+    encode_ms = cuda_ms(lambda: trainer.encode_latents(vols[0]), 3,
+                        warmup=1)
+    lat_ms = cuda_ms(lambda: trainer.train_step_latents(batch, ctx), 3,
+                     warmup=1)
+    vol_ms = cuda_ms(lambda: trainer.train_step(vols[0], ctx), 3, warmup=1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    q, k, v = (torch.randn(TRAIN_BATCH, 64, 512, generator=gen,
+                           device="cuda").requires_grad_(True)
+               for _ in range(3))
+    g = torch.randn(TRAIN_BATCH, 64, 512, generator=gen, device="cuda")
+
+    def fwd_bwd():
+        torch.autograd.grad(attn.voxel_attention(q, k, v), (q, k, v), g)
+    fwd_bwd_ms = cuda_ms(fwd_bwd, 50)
+    calls = attention_calls_per_step(trainer.model.unet)
+    say("train_breakdown", encode_ms_per_batch=encode_ms,
+        volume_step_ms=vol_ms, latent_step_ms=lat_ms,
+        counted_path_step_ms=train["step_ms"],
+        attention_calls_per_step=calls,
+        attention_fwd_ms_per_step=calls * attn_case["ms"],
+        attention_fwd_bwd_eager_ms_per_step=calls * fwd_bwd_ms,
+        attention_share_of_latent_step=calls * fwd_bwd_ms / lat_ms,
+        max_memory_allocated=train["peak"])
+    say("train_profile", **_profile_step(trainer, batch, ctx, lat_ms))
+
+
+def _kernel_line(name, source, replaces, counts, case, library):
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(c.get(name, 0) for c in counts.values()),
+        "launches_by_path": {p: c.get(name, 0) for p, c in counts.items()},
+        "max_abs_err": case["max_abs_err"],
+        "ms": case["ms"], "kernel_ms": case["ms"],
+        "eager_ms": case["eager_ms"], "plain_ms": case["plain_ms"],
+        "bound_ms": case["bound_ms"], "bound_us": 1e3 * case["bound_ms"],
+        "bound_by": case["bound_by"], "library_ms": case["library_ms"],
+        "library": library, "shape": case["shape"], "dtype": case["dtype"],
+    }
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
-    main_case = phase_kernel(card)
+    attn_cases = phase_kernel(card)
+    cb_cases = phase_codebook(card)
+    phase_attention_grad()
     trainer = DiffusionTrainer(flagship_cfg(), device="cuda").init_random(SEED)
     phase_unet_step(trainer)
     svc = GenerationService(trainer.cfg, trainer, name="flagship")
-    counts = phase_serve(svc, card)
-    phase_breakdown(trainer, main_case)
-    kernels = [{
-        "name": attn.KERNEL, "route": "cuda",
-        "source": "ldm3d_torch/csrc/voxel_attention.cu",
-        "replaces": "ldm3d/ops/attention.py:38",
-        "launches": counts[attn.KERNEL],
-        "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"], "kernel_ms": main_case["ms"],
-        "eager_ms": main_case["eager_ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_us": 1e3 * main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "shape": [16, 64, 64, 512], "dtype": "float32",
-    }]
+    counts = {"serve": phase_serve(svc, card)}
+    phase_breakdown(trainer, attn_cases["self_f32"])
+    del svc, trainer
+    torch.cuda.empty_cache()
+    phase_encode()
+    train = phase_train(card)
+    counts["train"] = train["counts"]
+    phase_train_compare(train["trainer"], train["latents"])
+    phase_train_breakdown(train, attn_cases["train_f32"])
+    kernels = [
+        _kernel_line(attn.KERNEL, "ldm3d_torch/csrc/voxel_attention.cu",
+                     "ldm3d/ops/attention.py:38", counts,
+                     attn_cases["self_f32"],
+                     "torch.nn.functional.scaled_dot_product_attention"),
+        _kernel_line(cbq.KERNEL, "ldm3d_torch/csrc/codebook_nearest.cu",
+                     "ldm3d/ops/quantize.py:48", counts,
+                     cb_cases["train_f32"],
+                     "torch.addmm + torch.argmin (plain version's two "
+                     "library calls)"),
+    ]
     say("done", wall_s=time.perf_counter() - t_start, card=card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

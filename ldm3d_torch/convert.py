@@ -1,10 +1,9 @@
-"""Convert the JAX package's parameters into the port's state dicts.
+"""Convert between the JAX package's parameters and the port's state dicts.
 
-Input is the sampling state of a `DiffusionTrainer` as numpy arrays:
-either a nested dict of collections (`params`, `batch_stats`, `ema_params`)
-or the flat '/'-joined keys that `ldm3d.utils.export.save_state_npz`
-writes (`params/unet/down_res_0_0/conv1/kernel`, ...). This module imports
-no JAX.
+Input is the state of a `DiffusionTrainer` as numpy arrays: either a nested
+dict of collections (`params`, `batch_stats`, `vq_stats`, `ema_params`) or
+the flat '/'-joined keys that `ldm3d.utils.export.save_state_npz` writes
+(`params/unet/down_res_0_0/conv1/kernel`, ...). This module imports no JAX.
 
 The port names its modules after the flax tree, so a flax path maps to a
 torch key by joining with '.', renaming the leaf, and changing the layout:
@@ -15,9 +14,14 @@ torch key by joining with '.', renaming the leaf, and changing the layout:
     Both are the same axis permutation (4, 3, 0, 1, 2).
   - Dense kernel (in, out) -> weight (out, in)
   - norm scale -> weight; BatchNorm statistics mean / var -> running_mean /
-    running_var; Embed embedding -> weight; PReLU alpha -> alpha.
-Encoder and quantizer parameters (the encode path is not ported) are
-skipped.
+    running_var; Embed embedding -> weight; PReLU alpha -> alpha; the
+    quantizer's codebook [K, D] and its `vq_stats` usage counter
+    `codebooks_used` keep their names and layout.
+The encoder (`vqvae/encoder/**`), the quantizer and the decoder are all
+mapped.
+
+`flax_state` is the inverse map: a port module's parameters and buffers
+as the flax collections, numpy, for comparing a port state with a JAX one.
 """
 
 from __future__ import annotations
@@ -26,8 +30,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
-
-_SKIP = ("vqvae/encoder/", "vqvae/quantizer/")
+import torch.nn as nn
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -56,7 +59,7 @@ def _leaf(path: str, arr: np.ndarray, stats: bool) -> Tuple[str, np.ndarray]:
             raise ValueError(f"unexpected kernel rank at {path}: {arr.shape}")
     elif name in ("scale", "embedding"):
         name = "weight"
-    elif name not in ("bias", "alpha"):
+    elif name not in ("bias", "alpha", "codebook", "codebooks_used"):
         raise ValueError(f"unknown parameter {path}")
     return ".".join(mods + [name]), arr
 
@@ -77,6 +80,9 @@ def module_state(params: Mapping, batch_stats: Optional[Mapping] = None
     return out
 
 
+_COLLECTIONS = ("params", "batch_stats", "vq_stats", "ema_params")
+
+
 def convert_state(state: Mapping) -> Tuple[Dict[str, torch.Tensor],
                                            Optional[Dict[str, torch.Tensor]]]:
     """Returns (model_state, ema_unet_state) for `LatentDiffusion` and, when
@@ -89,10 +95,8 @@ def convert_state(state: Mapping) -> Tuple[Dict[str, torch.Tensor],
     unet_stats: Dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
         coll, _, path = key.partition("/")
-        if coll not in ("params", "batch_stats", "ema_params"):
-            continue                  # vq_stats, metadata: not read here
-        if path.startswith(_SKIP):
-            continue
+        if coll not in _COLLECTIONS:
+            continue                  # metadata: not read here
         name, arr = _leaf(path, np.asarray(arr), coll == "batch_stats")
         if coll == "ema_params":
             ema[name] = _tensor(arr)
@@ -111,3 +115,44 @@ def load_npz(path: str) -> Tuple[Dict[str, torch.Tensor],
     """`convert_state` of a snapshot written by `save_state_npz`."""
     with np.load(path) as z:
         return convert_state({k: z[k] for k in z.files if k != "__meta__"})
+
+
+def _flax_leaf(module: nn.Module, name: str, t: torch.Tensor
+               ) -> Tuple[str, str, np.ndarray]:
+    """(collection, flax leaf name, array) of one parameter or buffer."""
+    arr = t.detach().float().cpu().numpy().copy()   # not a view of t
+    if name == "running_mean":
+        return "batch_stats", "mean", arr
+    if name == "running_var":
+        return "batch_stats", "var", arr
+    if name == "codebooks_used":
+        return "vq_stats", name, arr
+    if name in ("bias", "alpha", "codebook"):
+        return "params", name, arr
+    if name != "weight":
+        raise ValueError(f"unknown parameter {name} of {type(module)}")
+    if isinstance(module, nn.Embedding):
+        return "params", "embedding", arr
+    if arr.ndim == 5:
+        return "params", "kernel", arr.transpose(2, 3, 4, 1, 0)
+    if arr.ndim == 2:
+        return "params", "kernel", arr.T
+    return "params", "scale", arr      # a norm's weight
+
+
+def flax_state(module: nn.Module, prefix: str = ""
+               ) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of `convert_state` for one module: its parameters and
+    buffers as {collection: {flax path: array}} in the flax layout, paths
+    '/'-joined under `prefix` (e.g. "unet"). For an EMA copy of the U-Net,
+    take the "params" collection."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for mod_name, mod in module.named_modules():
+        items = list(mod.named_parameters(recurse=False)) \
+            + list(mod.named_buffers(recurse=False))
+        for name, t in items:
+            coll, leaf, arr = _flax_leaf(mod, name, t)
+            path = "/".join(p for p in (prefix, *mod_name.split("."), leaf)
+                            if p)
+            out.setdefault(coll, {})[path] = arr
+    return out

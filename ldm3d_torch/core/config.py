@@ -14,25 +14,33 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class QuantizerConfig:
-    """Codebook settings: the decode path reads only the latent width."""
+    """Codebook settings. Only kind "ste" is ported."""
 
+    kind: str = "ste"
+    num_embeddings: int = 512
     embedding_dim: int = 256
+    beta: float = 0.25                 # commitment weight
 
 
 @dataclass(frozen=True)
 class VQVAEConfig:
-    """MONAI-style 3D VQ-VAE (decoder side)."""
+    """MONAI-style 3D VQ-VAE."""
 
+    in_channels: int = 2
     out_channels: int = 2
     num_channels: Tuple[int, ...] = (32, 64, 128)
     num_res_channels: Tuple[int, ...] = (32, 64, 128)
     num_res_layers: int = 3
     downsample_stride: Tuple[int, ...] = (2, 2, 2)
+    downsample_kernel: Tuple[int, ...] = (4, 4, 4)
     upsample_stride: Tuple[int, ...] = (2, 2, 2)
     upsample_kernel: Tuple[int, ...] = (4, 4, 4)
+    dropout: float = 0.0               # only 0 is ported
     norm: str = "batch"                # "batch" | "group"
     act: str = "relu"
     output_act: Optional[str] = None
+    # level-0 k4-s2 conv as zero-pad + space-to-depth(2) + k2 VALID conv
+    stem_s2d: bool = False
     quantizer: QuantizerConfig = field(default_factory=QuantizerConfig)
 
     @property
@@ -74,36 +82,56 @@ class DiffusionConfig:
     beta_end: float = 0.02
     latent_size: int = 8
     latent_channels: int = 256
-    prediction_type: str = "eps"
+    prediction_type: str = "eps"      # "eps" | "v"
+    min_snr_gamma: Optional[float] = None
+    # gradient loss: "mean" MSE, or "ref" = SUM-MSE / (batch * lc^4)
+    loss_reduction: str = "mean"
     latent_scale: float = 1.0
     clip_sample_range: float = 1.0     # <= 0 disables clipping
     unet: UNetConfig = field(default_factory=UNetConfig)
     vqvae: VQVAEConfig = field(default_factory=lambda: VQVAEConfig(
-        out_channels=1,
+        in_channels=1, out_channels=1,
         num_channels=(32, 64, 128, 256), num_res_channels=(32, 64, 128, 256),
-        num_res_layers=5, downsample_stride=(2, 2, 2, 2),
+        num_res_layers=5,
+        downsample_stride=(2, 2, 2, 2), downsample_kernel=(4, 4, 4, 4),
         upsample_stride=(2, 2, 2, 2), upsample_kernel=(4, 4, 4, 4),
-        quantizer=QuantizerConfig(embedding_dim=256)))
+        quantizer=QuantizerConfig(kind="ste", num_embeddings=1024,
+                                  embedding_dim=256)))
 
     @property
     def volume_size(self) -> int:
         return self.latent_size * self.vqvae.spatial_factor
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """The optimizer, EMA and seed settings of stage-2 training."""
+
+    batch_size: int = 8                # global batch ("ref" loss divisor)
+    learning_rate: float = 1e-4
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    seed: int = 0
+    # EMA of the U-Net weights, used for sampling when > 0
+    ema_decay: float = 0.0
+
+
 def flagship_cfg(tiny: bool = False) -> DiffusionConfig:
     """The flagship conditional latent-diffusion model: T=500 eps-prediction
     DDPM on 8^3 x 256 latents of a 128^3 volume, stem 256 / widths
     (256, 512) U-Net with cross-attention at the 4^3 level and in the
-    middle, 4 classes plus a null row, and a 4-level GroupNorm VQ decoder.
+    middle, 4 classes plus a null row, a 4-level GroupNorm VQ-VAE and an
+    STE quantizer with K=1024, D=256.
     `tiny=True` gives the small variant the parity tests run on the CPU
-    (T=8, 4^3 x 8 latents, 16^3 volumes)."""
+    (T=8, 4^3 x 8 latents, 16^3 volumes, K=16)."""
     if tiny:
         vq = VQVAEConfig(
-            out_channels=1,
+            in_channels=1, out_channels=1,
             num_channels=(4, 8), num_res_channels=(4, 8), num_res_layers=1,
-            downsample_stride=(2, 2),
+            downsample_stride=(2, 2), downsample_kernel=(4, 4),
             upsample_stride=(2, 2), upsample_kernel=(4, 4),
-            quantizer=QuantizerConfig(embedding_dim=8))
+            quantizer=QuantizerConfig(kind="ste", num_embeddings=16,
+                                      embedding_dim=8))
         unet = UNetConfig(widths=(8, 16), has_attention=(False, True),
                           num_res_blocks=1, first_conv_channels=8,
                           context_dim=1)
@@ -114,12 +142,13 @@ def flagship_cfg(tiny: bool = False) -> DiffusionConfig:
                       num_res_blocks=2, first_conv_channels=256,
                       context_dim=3, cfg_dropout=0.1)
     vq = VQVAEConfig(
-        out_channels=1, num_res_layers=5, norm="group",
+        in_channels=1, out_channels=1, num_res_layers=5, norm="group",
         num_channels=(32, 64, 128, 256),
         num_res_channels=(32, 64, 128, 256),
-        downsample_stride=(2, 2, 2, 2),
+        downsample_stride=(2, 2, 2, 2), downsample_kernel=(4, 4, 4, 4),
         upsample_stride=(2, 2, 2, 2), upsample_kernel=(4, 4, 4, 4),
-        quantizer=QuantizerConfig(embedding_dim=256))
+        quantizer=QuantizerConfig(kind="ste", num_embeddings=1024,
+                                  embedding_dim=256))
     return DiffusionConfig(timesteps=500, latent_size=8,
                            latent_channels=256, unet=unet, vqvae=vq,
                            latent_scale=20.834, clip_sample_range=0.0)

@@ -1,5 +1,5 @@
-"""The T-step DDPM reverse process of `ldm3d.diffusion.ddpm`, as a Python
-loop of denoiser calls.
+"""The DDPM training loss and the T-step reverse process of
+`ldm3d.diffusion.ddpm`, the latter as a Python loop of denoiser calls.
 
 Noise comes from a `torch.Generator`, or is injected: `init_noise` is x_T
 and `step_noise(t)` the noise added at timestep t. Injection lets a test
@@ -12,7 +12,24 @@ from typing import Callable, Optional
 
 import torch
 
-from ldm3d_torch.diffusion.schedule import Schedule, posterior
+from ldm3d_torch.diffusion.schedule import Schedule, posterior, q_sample
+
+
+def diffusion_train_loss(sched: Schedule, latents: torch.Tensor,
+                         pred_noise_fn: Callable, t: torch.Tensor,
+                         noise: torch.Tensor, global_batch: int,
+                         loss_scaling: str = "reference") -> torch.Tensor:
+    """Diffuse `latents` to timesteps t with `noise`, predict, and return
+    the loss. "reference" scaling is SUM-MSE / (global_batch * lc^4) with
+    lc the latent channels; "mean" is the mean MSE. t and noise are the
+    caller's draws (the JAX function draws them from its key)."""
+    noisy = q_sample(sched, latents, t, noise)
+    pred = pred_noise_fn(noisy, t)
+    err = torch.square(noise.float() - pred.float())
+    if loss_scaling == "reference":
+        lc = latents.shape[-1]
+        return err.sum() / (global_batch * float(lc) ** 4)
+    return err.mean()
 
 
 def ddpm_sample_step(sched: Schedule, x: torch.Tensor,

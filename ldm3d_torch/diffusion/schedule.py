@@ -1,9 +1,11 @@
 """DDPM noise schedule: the coefficient tables of `ldm3d.diffusion.schedule`.
 
 Linear beta in [beta_start, beta_end] over T steps, precomputed in float64
-and held as float32 tables. The tables stay on the CPU: the sampler reads
-one timestep at a time as Python scalars, so no per-step gather runs on the
-device.
+and held as float32 tables. `make_schedule` puts the tables on the CPU:
+the sampler reads one timestep at a time as Python scalars, so no per-step
+gather runs on the device. The training functions (`q_sample`, `v_target`,
+`min_snr_weight`) gather a batch of timesteps on t's device;
+`Schedule.to(device)` gives a copy there.
 """
 
 from __future__ import annotations
@@ -28,6 +30,15 @@ class Schedule(NamedTuple):
     def timesteps(self) -> int:
         return self.beta.shape[0]
 
+    def to(self, device) -> "Schedule":
+        return Schedule(*(tab.to(device) for tab in self))
+
+    def gather(self, t: torch.Tensor) -> "Schedule":
+        """All tables at the batched timesteps t, shaped [B, 1, 1, 1, 1] to
+        broadcast over a [B, H, W, D, C] volume."""
+        return Schedule(*(tab.to(t.device)[t.long()].reshape(-1, 1, 1, 1, 1)
+                          for tab in self))
+
 
 def make_schedule(timesteps: int, beta_start: float = 1e-4,
                   beta_end: float = 0.02) -> Schedule:
@@ -51,9 +62,39 @@ def make_schedule(timesteps: int, beta_start: float = 1e-4,
     )
 
 
+def q_sample(sched: Schedule, latents: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion x_t = sqrt(abar_t) x_0 + sqrt(1 - abar_t) eps."""
+    g = sched.gather(t)
+    return (g.sqrt_alpha_bar.to(latents.dtype) * latents
+            + g.sqrt_one_minus_alpha_bar.to(latents.dtype) * noise)
+
+
+def v_target(sched: Schedule, latents: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """v = sqrt(abar_t) eps - sqrt(1 - abar_t) x_0 (Salimans & Ho 2022)."""
+    g = sched.gather(t)
+    return (g.sqrt_alpha_bar.to(noise.dtype) * noise
+            - g.sqrt_one_minus_alpha_bar.to(noise.dtype) * latents)
+
+
+def min_snr_weight(sched: Schedule, t: torch.Tensor, gamma: float,
+                   prediction_type: str) -> torch.Tensor:
+    """Min-SNR-gamma loss weight (Hang et al. 2023): min(SNR, gamma) / SNR
+    for eps-prediction, min(SNR, gamma) / (SNR + 1) for v-prediction;
+    [B, 1, 1, 1, 1]."""
+    g = sched.gather(t)
+    snr = g.alpha_bar / (1.0 - g.alpha_bar)
+    clipped = torch.clamp(snr, max=gamma)
+    if prediction_type == "v":
+        return clipped / (snr + 1.0)
+    return clipped / snr
+
+
 def model_out_to_eps(sched: Schedule, x_t: torch.Tensor, t: torch.Tensor,
                      out: torch.Tensor, prediction_type: str) -> torch.Tensor:
-    """Model output in eps-space. Only eps-prediction is ported."""
+    """Model output in eps-space. Only eps-prediction is ported for
+    sampling (v-prediction is ported for training only)."""
     if prediction_type == "eps":
         return out
     if prediction_type == "v":

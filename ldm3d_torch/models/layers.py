@@ -18,6 +18,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ldm3d_torch.models.quantizers import VectorQuantizerSTE
+
 _Int3 = Union[int, Tuple[int, int, int]]
 
 
@@ -36,20 +38,26 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 class Conv3d(nn.Module):
     """3D convolution with TF/flax 'SAME' padding: the counterpart of
-    `ldm3d.models.layers.conv3d` (flax `nn.Conv`, padding="SAME").
-    Weight (out, in, kd, kh, kw); dense layers are `nn.Linear`, weight
-    (out, in)."""
+    `ldm3d.models.layers.conv3d` (flax `nn.Conv`, padding="SAME"), or with
+    no padding for padding="VALID". Weight (out, in, kd, kh, kw); dense
+    layers are `nn.Linear`, weight (out, in)."""
 
     def __init__(self, in_channels: int, features: int, kernel: _Int3 = 3,
-                 stride: _Int3 = 1, use_bias: bool = True):
+                 stride: _Int3 = 1, use_bias: bool = True,
+                 padding: str = "SAME"):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding {padding!r}")
         self.kernel = _triple(kernel)
         self.stride = _triple(stride)
+        self.padding = padding
         self.weight = nn.Parameter(
             torch.empty(features, in_channels, *self.kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.padding == "VALID":
+            return F.conv3d(x, self.weight, self.bias, self.stride)
         pads = [same_pads(n, k, s) for n, k, s in
                 zip(x.shape[2:], self.kernel, self.stride)]
         if all(lo == hi for lo, hi in pads):
@@ -145,7 +153,17 @@ def act_layer(name: Optional[str], channels: int) -> nn.Module:
 
 
 class _BatchNorm(nn.Module):
-    """flax BatchNorm in eval mode: running statistics, eps 1e-3."""
+    """flax BatchNorm(momentum=0.99, epsilon=1e-3) over the channels of an
+    NCDHW volume.
+
+    Eval mode normalises with the running statistics. Training mode
+    normalises with the batch's mean and *biased* variance and updates
+    ra = 0.99 * ra + 0.01 * batch, as flax does. The update is computed
+    here: `F.batch_norm(training=True)` would store the unbiased variance
+    and reads its momentum as 1 - 0.99."""
+
+    momentum = 0.99
+    eps = 1e-3
 
     def __init__(self, channels: int):
         super().__init__()
@@ -155,8 +173,21 @@ class _BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=False, eps=1e-3)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=False,
+                                eps=self.eps)
+        dims = [0, *range(2, x.dim())]
+        var, mean = torch.var_mean(x, dim=dims, correction=0)
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(
+                mean, alpha=1.0 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(
+                var, alpha=1.0 - self.momentum)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) \
+            + self.bias.view(shape)
 
 
 class _GroupNorm(nn.Module):
@@ -190,7 +221,7 @@ class Norm(nn.Module):
     """Norm selector over the channels of an NCDHW volume ("batch",
     "group" or "none"; the JAX package's "layer" is not ported). The inner
     module's name follows the flax tree (`BatchNorm_0`, `GroupNorm_0`).
-    Eval mode only: BatchNorm reads running statistics."""
+    BatchNorm follows the module's train/eval mode."""
 
     def __init__(self, kind: str, channels: int, num_groups: int = 32):
         super().__init__()
@@ -224,9 +255,10 @@ def init_params_(module: nn.Module, generator: torch.Generator
 
     Every conv, transposed-conv and dense weight is glorot-uniform (the
     scale of the JAX package's own init), embeddings are N(0, 1), biases
-    zero, norms identity, BatchNorm statistics (0, 1) and PReLU slopes
-    0.25. Unlike the JAX init, no layer is zero-initialised: with random
-    weights every layer, attention included, reaches the output."""
+    zero, norms identity, BatchNorm statistics (0, 1), PReLU slopes 0.25,
+    codebooks U(-sqrt(6 / K), sqrt(6 / K)) (the JAX init) and usage
+    counters zero. Unlike the JAX init, no layer is zero-initialised: with
+    random weights every layer, attention included, reaches the output."""
     for m in module.modules():
         if isinstance(m, (Conv3d, ConvTranspose3d)):
             w = m.weight
@@ -254,4 +286,8 @@ def init_params_(module: nn.Module, generator: torch.Generator
                 m.running_var.fill_(1.0)
         elif isinstance(m, PReLU):
             m.alpha.fill_(0.25)
+        elif isinstance(m, VectorQuantizerSTE):
+            a = math.sqrt(6.0 / m.num_embeddings)
+            m.codebook.uniform_(-a, a, generator=generator)
+            m.codebooks_used.zero_()
     return module

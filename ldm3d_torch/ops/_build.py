@@ -6,6 +6,8 @@ loaded with `ctypes`. The library goes into `ldm3d_torch/_build/` under a
 name that carries a hash of the source and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. The compiler writes to
 a temporary name that is renamed into place: there is no lock file.
+`load_all` starts one nvcc per missing source, all at once, and waits for
+each.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import subprocess
 import tempfile
 import time
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -52,41 +54,78 @@ def _nvcc() -> str:
                        "to build the port's CUDA kernels")
 
 
-def _compile(name: str) -> Built:
+@dataclass
+class _Job:
+    name: str
+    so: str
+    log: str
+    tmp: str = ""
+    proc: Optional[subprocess.Popen] = None
+    t0: float = 0.0
+
+
+def _start(name: str) -> _Job:
+    """Start nvcc on `csrc/<name>.cu` unless its library is built."""
     src = os.path.join(CSRC, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     so = os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
-    log = so + ".ptxas.txt"
-    seconds, ptxas = 0.0, ""
+    job = _Job(name, so, so + ".ptxas.txt")
     if not os.path.exists(so):
+        nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(prefix=f".{name}_", suffix=".so",
-                                   dir=BUILD_DIR)
+        fd, job.tmp = tempfile.mkstemp(prefix=f".{name}_", suffix=".so",
+                                       dir=BUILD_DIR)
         os.close(fd)
-        t0 = time.perf_counter()
+        job.t0 = time.perf_counter()
+        job.proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", job.tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return job
+
+
+def _finish(job: _Job) -> Built:
+    """Wait for the job's nvcc (if any) and load the library."""
+    seconds, ptxas = 0.0, ""
+    if job.proc is not None:
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-            os.replace(tmp, so)
+            _, ptxas = job.proc.communicate()
+            if job.proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {job.name}.cu:\n{ptxas}")
+            os.replace(job.tmp, job.so)
         finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        seconds = time.perf_counter() - t0
-        ptxas = proc.stderr
-        with open(log, "w") as f:
+            if os.path.exists(job.tmp):
+                os.remove(job.tmp)
+        seconds = time.perf_counter() - job.t0
+        with open(job.log, "w") as f:
             f.write(ptxas)
-    elif os.path.exists(log):
-        with open(log) as f:
+    elif os.path.exists(job.log):
+        with open(job.log) as f:
             ptxas = f.read()
-    return Built(name, so, seconds, ptxas, ctypes.CDLL(so))
+    return Built(job.name, job.so, seconds, ptxas, ctypes.CDLL(job.so))
+
+
+def load_all(names: Sequence[str]) -> List[Built]:
+    """The kernel libraries `csrc/<name>.cu`, built at first use: one nvcc
+    per missing source, all started together, each waited for."""
+    jobs, failure = [], None
+    for name in dict.fromkeys(names):
+        if name not in _LOADED:
+            try:
+                jobs.append(_start(name))
+            except Exception as e:   # wait for the started ones first
+                failure = e
+                break
+    for job in jobs:
+        try:
+            _LOADED[job.name] = _finish(job)
+        except Exception as e:
+            failure = failure or e
+    if failure is not None:
+        raise failure
+    return [_LOADED[n] for n in names]
 
 
 def load(name: str) -> Built:
     """The kernel library `csrc/<name>.cu`, built at first use."""
-    if name not in _LOADED:
-        _LOADED[name] = _compile(name)
-    return _LOADED[name]
-
+    return load_all([name])[0]

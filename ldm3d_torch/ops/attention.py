@@ -5,12 +5,20 @@ the GPU it launches the hand-written CUDA kernel (`csrc/voxel_attention.cu`,
 the counterpart of the TPU kernel `_flash_kernel`); for tensors on the CPU
 it computes the plain PyTorch version. A CUDA tensor never falls back to
 the plain version: the kernel runs or the call raises.
+
+The kernel is forward only and writes into a tensor autograd knows nothing
+of, so when a gradient is needed the CUDA route goes through
+`VoxelAttentionFn`: its forward launches the kernel, its backward
+recomputes the plain version from the saved q, k, v and returns that
+version's vector-Jacobian products. The TPU kernel has no backward to port
+(JAX training differentiates the XLA path). Without a gradient (serving)
+the kernel is called directly, which spares the Function's host work.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -109,6 +117,32 @@ def voxel_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+class VoxelAttentionFn(torch.autograd.Function):
+    """Attention with a given forward and the plain version's gradient.
+
+    `apply(q, k, v, scale, forward)`: `forward(q, k, v, scale)` computes
+    the output (the CUDA kernel on the card; any function of the same
+    value, e.g. the plain version in a CPU test). The backward recomputes
+    `_attention_reference` under autograd from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: float, forward: Callable) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = _attention_reference(*inputs, ctx.scale)
+        grads = torch.autograd.grad(out, inputs, grad_out)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad[:3])) + (None, None)
+
+
 def voxel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Softmax attention over flattened voxel sequences.
@@ -121,4 +155,7 @@ def voxel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = float(q.shape[-1]) ** -0.5
     if q.device.type == "cpu":
         return _attention_reference(q, k, v, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return VoxelAttentionFn.apply(q, k, v, scale, voxel_attention_cuda)
     return voxel_attention_cuda(q, k, v, scale)

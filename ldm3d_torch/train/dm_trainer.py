@@ -1,31 +1,54 @@
-"""Latent diffusion sampling: the port of the `ddpm` + decode path of
-`ldm3d.train.dm_trainer` (`LatentDiffusion`, `DiffusionTrainer.generate_fn`).
+"""Stage-2 latent diffusion: the port of `ldm3d.train.dm_trainer`
+(`LatentDiffusion`, `DiffusionTrainer`): encode volumes through the frozen
+VQ-VAE, train the U-Net on volumes or on cached latents, and sample with
+the `ddpm` chain + decode.
 
-Training is not ported yet: this module holds the frozen VQ decoder, the
-denoiser and, when loaded, the denoiser's EMA weights, and samples.
+The Python loop over `train_step_latents` is the counterpart of
+`train_epoch_latents`, whose `lax.scan` only saved TPU dispatches.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
-from ldm3d_torch.core.config import DiffusionConfig
+from ldm3d_torch.core.config import DiffusionConfig, TrainConfig
 from ldm3d_torch.core.device import resolve_device
 from ldm3d_torch.diffusion.ddpm import sample_latents
-from ldm3d_torch.diffusion.schedule import make_schedule, model_out_to_eps
+from ldm3d_torch.diffusion.schedule import (make_schedule, min_snr_weight,
+                                            model_out_to_eps, q_sample,
+                                            v_target)
 from ldm3d_torch.models.layers import init_params_
 from ldm3d_torch.models.unet3d import UNet3D
 from ldm3d_torch.models.vqvae import VQVAE
 
 
+def auto_latent_scale(lat_std: float, cfg: DiffusionConfig,
+                      explicit: Optional[float] = None,
+                      clip: Optional[float] = None) -> DiffusionConfig:
+    """The `--cache_latents` rule for the diffusion space's scale.
+
+    Given the std of the cached latents (in diffusion space), returns `cfg`
+    with latent_scale = 1 / std and clip_sample_range = `clip` (0 when not
+    given) only when no scale was given (`explicit` is None), the config's
+    scale is 1.0, |std - 1| > 0.05 and std > 1e-8; else `cfg` unchanged."""
+    if (explicit is None and cfg.latent_scale == 1.0
+            and abs(lat_std - 1.0) > 0.05 and lat_std > 1e-8):
+        return dataclasses.replace(
+            cfg, latent_scale=1.0 / lat_std,
+            clip_sample_range=clip if clip is not None else 0.0)
+    return cfg
+
+
 class LatentDiffusion(nn.Module):
-    """Frozen VQ-VAE (decoder) and the U-Net denoiser under one module, so
-    that both state dicts share one prefix tree (`unet.*`,
-    `vqvae.decoder.*`), as the flax parameter tree does."""
+    """Frozen VQ-VAE and the U-Net denoiser under one module, so that both
+    state dicts share one prefix tree (`unet.*`, `vqvae.encoder.*`,
+    `vqvae.quantizer.*`, `vqvae.decoder.*`), as the flax tree does."""
 
     def __init__(self, cfg: DiffusionConfig):
         super().__init__()
@@ -34,6 +57,14 @@ class LatentDiffusion(nn.Module):
         self.unet = UNet3D(cfg.unet, out_channels=cfg.latent_channels,
                            in_channels=cfg.latent_channels,
                            latent_size=cfg.latent_size)
+
+    def encode_latents(self, images: torch.Tensor) -> torch.Tensor:
+        """Volumes (NDHWC) -> quantized latents (NDHWC) times latent_scale,
+        the diffusion space."""
+        q, _ = self.vqvae.encode_quantize(images)
+        if self.cfg.latent_scale != 1.0:
+            q = q * self.cfg.latent_scale
+        return q
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Latents in diffusion space (NDHWC) -> volumes (NDHWC); divides by
@@ -44,10 +75,17 @@ class LatentDiffusion(nn.Module):
 
 
 class DiffusionTrainer:
-    """Owns the model on one device and samples from it (eval mode)."""
+    """Owns the model on one device; trains the U-Net and samples from it.
 
-    def __init__(self, cfg: DiffusionConfig, device=None):
+    The VQ-VAE is frozen: always in eval mode, outside the optimizer. The
+    U-Net is in train mode only inside a train step. t, noise and the
+    context-drop mask of a step come from `self.generator` (on this
+    trainer's device, seeded with `train_cfg.seed`) unless injected."""
+
+    def __init__(self, cfg: DiffusionConfig, device=None,
+                 train_cfg: Optional[TrainConfig] = None):
         self.cfg = cfg
+        self.train_cfg = train_cfg or TrainConfig()
         self.device = resolve_device(device)
         self.conditional = cfg.unet.context_dim is not None
         self.model = LatentDiffusion(cfg).to(self.device).eval()
@@ -55,6 +93,11 @@ class DiffusionTrainer:
         self.ema_unet: Optional[UNet3D] = None
         self.sched = make_schedule(cfg.timesteps, cfg.beta_start,
                                    cfg.beta_end)
+        self._sched_dev = self.sched.to(self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.train_cfg.seed)
+        self.optimizer: Optional[torch.optim.Adam] = None
+        self.step = 0
 
     def init_random(self, seed: int) -> "DiffusionTrainer":
         """Seeded random weights (see `layers.init_params_`)."""
@@ -71,7 +114,138 @@ class DiffusionTrainer:
         if ema_unet_state is not None:
             ema = copy.deepcopy(self.model.unet)
             ema.load_state_dict(ema_unet_state, strict=True)
-            self.ema_unet = ema.eval()
+            self.ema_unet = ema.eval().requires_grad_(False)
+
+    def set_latent_scale(self, latent_scale: float,
+                         clip_sample_range: float) -> None:
+        """Adopt a new diffusion-space scale (e.g. `auto_latent_scale`'s)."""
+        self.cfg = dataclasses.replace(self.cfg, latent_scale=latent_scale,
+                                       clip_sample_range=clip_sample_range)
+        self.model.cfg = self.cfg
+
+    # -- train ------------------------------------------------------------
+
+    @torch.no_grad()
+    def encode_latents(self, images: torch.Tensor) -> torch.Tensor:
+        """Quantized latents of volumes (NDHWC) in diffusion space, under
+        the frozen stage-1 in eval mode: deterministic, so they can be
+        computed once per corpus and trained on (`train_step_latents`)."""
+        return self.model.encode_latents(images.to(self.device).float())
+
+    def _optimizer(self) -> torch.optim.Adam:
+        """Adam over the U-Net only (optax `adam` math, eps 1e-8), and the
+        EMA copy of the U-Net, both made at the first step."""
+        if self.optimizer is None:
+            unet = self.model.unet
+            unet.requires_grad_(True)
+            tc = self.train_cfg
+            self.optimizer = torch.optim.Adam(
+                unet.parameters(), lr=tc.learning_rate,
+                betas=(tc.adam_b1, tc.adam_b2), eps=1e-8)
+        if self.train_cfg.ema_decay > 0 and self.ema_unet is None:
+            self.ema_unet = copy.deepcopy(self.model.unet).eval()
+            self.ema_unet.requires_grad_(False)
+        return self.optimizer
+
+    def _draws(self, shape, t, noise, drop):
+        b, gen, dev = shape[0], self.generator, self.device
+        if t is None:
+            t = torch.randint(0, self.cfg.timesteps, (b,), generator=gen,
+                              device=dev)
+        if noise is None:
+            noise = torch.randn(shape, generator=gen, device=dev)
+        if drop is None and self.conditional and self.cfg.unet.cfg_dropout > 0:
+            drop = torch.rand(b, generator=gen, device=dev) \
+                < self.cfg.unet.cfg_dropout
+        return (t.to(dev).long(), noise.to(dev, torch.float32),
+                None if drop is None else drop.to(dev).bool())
+
+    def _train_on(self, latents: torch.Tensor,
+                  context: Optional[torch.Tensor], t, noise, drop
+                  ) -> Dict[str, torch.Tensor]:
+        cfg, tc = self.cfg, self.train_cfg
+        opt = self._optimizer()
+        unet = self.model.unet
+        latents = latents.detach().float()
+        b = latents.shape[0]
+        t, noise, drop = self._draws(latents.shape, t, noise, drop)
+        if self.conditional:
+            context = torch.zeros(b, dtype=torch.long, device=self.device) \
+                if context is None else context.to(self.device).long()
+            if cfg.unet.cfg_dropout > 0:
+                # train the null token on a random subset of the batch
+                context = torch.where(drop, cfg.unet.context_dim + 1,
+                                      context)
+        else:
+            context = None
+
+        unet.train()
+        try:
+            pred = unet(q_sample(self._sched_dev, latents, t, noise), t,
+                        context)
+        finally:
+            unet.eval()
+        target = v_target(self._sched_dev, latents, t, noise) \
+            if cfg.prediction_type == "v" else noise
+        err = torch.square(target - pred.float())
+        if cfg.min_snr_gamma is not None:
+            err = err * min_snr_weight(self._sched_dev, t, cfg.min_snr_gamma,
+                                       cfg.prediction_type)
+        # "loss" is always reported in the reference's SUM-MSE /
+        # (global batch * lc^4) scale; the gradient follows loss_reduction
+        ref_loss = err.sum() / (tc.batch_size * float(cfg.latent_channels)
+                                ** 4)
+        mse = err.mean()
+        opt.zero_grad(set_to_none=True)
+        (ref_loss if cfg.loss_reduction == "ref" else mse).backward()
+        opt.step()
+        self._update_ema()
+        self.step += 1
+        return {"loss": ref_loss.detach(), "noise_mse": mse.detach()}
+
+    @torch.no_grad()
+    def _update_ema(self) -> None:
+        """ema = d * ema + (1 - d) * params with the warm-up
+        d = min(decay, (1 + n) / (10 + n)) at step n, in float32; the EMA
+        copy reads the live BatchNorm statistics."""
+        if self.ema_unet is None:
+            return
+        n = np.float32(self.step)
+        d = min(np.float32(self.train_cfg.ema_decay),
+                (np.float32(1) + n) / (np.float32(10) + n))
+        ema = list(self.ema_unet.parameters())
+        torch._foreach_mul_(ema, float(d))
+        torch._foreach_add_(ema, list(self.model.unet.parameters()),
+                            alpha=float(np.float32(1) - d))
+        for e, b in zip(self.ema_unet.buffers(), self.model.unet.buffers()):
+            e.copy_(b)
+
+    def train_step(self, images: torch.Tensor,
+                   context: Optional[torch.Tensor] = None,
+                   t: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   drop: Optional[torch.Tensor] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One step on volumes (NDHWC): encode through the frozen stage-1,
+        then as `train_step_latents`."""
+        return self._train_on(self.encode_latents(images), context, t, noise,
+                              drop)
+
+    def train_step_latents(self, latents: torch.Tensor,
+                           context: Optional[torch.Tensor] = None,
+                           t: Optional[torch.Tensor] = None,
+                           noise: Optional[torch.Tensor] = None,
+                           drop: Optional[torch.Tensor] = None
+                           ) -> Dict[str, torch.Tensor]:
+        """One step on latents in diffusion space (NDHWC): t ~ U[0, T),
+        Gaussian noise and, with cfg_dropout, the null context token on a
+        Bernoulli(cfg_dropout) subset, unless injected (t [B] int, noise
+        like latents, drop [B] bool). Returns {"loss" (reference scale),
+        "noise_mse"} as 0-dim tensors on the device."""
+        return self._train_on(latents.to(self.device), context, t, noise,
+                              drop)
+
+    # -- sampling ---------------------------------------------------------
 
     @torch.no_grad()
     def generate(self, latent_shape, context: Optional[torch.Tensor] = None,

@@ -57,6 +57,7 @@ def jax_side():
 def _port(st):
     tree = {"params": jax.device_get(st.params),
             "batch_stats": jax.device_get(st.batch_stats),
+            "vq_stats": jax.device_get(st.vq_stats),
             "ema_params": jax.device_get(st.ema_params)}
     model_state, ema_state = convert_state(tree)
     tt = DiffusionTrainer(flagship_cfg(tiny=True), device="cpu")
@@ -128,13 +129,16 @@ def test_flat_npz_keys_convert_like_the_tree(jax_side, tmp_path):
     tree_model, tree_ema = convert_state(
         {"params": jax.device_get(st.params),
          "batch_stats": jax.device_get(st.batch_stats),
+         "vq_stats": jax.device_get(st.vq_stats),
          "ema_params": jax.device_get(st.ema_params)})
     assert flat_model.keys() == tree_model.keys()
     assert flat_ema.keys() == tree_ema.keys()
     for k in tree_model:
         assert torch.equal(flat_model[k], tree_model[k]), k
-    # the encoder and quantizer are not ported and are skipped
-    assert not any(k.startswith("vqvae.encoder") for k in flat_model)
+    # the encoder, the codebook and its usage counter are mapped too
+    assert any(k.startswith("vqvae.encoder.") for k in flat_model)
+    assert flat_model["vqvae.quantizer.codebook"].shape == (16, 8)
+    assert "vqvae.quantizer.codebooks_used" in flat_model
     # the converted state loads strictly into the port's model
     tt = DiffusionTrainer(flagship_cfg(tiny=True), device="cpu")
     tt.load_state_dicts(flat_model, flat_ema)

@@ -2,9 +2,10 @@
 jax, flax or optax.
 
 A subprocess blocks `jax`, `flax`, `optax` and the JAX package `ldm3d` in
-`sys.modules` before anything is imported, then imports `chip_smoke` and
-serves the tiny slice on the CPU. The sources of the port and of
-`chip_smoke.py` are also searched for such imports.
+`sys.modules` before anything is imported, then imports `chip_smoke`,
+serves the tiny slice and runs the tiny training slice (encode, latent
+scale, steps on volumes and on latents) on the CPU. The sources of the
+port and of `chip_smoke.py` are also searched for such imports.
 """
 
 import os
@@ -32,6 +33,21 @@ svc = GenerationService.from_random_init(flagship_cfg(tiny=True), seed=0,
                                          device="cpu")
 vols = svc.generate(num=2, context=1, seed=3)
 assert vols.shape == (2, 16, 16, 16, 1) and np.isfinite(vols).all()
+import torch
+from ldm3d_torch.core.config import TrainConfig
+from ldm3d_torch.train.dm_trainer import DiffusionTrainer, auto_latent_scale
+tr = DiffusionTrainer(flagship_cfg(tiny=True), device="cpu",
+                      train_cfg=TrainConfig(batch_size=2, ema_decay=0.999))
+tr.init_random(0)
+images = torch.from_numpy(vols)
+lat = tr.encode_latents(images)
+cfg = auto_latent_scale(float(lat.std()), tr.cfg)
+tr.set_latent_scale(cfg.latent_scale, cfg.clip_sample_range)
+ctx = torch.tensor([1, 0])
+for m in (tr.train_step(images, ctx),
+          tr.train_step_latents(lat * cfg.latent_scale, ctx)):
+    assert all(np.isfinite(float(v)) for v in m.values()), m
+assert tr.step == 2 and tr.ema_unet is not None
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
 assert not loaded, loaded
