@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                        # every phase below
+    python3 chip_smoke.py --train-compare-check  # device, build, train and
+                                                 # train_compare_check only
 
 Phases, one line each (flush=True); any failure raises and the exit code is
 not 0:
@@ -12,6 +14,9 @@ not 0:
                 with CUDA-event times beside its bound and a library yardstick:
                 device time from a replayed CUDA graph of 200 calls, and
                 eager time (host work per call included) beside it
+     kernel_shapes  both kernels at odd shapes (widths that are no multiple
+                of 16 bytes, one row, many key and code tiles) against the
+                plain versions, untimed
   4. attention_grad  gradients through the attention kernel's autograd
                 Function against plain autograd, at the train shape
   5. unet_step  one full-width U-Net step on the card against the CPU, f32
@@ -27,8 +32,9 @@ not 0:
                 batches of 8 volumes (as --cache_latents does), derives the
                 latent scale, and takes 3 steps on volumes and 3 on cached
                 latents; the counters are zeroed before and read after
- 10. train_compare  one latent step at batch 2 on the card against the CPU
-                with injected draws: loss, gradients, parameter changes
+ 10. train_compare  one latent step at batch 2 on the card against a
+                float64 CPU step with injected draws: loss, gradients,
+                parameter changes
  11. train_breakdown  encode and step times, attention's share of a step,
                 and a torch.profiler table of two latent steps (device time
                 by kernel, the device's busy share)
@@ -56,18 +62,23 @@ import torch  # noqa: E402
 import ldm3d_torch.ops.attention as attn  # noqa: E402
 import ldm3d_torch.ops.quantize as cbq  # noqa: E402
 from ldm3d_torch.core.config import TrainConfig, flagship_cfg  # noqa: E402
+from ldm3d_torch.models import unet3d  # noqa: E402
 from ldm3d_torch.models.layers import init_params_  # noqa: E402
 from ldm3d_torch.models.unet3d import (AttentionBlock,  # noqa: E402
-                                       CrossAttentionBlock, UNet3D)
+                                       CrossAttentionBlock, TimeEmbedding,
+                                       UNet3D)
 from ldm3d_torch.models.vqvae import VQVAE  # noqa: E402
 from ldm3d_torch.ops import _build  # noqa: E402
 from ldm3d_torch.serve import GenerationService  # noqa: E402
 from ldm3d_torch.train.dm_trainer import (DiffusionTrainer,  # noqa: E402
                                           auto_latent_scale)
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense), at a 700 W limit.
+# Published H100 SXM peaks (NVIDIA data sheet, dense), at a 700 W limit:
+# the tensor cores' rate for each input type (float32 at the TF32 rate,
+# the fastest units that can do the work), and float32 FMA outside them.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12}
+FMA_FLOPS = 67e12
 SEED = 0
 REQUESTS = [dict(num=16, context=1, seed=1), dict(num=16, context=0, seed=2),
             dict(num=16, context=1, seed=1)]
@@ -93,13 +104,15 @@ ATTN_GRAD_TOL = 1e-5
 ENCODE_SIZE = 128      # the volume the encode phase checks against the CPU
 TRAIN_BATCH = 8        # TrainConfig.batch_size
 TRAIN_STEPS = 3        # steps on volumes, then as many on cached latents
-# Train step, card vs CPU (f32 without TF32), from one state with a fresh
-# optimizer:
+# Train step, card (f32 without TF32) vs a float64 CPU step, from one
+# state with a fresh optimizer:
 #  - the loss to 1e-4 relative (5e-6 is the forward's agreement);
 #  - Adam's first moment (0.1 x the gradient) to 1e-3 of its largest
-#    value: cuDNN and oneDNN pick their own backward algorithms for each
-#    3D conv and sum weight gradients over up to 2 x 8^3 x 27 products in
-#    other orders; 1.0e-4 was measured on an H100 80GB HBM3;
+#    value: the card sums weight gradients over up to 2 x 8^3 x 27
+#    products in float32 (1.1e-4 measured on an H100 80GB HBM3). The
+#    reference was the CPU's float32 step until the check run
+#    (--train-compare-check) showed that step 4.3e-4 from float64 where the
+#    card is 5e-8 from it;
 #  - parameter changes, lr * g / (|g| + 1e-8) after one step, to 1e-2 lr
 #    where |g| >= 1e-6: there a gradient error of 1e-6 of the largest
 #    gradient moves the step by under 1e-2 lr; below, Adam scales float32
@@ -168,14 +181,22 @@ def graph_ms(fn, iters: int, warmup: int = 5, replays: int = 3) -> float:
     return ms
 
 
-def attention_bound_ms(b, nq, nkv, c, dtype) -> tuple[float, str]:
-    """Least time for the work: each input read once and the output written
-    once over HBM, or 4 * b * nq * nkv * c operations at the type's peak."""
+def _bound(t_bytes: float, ops: float, dtype) -> dict:
+    """The least time for `ops` operations moving `t_bytes` seconds of
+    HBM traffic: at the type's tensor-core peak (bound_ms, bound_by), and
+    at the float32 FMA peak (fma_bound_ms)."""
+    t_ops = ops / PEAK_FLOPS[dtype]
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                fma_bound_ms=1e3 * max(t_bytes, ops / FMA_FLOPS))
+
+
+def attention_bound(b, nq, nkv, c, dtype) -> dict:
+    """Each input read once and the output written once over HBM, and
+    4 * b * nq * nkv * c operations."""
     item = torch.tensor([], dtype=dtype).element_size()
     t_bytes = (2 * b * nq * c + 2 * b * nkv * c) * item / HBM_BYTES_PER_S
-    t_ops = 4 * b * nq * nkv * c / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
-        "operations"
+    return _bound(t_bytes, 4 * b * nq * nkv * c, dtype)
 
 
 class _NoTF32:
@@ -191,15 +212,12 @@ class _NoTF32:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def codebook_bound_ms(n, k, d, dtype) -> tuple[float, str]:
-    """Least time for the work: x and the codebook read once, ||c||^2 read
-    and the indices written once over HBM, or 2 * n * d * k operations at
-    the type's peak."""
+def codebook_bound(n, k, d, dtype) -> dict:
+    """x and the codebook read once, ||c||^2 read and the indices written
+    once over HBM, and 2 * n * d * k operations."""
     item = torch.tensor([], dtype=dtype).element_size()
     t_bytes = ((n + k) * d * item + 4 * k + 4 * n) / HBM_BYTES_PER_S
-    t_ops = 2 * n * d * k / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
-        "operations"
+    return _bound(t_bytes, 2 * n * d * k, dtype)
 
 
 def attention_calls_per_step(unet: UNet3D) -> int:
@@ -246,6 +264,9 @@ def phase_kernel(card: str) -> Dict[str, dict]:
         ("cross_ragged_bf16", 16, 64, 37, 512, torch.bfloat16),
         ("long_c64_f32", 2, 4096, 4096, 64, torch.float32),
         ("long_c64_bf16", 2, 4096, 4096, 64, torch.bfloat16),
+        ("smoke_c16_f32", 16, 64, 64, 16, torch.float32),  # smoke presets
+        ("odd_c100_f32", 4, 300, 257, 100, torch.float32),
+        ("wide_c1024_bf16", 2, 64, 64, 1024, torch.bfloat16),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
@@ -267,18 +288,16 @@ def phase_kernel(card: str) -> Dict[str, dict]:
                                 graph_ms(library, 200))
         eager = dict(ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 50),
                      library_ms=cuda_ms(library, 200))
-        bound, by = attention_bound_ms(b, nq, nkv, c, dt)
+        bound = attention_bound(b, nq, nkv, c, dt)
         say("kernel", case=name, shape=[b, nq, nkv, c], dtype=str(dt),
             max_abs_err=err, tol=ATTN_TOL[dt], ok=ok, ms=ms, plain_ms=plain_ms,
-            library_ms=lib_ms, eager=eager, bound_ms=bound, bound_by=by,
-            card=card)
+            library_ms=lib_ms, eager=eager, **bound, card=card)
         if not ok:
             raise RuntimeError(f"voxel_attention {name}: max_abs_err {err} "
                                f"> {ATTN_TOL[dt]}")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, eager_ms=eager["ms"],
-                             bound_ms=bound, bound_by=by,
-                             shape=[b, nq, nkv, c], dtype=str(dt))
+                             **bound, shape=[b, nq, nkv, c], dtype=str(dt))
     return results
 
 
@@ -301,6 +320,7 @@ def phase_codebook(card: str) -> Dict[str, dict]:
         ("train_bf16", 4096, 1024, 256, torch.bfloat16, False),
         ("ragged_f32", 4095, 1024, 256, torch.float32, False),
         ("duplicates_f32", 4096, 1024, 256, torch.float32, True),
+        ("d20_f32", 4096, 1024, 20, torch.float32, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
@@ -332,21 +352,76 @@ def phase_codebook(card: str) -> Dict[str, dict]:
                                 graph_ms(library, 200))
         eager = dict(ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 50),
                      library_ms=cuda_ms(library, 200))
-        bound, by = codebook_bound_ms(n, k, d, dt)
+        bound = codebook_bound(n, k, d, dt)
         say("kernel", kernel=cbq.KERNEL, case=name, shape=[n, k, d],
             dtype=str(dt), indices_differ=differ, max_abs_err=err,
             tol=CB_DIST_TOL, first_index_on_ties=dup or None, ok=ok, ms=ms,
-            plain_ms=plain_ms, library_ms=lib_ms, eager=eager,
-            bound_ms=bound, bound_by=by, card=card)
+            plain_ms=plain_ms, library_ms=lib_ms, eager=eager, **bound,
+            card=card)
         if not ok:
             raise RuntimeError(f"codebook_nearest {name}: distance gap "
                                f"{err} > {CB_DIST_TOL} or ties broken "
                                "wrongly")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, eager_ms=eager["ms"],
-                             bound_ms=bound, bound_by=by, shape=[n, k, d],
-                             dtype=str(dt))
+                             **bound, shape=[n, k, d], dtype=str(dt))
     return results
+
+
+# Odd shapes, untimed: each takes a path of the kernels' staging that the
+# timed cases do not.
+ATTN_SHAPES = [  # B, nq, nkv, C, dtype
+    (3, 1, 1, 1, torch.float32),          # one query and key, C = 1
+    (1, 65, 1000, 10, torch.float32),     # 4-byte copies, resident Q tile
+    (2, 70, 130, 33, torch.bfloat16),     # odd bf16 rows: 2-byte copies
+    (2, 130, 200, 100, torch.bfloat16),   # 4-byte copies, resident Q tile
+    (1, 17, 33, 600, torch.float32),      # a ragged last column slice
+    (2, 200, 300, 256, torch.float32),    # Q streamed over 5 key tiles
+]
+CB_SHAPES = [  # N, K, D, dtype
+    (37, 16, 8, torch.float32),           # the tiny slice
+    (100, 300, 7, torch.bfloat16),        # odd bf16 rows: 2-byte copies
+    (1000, 513, 3, torch.float32),        # 4-byte copies, ragged code tile
+    (257, 1000, 130, torch.bfloat16),     # 4-byte copies
+    (64, 2048, 520, torch.float32),       # 16 code tiles, 17 depth slices
+]
+
+
+def phase_kernel_shapes() -> None:
+    """Both kernels at ATTN_SHAPES and CB_SHAPES against the plain
+    versions, with the tolerances of the timed cases."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for b, nq, nkv, c, dt in ATTN_SHAPES:
+        q, k, v = (torch.randn(b, n, c, generator=gen, device="cuda").to(dt)
+                   for n in (nq, nkv, nkv))
+        out = attn.voxel_attention_cuda(q, k, v, c ** -0.5)
+        torch.cuda.synchronize()
+        ref = attn._attention_reference(q, k, v, c ** -0.5)
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = err <= ATTN_TOL[dt] and bool(torch.isfinite(out).all())
+        say("kernel_shapes", kernel=attn.KERNEL, shape=[b, nq, nkv, c],
+            dtype=str(dt), max_abs_err=err, tol=ATTN_TOL[dt], ok=ok)
+        if not ok:
+            raise RuntimeError(f"voxel_attention {[b, nq, nkv, c]} {dt}: "
+                               f"max_abs_err {err}")
+    for n, k, d, dt in CB_SHAPES:
+        x = torch.randn(n, d, generator=gen, device="cuda").to(dt)
+        cb = torch.randn(k, d, generator=gen, device="cuda")
+        idx = cbq.nearest_codebook_indices_cuda(x, cb)
+        torch.cuda.synchronize()
+        ref = cbq._nearest_indices_reference(x, cb)
+        dist = (cb.double() ** 2).sum(-1)[None, :] \
+            - 2.0 * x.double() @ cb.to(dt).double().T
+        rows = torch.arange(n, device="cuda")
+        gap = float((dist[rows, idx.long()] - dist[rows, ref.long()])
+                    .abs().max())
+        ok = gap <= CB_DIST_TOL and idx.dtype == torch.int32
+        say("kernel_shapes", kernel=cbq.KERNEL, shape=[n, k, d],
+            dtype=str(dt), indices_differ=int((idx != ref).sum()),
+            max_abs_err=gap, tol=CB_DIST_TOL, ok=ok)
+        if not ok:
+            raise RuntimeError(f"codebook_nearest {[n, k, d]} {dt}: "
+                               f"distance gap {gap}")
 
 
 def phase_attention_grad() -> None:
@@ -594,13 +669,8 @@ def _twin(trainer: DiffusionTrainer, device: str) -> DiffusionTrainer:
     return twin
 
 
-def phase_train_compare(trainer: DiffusionTrainer, lat: torch.Tensor
-                        ) -> None:
-    """One latent step at batch 2 on the card against the CPU, from the
-    train phase's weights with a fresh optimizer and injected draws, f32
-    with TF32 off: the loss, Adam's first moment (0.1 x the gradient) and
-    every U-Net parameter's change."""
-    card, cpu = _twin(trainer, "cuda"), _twin(trainer, "cpu")
+def _compare_inputs(trainer: DiffusionTrainer, lat: torch.Tensor):
+    """Batch-2 latents, context and injected draws of the compare step."""
     rng = np.random.default_rng(SEED + 4)
     x = lat[:2].cpu()
     draws = dict(t=torch.from_numpy(rng.integers(0, trainer.cfg.timesteps,
@@ -608,48 +678,145 @@ def phase_train_compare(trainer: DiffusionTrainer, lat: torch.Tensor
                  noise=torch.from_numpy(rng.standard_normal(
                      tuple(x.shape)).astype(np.float32)),
                  drop=torch.tensor([False, True]))
-    ctx = torch.tensor([1, 0])
-    before = {n: p.detach().cpu().clone()
-              for n, p in cpu.model.unet.named_parameters()}
-    with _NoTF32():
-        m_card = card.train_step_latents(
-            x.cuda(), ctx.cuda(), **{k: v.cuda() for k, v in draws.items()})
-        m_cpu = cpu.train_step_latents(x, ctx, **draws)
-        torch.cuda.synchronize()
-    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) \
-        / abs(float(m_cpu["loss"]))
+    return x, torch.tensor([1, 0]), draws
+
+
+def _float64_twin(trainer: DiffusionTrainer) -> DiffusionTrainer:
+    """A CPU twin whose U-Net, Adam state and gradients are float64. The
+    step's inputs stay as the float32 runs make them (the noised latents,
+    the sinusoidal time embedding) and are widened where they enter; the
+    loss is formed in float32 (`pred.float()`), which rounds only the
+    upstream gradient's first factor, to 1e-7."""
+    twin = _twin(trainer, "cpu")
+    unet = twin.model.unet.double()
+    unet.register_forward_pre_hook(
+        lambda m, args: (args[0].double(),) + tuple(args[1:]))
+    for m in unet.modules():
+        if isinstance(m, TimeEmbedding):
+            m.register_forward_hook(lambda m, i, out: out.double())
+    return twin
+
+
+def _step_errors(card: DiffusionTrainer, ref: DiffusionTrainer,
+                 before: Dict[str, torch.Tensor]) -> dict:
+    """Card step against a reference step from the same weights: Adam's
+    first moment (0.1 x the gradient) relative to the reference's largest,
+    and the parameter changes where the reference's |g| >= 1e-6."""
     pairs = [(n, p, q) for (n, p), q in zip(card.model.unet.named_parameters(),
-                                            cpu.model.unet.parameters())]
-    mu = {n: (card.optimizer.state[p]["exp_avg"].cpu(),
-              cpu.optimizer.state[q]["exp_avg"]) for n, p, q in pairs}
+                                            ref.model.unet.parameters())]
+    mu = {n: (card.optimizer.state[p]["exp_avg"].cpu().double(),
+              ref.optimizer.state[q]["exp_avg"].double())
+          for n, p, q in pairs}
     scale = max(float(b.abs().max()) for _, b in mu.values())
     grad_errs = {n: float((a - b).abs().max()) / scale
                  for n, (a, b) in mu.items()}
     worst = max(grad_errs, key=grad_errs.get)
-    delta_err, compared, total = 0.0, 0, 0
+    delta_err, delta_worst, compared, total = 0.0, None, 0, 0
     for n, p, q in pairs:
         # |g| after one step: sqrt(v / (1 - b2))
-        g = cpu.optimizer.state[q]["exp_avg_sq"].sqrt() / (1 - 0.999) ** 0.5
+        g = ref.optimizer.state[q]["exp_avg_sq"].sqrt() / (1 - 0.999) ** 0.5
         sure = g >= 1e-6
-        d_card = p.detach().cpu() - before[n]
-        d_cpu = q.detach() - before[n]
+        d_card = p.detach().cpu().double() - before[n]
+        d_ref = q.detach().double() - before[n]
         if sure.any():
-            delta_err = max(delta_err,
-                            float((d_card - d_cpu)[sure].abs().max()))
+            err = float((d_card - d_ref)[sure].abs().max())
+            if err > delta_err:
+                delta_err, delta_worst = err, n
         compared += int(sure.sum())
         total += sure.numel()
-    ok = (loss_rel <= TRAIN_LOSS_RTOL and grad_errs[worst] <= TRAIN_GRAD_RTOL
-          and delta_err <= TRAIN_DELTA_ATOL and compared > 0)
-    say("train_compare", batch=2, loss_card=float(m_card["loss"]),
-        loss_cpu=float(m_cpu["loss"]), loss_rel_err=loss_rel,
-        loss_tol=TRAIN_LOSS_RTOL, grad_rel_err=grad_errs[worst],
-        grad_worst=worst, grad_tol=TRAIN_GRAD_RTOL,
-        max_delta_err=delta_err, delta_tol=TRAIN_DELTA_ATOL,
-        deltas_compared=compared, weights=total, ok=ok)
+    return dict(grad_rel_err=grad_errs[worst], grad_worst=worst,
+                grad_errs=grad_errs, max_delta_err=delta_err,
+                delta_worst=delta_worst, deltas_compared=compared,
+                weights=total)
+
+
+def _card_step(card: DiffusionTrainer, x, ctx, draws) -> dict:
+    with _NoTF32():
+        m = card.train_step_latents(
+            x.cuda(), ctx.cuda(), **{k: v.cuda() for k, v in draws.items()})
+        torch.cuda.synchronize()
+    return m
+
+
+def phase_train_compare(trainer: DiffusionTrainer, lat: torch.Tensor
+                        ) -> None:
+    """One latent step at batch 2 on the card (f32, TF32 off) against the
+    same step on the CPU in float64, from the train phase's weights with a
+    fresh optimizer and injected draws: the loss, Adam's first moment
+    (0.1 x the gradient) and every U-Net parameter's change. The reference
+    is float64 because the CPU's own float32 step was shown to be the less
+    accurate side (--train-compare-check)."""
+    card, ref = _twin(trainer, "cuda"), _float64_twin(trainer)
+    x, ctx, draws = _compare_inputs(trainer, lat)
+    before = {n: p.detach().clone()
+              for n, p in ref.model.unet.named_parameters()}
+    m_card = _card_step(card, x, ctx, draws)
+    m_ref = ref.train_step_latents(x, ctx, **draws)
+    loss_rel = abs(float(m_card["loss"]) - float(m_ref["loss"])) \
+        / abs(float(m_ref["loss"]))
+    e = _step_errors(card, ref, before)
+    ok = (loss_rel <= TRAIN_LOSS_RTOL and e["grad_rel_err"] <= TRAIN_GRAD_RTOL
+          and e["max_delta_err"] <= TRAIN_DELTA_ATOL
+          and e["deltas_compared"] > 0)
+    e.pop("grad_errs")
+    say("train_compare", batch=2, reference="float64 CPU step",
+        loss_card=float(m_card["loss"]), loss_ref=float(m_ref["loss"]),
+        loss_rel_err=loss_rel, loss_tol=TRAIN_LOSS_RTOL,
+        grad_tol=TRAIN_GRAD_RTOL, delta_tol=TRAIN_DELTA_ATOL, **e, ok=ok)
     if not ok:
-        raise RuntimeError(f"train_compare: loss {loss_rel}, grad "
-                           f"{grad_errs[worst]} ({worst}), delta "
-                           f"{delta_err}, compared {compared}")
+        raise RuntimeError(f"train_compare: loss {loss_rel}, {e}")
+
+
+def _plain_forward_attention(q, k, v, scale=None):
+    """voxel_attention with the plain version as the forward on the card
+    (gradients as the kernel's Function gives them)."""
+    scale = float(q.shape[-1]) ** -0.5 if scale is None else scale
+    return attn.VoxelAttentionFn.apply(q, k, v, scale,
+                                       attn._attention_reference)
+
+
+def phase_train_compare_check(trainer: DiffusionTrainer, lat: torch.Tensor
+                              ) -> None:
+    """Where the card-vs-CPU gradient error comes from: the compare step
+    with cuDNN deterministic and TF32 off on the card, against the CPU in
+    float32 (with and without oneDNN) and in float64, each reference
+    compared with the card as train_compare compares, and the float32
+    references with the float64 one; and the card's step once more with
+    the plain attention forward in place of the kernel's, against
+    float64."""
+    x, ctx, draws = _compare_inputs(trainer, lat)
+    card, card_plain = _twin(trainer, "cuda"), _twin(trainer, "cuda")
+    refs = {"cpu": _twin(trainer, "cpu"), "cpu_no_onednn": _twin(trainer,
+                                                                  "cpu"),
+            "cpu64": _float64_twin(trainer)}
+    before = {n: p.detach().double().clone()
+              for n, p in refs["cpu"].model.unet.named_parameters()}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        _card_step(card, x, ctx, draws)
+        unet3d.voxel_attention = _plain_forward_attention
+        _card_step(card_plain, x, ctx, draws)
+    finally:
+        unet3d.voxel_attention = attn.voxel_attention
+        torch.backends.cudnn.deterministic = False
+    for name, ref in refs.items():
+        with torch.backends.mkldnn.flags(enabled=name != "cpu_no_onednn"):
+            ref.train_step_latents(x, ctx, **draws)
+    report = {}
+    for name, ref in refs.items():
+        e = _step_errors(card, ref, before)
+        report[f"card_vs_{name}"] = e
+    for name in ("cpu", "cpu_no_onednn"):
+        report[f"{name}_vs_cpu64"] = _step_errors(refs[name], refs["cpu64"],
+                                                  before)
+    report["card_plain_attention_vs_cpu64"] = _step_errors(
+        card_plain, refs["cpu64"], before)
+    at = report["card_vs_cpu"]["grad_worst"]
+    for e in report.values():
+        e["at_card_vs_cpu_worst"] = e.pop("grad_errs")[at]
+    say("train_compare_check", cudnn_deterministic=True, tf32=False,
+        **report)
 
 
 _KERNEL_GROUPS = (  # first match wins, by substring of the kernel name
@@ -743,7 +910,8 @@ def _kernel_line(name, source, replaces, counts, case, library):
         "ms": case["ms"], "kernel_ms": case["ms"],
         "eager_ms": case["eager_ms"], "plain_ms": case["plain_ms"],
         "bound_ms": case["bound_ms"], "bound_us": 1e3 * case["bound_ms"],
-        "bound_by": case["bound_by"], "library_ms": case["library_ms"],
+        "bound_by": case["bound_by"], "fma_bound_ms": case["fma_bound_ms"],
+        "library_ms": case["library_ms"],
         "library": library, "shape": case["shape"], "dtype": case["dtype"],
     }
 
@@ -752,8 +920,14 @@ def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
+    if "--train-compare-check" in sys.argv[1:]:
+        train = phase_train(card)
+        phase_train_compare_check(train["trainer"], train["latents"])
+        say("done", wall_s=time.perf_counter() - t_start, card=card)
+        return
     attn_cases = phase_kernel(card)
     cb_cases = phase_codebook(card)
+    phase_kernel_shapes()
     phase_attention_grad()
     trainer = DiffusionTrainer(flagship_cfg(), device="cuda").init_random(SEED)
     phase_unet_step(trainer)

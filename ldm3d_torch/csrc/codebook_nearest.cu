@@ -1,9 +1,10 @@
-// Codebook nearest-neighbour for Hopper (sm_90a): for activations x [N, D]
-// and a codebook c [K, D], idx[n] = argmin_k (||c_k||^2 - 2 x_n . c_k) as
-// int32, ties to the smallest k. x and c are contiguous and of one type,
-// float32 or bfloat16 (the wrapper casts the codebook to x's type); ||c||^2
-// is float32, computed by the wrapper from the uncast codebook. D is a
-// multiple of 8; N and K are any positive counts (ragged tiles are masked).
+// Codebook nearest-neighbour for Hopper (sm_90a), on tensor cores: for
+// activations x [N, D] and a codebook c [K, D], idx[n] = argmin_k
+// (||c_k||^2 - 2 x_n . c_k) as int32, ties to the smallest k. x and c are
+// contiguous and of one type, float32 or bfloat16 (the wrapper casts the
+// codebook to x's type); ||c||^2 is float32, computed by the wrapper from
+// the uncast codebook. N, K and D are any positive counts: ragged row and
+// code tiles and the depth tail are zero-filled in shared memory.
 //
 // Replaces the TPU kernel ldm3d/ops/quantize.py::_nearest_kernel (launched
 // by _nearest_indices_pallas). It computes the same function: the distance
@@ -11,93 +12,54 @@
 // written to device memory, and products are summed in float32.
 //
 // Bound on an H100 SXM at the flagship train shape, N = 4096 (batch 8 of
-// 8^3 latents), D = 256, K = 1024: 2 * N * D * K = 2.15 GFLOP. This kernel
-// does them as float32 FMAs (67 TFLOP/s): 32 us, bound by operations. It
-// reads 5.3 MB (x and c in float32), 1.6 us at 3.35 TB/s. In bfloat16 the
-// tensor cores would bound it at 2.2 us (989 TFLOP/s). The design keeps
-// float32 FMA on purpose: TF32 tensor cores keep about 3 decimal digits and
-// would flip the argmin of near-ties against the float32 reference. A
-// tensor-core version with exact tie handling is later work.
+// 8^3 latents), D = 256, K = 1024: 2 * N * D * K = 2.15 GFLOP, 4.3 us at
+// the TF32 tensor-core peak (495 TFLOP/s) and 2.2 us in bfloat16
+// (989 TFLOP/s); it reads 5.3 MB (x and c in float32), 1.6 us at
+// 3.35 TB/s. So it is bound by operations, on the tensor cores.
 //
-// Design (simple and right first): a block of 128 threads owns a tile of
-// 32 rows of x and walks a range of K in tiles of 64 codes. For each code
-// tile it stages 32-deep slices of the x tile and of the code tile in
-// shared memory (transposed, converted to float32; 16-byte vector loads
-// from device memory), and each thread accumulates a 4 x 4 register tile of
-// dot products (4 rows x 4 codes) with float4 shared-memory reads. At the
-// end of a code tile each thread folds its 16 distances into a running
-// minimum per row. The minimum is kept as one 64-bit key, the
-// order-preserving bits of the float32 distance above the code index, so
-// one unsigned min gives the smaller distance and, on equal distances, the
-// smaller index: the tie rule of jnp.argmin. The 16 threads of a row reduce
-// their keys with warp shuffles. N = 4096 gives only 128 row tiles, fewer
-// than the card's 132 SMs x 4 blocks, so K is also split over gridDim.y:
-// each split writes its key per row to scratch, and a second small kernel
-// takes the minimum over the splits and writes the int32 index.
+// Design. Arithmetic (mma_sm90.cuh): bfloat16 runs on mma.m16n8k16 with
+// float32 sums; float32 runs as 3xTF32 on mma.m16n8k8 (hi/lo split of
+// both operands, three passes). One TF32 pass keeps about 3 decimal
+// digits, which at distances of O(500) flips argmins by more than the
+// float32 reference allows; 3xTF32 keeps about float32's 7.
+// Tiles: a block of 8 warps owns 128 rows of x and walks its share of K
+// in tiles of 128 codes; warp (wm, wn) of a 4 x 2 grid holds 32 rows x 64
+// codes of dot products in registers (2 x 8 mma tiles). 128 rows rather
+// than 64 halve the code tiles' re-reads from L2 (one per row tile). Depth streams in
+// 128-byte slices of the x tile and of the code tile through a 3-stage
+// cp.async ring (zero-filled past N, K and D; rows whose width is not a
+// multiple of 16 bytes stage through 4- or 2-byte copies); rows are padded
+// to 144 bytes, so the 8 row addresses of every ldmatrix fall in 32
+// distinct banks. A tensor-core step splits each fragment into hi/lo once
+// in registers and reuses it across the warp's 8 code tiles (A) or 2 row
+// tiles (B). Epilogue: c_sq - 2 s for each accumulator, a running
+// (distance, code) minimum per row with a strict <, codes in increasing
+// order, so equal distances keep the first code. The rows' minima then
+// become one 64-bit key each, the order-preserving bits of the float32
+// distance above the code index, so one unsigned min keeps the smaller
+// distance and, on equal distances, the smaller index: the tie rule of
+// jnp.argmin. The key min runs over the quad (shuffles), the two code
+// warps (shared memory) and, since N = 4096 gives only 32 row tiles, over
+// K splits across gridDim.y: each split writes its key per row to scratch
+// and a second small kernel takes the minimum over the splits and writes
+// the int32 index. One call is these two launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_sm90.cuh"
 
 namespace {
 
-constexpr int kRows = 32;             // rows of x per block
-constexpr int kCodes = 64;            // codes per tile
-constexpr int kDepth = 32;            // depth of one shared-memory slice
-constexpr int kThreads = 128;
-constexpr int kTx = kCodes / 4;       // threads across codes (16)
-constexpr unsigned kFull = 0xffffffffu;
+using namespace ldm3d;
+
+constexpr int kRows = 128;             // rows of x per block
+constexpr int kRowWarps = kRows / 32;  // warps along the rows (x 2 codes)
+constexpr int kCodes = 128;            // codes per tile
+constexpr int kSlice = 128;            // bytes of depth per ring stage
+constexpr int kPitch = kSlice + 16;    // shared-memory row pitch, bytes
+constexpr int kStages = 3;
+constexpr int kThreads = 64 * kRowWarps;
+constexpr int kStageBytes = (kRows + kCodes) * kPitch;
+constexpr int kSmemBytes = kStages * kStageBytes;
 constexpr unsigned long long kNone = ~0ull;
-
-static_assert(kTx * (kRows / 4) == kThreads, "4 x 4 register tiles");
-
-// 16 bytes of T at p (16-byte aligned) as floats.
-template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  static constexpr int kN = 4;
-  static __device__ __forceinline__ void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
-// Rows [row0, row0 + ROWS) x depth [d0, d0 + kDepth) of src [n_rows, D]
-// into dst[d][r] (float32, transposed); rows past n_rows and depth past D
-// are zero. D % 8 == 0, so a 16-byte chunk is wholly inside or outside.
-template <typename T, int ROWS>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src,
-                                          int n_rows, int row0, int D,
-                                          int d0, float* dst) {
-  constexpr int kVec = Vec16<T>::kN;
-  constexpr int kPerRow = kDepth / kVec;
-  for (int c = threadIdx.x; c < ROWS * kPerRow; c += kThreads) {
-    const int r = c / kPerRow;
-    const int dd = (c % kPerRow) * kVec;
-    float v[kVec];
-    if (row0 + r < n_rows && d0 + dd < D) {
-      Vec16<T>::load(src + (size_t)(row0 + r) * D + d0 + dd, v);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) v[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) dst[(dd + e) * ROWS + r] = v[e];
-  }
-}
 
 // Order-preserving key: a smaller distance gives a smaller key, and equal
 // distances order by code index.
@@ -113,74 +75,140 @@ __device__ __forceinline__ unsigned long long umin64(unsigned long long a,
   return a < b ? a : b;
 }
 
-template <typename T>
+// VEC: the byte width of the staging copies (16, 4 or 2).
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 codebook_nearest_kernel(const T* __restrict__ x, const T* __restrict__ cb,
                         const float* __restrict__ csq,
                         unsigned long long* __restrict__ part, int N, int K,
                         int D, int tiles_per_split) {
-  __shared__ __align__(16) float xs[kDepth * kRows];
-  __shared__ __align__(16) float cs[kDepth * kCodes];
-  const int tx = threadIdx.x % kTx;     // codes tx * 4 .. + 3 of a tile
-  const int ty = threadIdx.x / kTx;     // rows ty * 4 .. + 3 of the block
+  using TC = TensorCore<T>;
+  extern __shared__ __align__(128) char smem[];
+  __shared__ unsigned long long red[2][kRows];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int wm = warp % kRowWarps;      // rows wm * 32 .. + 31
+  const int wn = warp / kRowWarps;      // codes wn * 64 .. + 63 of a tile
+  const int g = lane >> 2, t = lane & 3;
   const int row0 = blockIdx.x * kRows;
   const int code_begin = blockIdx.y * tiles_per_split * kCodes;
   const int code_end = min(K, code_begin + tiles_per_split * kCodes);
+  const long long row_bytes = (long long)D * sizeof(T);
+  const int slices = (int)((row_bytes + kSlice - 1) / kSlice);
+  const int iters = (code_end - code_begin + kCodes - 1) / kCodes * slices;
+  const char* xg = reinterpret_cast<const char*>(x) + row0 * row_bytes;
+  const char* cg = reinterpret_cast<const char*>(cb);
 
-  unsigned long long best[4] = {kNone, kNone, kNone, kNone};
-  for (int c0 = code_begin; c0 < code_end; c0 += kCodes) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // Stage `it` of the ring: depth slice it % slices of the x tile and of
+  // code tile it / slices.
+  auto issue = [&](int it) {
+    if (it < iters) {
+      const int tile = it / slices, s = it - tile * slices;
+      const int c0 = code_begin + tile * kCodes;
+      const int off = s * kSlice;
+      char* st = smem + (it % kStages) * kStageBytes;
+      load_tile<kRows, kSlice, VEC, kThreads>(
+          st, kPitch, xg + off, row_bytes, N - row0, (int)(row_bytes - off));
+      load_tile<kCodes, kSlice, VEC, kThreads>(
+          st + kRows * kPitch, kPitch, cg + c0 * row_bytes + off, row_bytes,
+          code_end - c0, (int)(row_bytes - off));
+    }
+    cp_async_commit();
+  };
 
-    for (int d0 = 0; d0 < D; d0 += kDepth) {
-      __syncthreads();  // every thread is done with the previous slices
-      load_tile<T, kRows>(x, N, row0, D, d0, xs);
-      load_tile<T, kCodes>(cb, code_end, c0, D, d0, cs);
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < kDepth; ++d) {
-        const float4 a = *reinterpret_cast<const float4*>(
-            &xs[d * kRows + ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(
-            &cs[d * kCodes + tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
+  float acc[2][8][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  // This thread's best distance and code for rows g and g + 8 of each
+  // row tile; codes come in increasing order, so a strict < keeps the
+  // first of equal distances.
+  const float inf = __uint_as_float(0x7f800000u);
+  float best_d[2][2] = {{inf, inf}, {inf, inf}};
+  int best_c[2][2] = {{-1, -1}, {-1, -1}};
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();          // stage `it` landed; stage it - 1 is free
+    issue(it + kStages - 1);
+    const char* xs = smem + (it % kStages) * kStageBytes + wm * 32 * kPitch;
+    const char* cs = smem + (it % kStages) * kStageBytes
+                     + (kRows + wn * 64) * kPitch;
+#pragma unroll
+    for (int k = 0; k < kSlice / 32; ++k) {
+      typename TC::A a[2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        uint32_t r[4];
+        ldmatrix_x4(r, xs + mt * 16 * kPitch + a_offset(lane, kPitch)
+                       + k * 32);
+        a[mt] = TC::a(r);
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4(r, cs + np * 16 * kPitch + b_offset(lane, kPitch)
+                       + k * 32);
+        const typename TC::B b0 = TC::b(r[0], r[1]);
+        const typename TC::B b1 = TC::b(r[2], r[3]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          TC::mma(acc[mt][2 * np], a[mt], b0);
+          TC::mma(acc[mt][2 * np + 1], a[mt], b1);
+        }
       }
     }
-    // Codes in increasing order, so the key's index part settles ties.
+    const int tile = it / slices;
+    if (it - tile * slices == slices - 1) {   // the code tile is complete
+      const int c0 = code_begin + tile * kCodes + wn * 64;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int code = c0 + tx * 4 + j;
-      if (code < code_end) {
-        const float c2 = csq[code];
+      for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          best[i] = umin64(best[i], pack(c2 - 2.f * acc[i][j], code));
+        for (int j = 0; j < 2; ++j) {
+          const int code = c0 + nt * 8 + 2 * t + j;
+          if (code < code_end) {
+            const float c2 = csq[code];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float d = c2 - 2.f * acc[mt][nt][2 * h + j];
+                if (d < best_d[mt][h] || best_c[mt][h] < 0) {
+                  best_d[mt][h] = d;
+                  best_c[mt][h] = code;
+                }
+              }
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
       }
     }
   }
 
-  // The 16 threads of one row group are lanes (ty % 2) * 16 + tx of a warp.
+  // Row wm * 32 + mt * 16 + h * 8 + g: min over the quad, then over the
+  // two code warps.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int off = kTx / 2; off > 0; off >>= 1)
-      best[i] = umin64(best[i], __shfl_xor_sync(kFull, best[i], off));
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + ty * 4 + i;
-      if (row < N) part[(size_t)blockIdx.y * N + row] = best[i];
+    for (int h = 0; h < 2; ++h) {
+      unsigned long long v =
+          best_c[mt][h] < 0 ? kNone : pack(best_d[mt][h], best_c[mt][h]);
+      v = umin64(v, __shfl_xor_sync(kFullMask, v, 1));
+      v = umin64(v, __shfl_xor_sync(kFullMask, v, 2));
+      if (t == 0) red[wn][wm * 32 + mt * 16 + h * 8 + g] = v;
     }
+  __syncthreads();
+  for (int r = threadIdx.x; r < kRows; r += kThreads) {
+    if (row0 + r < N)
+      part[(size_t)blockIdx.y * N + row0 + r] = umin64(red[0][r], red[1][r]);
   }
 }
 
@@ -194,17 +222,27 @@ __global__ void codebook_nearest_finalize(
   out[row] = (int32_t)(b & 0xffffffffull);
 }
 
-template <typename T>
+template <typename T, int VEC>
 cudaError_t launch(const void* x, const void* cb, const float* csq,
                    unsigned long long* part, int32_t* out, int N, int K,
                    int D, int splits, cudaStream_t stream) {
+  if ((long long)D * sizeof(T) % VEC != 0)
+    return cudaErrorInvalidValue;     // a copy would straddle two rows
   const int code_tiles = (K + kCodes - 1) / kCodes;
   const int tiles_per_split = (code_tiles + splits - 1) / splits;
   if ((code_tiles + tiles_per_split - 1) / tiles_per_split != splits)
     return cudaErrorInvalidValue;     // every split must own codes
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        codebook_nearest_kernel<T, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
   const dim3 grid((N + kRows - 1) / kRows, splits);
   if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
-  codebook_nearest_kernel<T><<<grid, kThreads, 0, stream>>>(
+  codebook_nearest_kernel<T, VEC><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(cb), csq, part, N, K,
       D, tiles_per_split);
   cudaError_t err = cudaGetLastError();
@@ -214,26 +252,44 @@ cudaError_t launch(const void* x, const void* cb, const float* csq,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t dispatch(const void* x, const void* cb, const float* csq,
+                     unsigned long long* part, int32_t* out, int N, int K,
+                     int D, int splits, int vec, cudaStream_t stream) {
+  if (vec == 16)
+    return launch<T, 16>(x, cb, csq, part, out, N, K, D, splits, stream);
+  if (vec == 4)
+    return launch<T, 4>(x, cb, csq, part, out, N, K, D, splits, stream);
+  if constexpr (sizeof(T) == 2) {     // odd bf16 rows
+    if (vec == 2)
+      return launch<T, 2>(x, cb, csq, part, out, N, K, D, splits, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. `part` is scratch of splits * N
-// 64-bit keys; splits must give every split at least one 64-code tile.
-// Returns the cudaError_t of the launches (0 on success); nothing is
-// synchronised.
+// 64-bit keys; splits must give every split at least one 128-code tile.
+// vec is the byte width of one staging copy: 16 when a row's bytes are a
+// multiple of 16, else 4 when a multiple of 4, else 2 (bfloat16 of odd
+// D); x and the codebook are 16-byte aligned. Returns the cudaError_t of
+// the launches (0 on success); nothing is synchronised.
 extern "C" int codebook_nearest(const void* x, const void* cb,
                                 const void* csq, void* part, void* out,
                                 int N, int K, int D, int splits, int dtype,
-                                void* stream) {
-  if (N <= 0 || K <= 0 || D <= 0 || D % 8 != 0 || splits <= 0)
+                                int vec, void* stream) {
+  if (N <= 0 || K <= 0 || D <= 0 || splits <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c2 = static_cast<const float*>(csq);
   unsigned long long* p = static_cast<unsigned long long*>(part);
   int32_t* o = static_cast<int32_t*>(out);
   if (dtype == 0)
-    return (int)launch<float>(x, cb, c2, p, o, N, K, D, splits, s);
+    return (int)dispatch<float>(x, cb, c2, p, o, N, K, D, splits, vec, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, cb, c2, p, o, N, K, D, splits, s);
+    return (int)dispatch<__nv_bfloat16>(x, cb, c2, p, o, N, K, D, splits,
+                                        vec, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,10 +2,11 @@
 
 Each kernel is one `csrc/*.cu` file with a plain `extern "C"` interface (no
 PyTorch headers), compiled by `nvcc` for sm_90a into a shared library and
-loaded with `ctypes`. The library goes into `ldm3d_torch/_build/` under a
-name that carries a hash of the source and the flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is. The compiler writes to
-a temporary name that is renamed into place: there is no lock file.
+loaded with `ctypes`; the kernels share `csrc/*.cuh`. The library goes
+into `ldm3d_torch/_build/` under a name that carries a hash of the source,
+the shared headers and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is. The compiler writes to a
+temporary name that is renamed into place: there is no lock file.
 `load_all` starts one nvcc per missing source, all at once, and waits for
 each.
 """
@@ -13,6 +14,7 @@ each.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -27,6 +29,14 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def copy_bytes(row_bytes: int) -> int:
+    """Byte width of one shared-memory staging copy, as the kernels take it,
+    for matrix rows of `row_bytes` bytes: 16 where the rows allow it, else
+    4, else 2 (bfloat16 of odd width), so that no copy straddles two
+    rows."""
+    return 16 if row_bytes % 16 == 0 else 4 if row_bytes % 4 == 0 else 2
 
 
 @dataclass
@@ -67,8 +77,10 @@ class _Job:
 def _start(name: str) -> _Job:
     """Start nvcc on `csrc/<name>.cu` unless its library is built."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     so = os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
     job = _Job(name, so, so + ".ptxas.txt")
     if not os.path.exists(so):

@@ -17,11 +17,14 @@ import math
 
 import torch
 
+from ldm3d_torch.ops._build import copy_bytes
+
 KERNEL = "codebook_nearest"
 SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROWS_PER_BLOCK = 32      # the kernel's tile of x rows
-CODES_PER_TILE = 64      # the kernel's tile of codes
-BLOCKS_PER_SM = 4        # the grid the K split aims for
+ROWS_PER_BLOCK = 128     # the kernel's tile of x rows
+CODES_PER_TILE = 128     # the kernel's tile of codes
+BLOCKS_PER_SM = 2        # the grid the K split aims for (shared memory
+                         # holds two blocks per SM)
 
 # Launches of the CUDA kernel since the last reset (plain integer; the
 # wrapper adds one where it launches and nowhere else).
@@ -66,7 +69,8 @@ def _library():
         lib.codebook_nearest.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
         lib.codebook_nearest.restype = ctypes.c_int
         lib.codebook_nearest_error_string.argtypes = [ctypes.c_int]
         lib.codebook_nearest_error_string.restype = ctypes.c_char_p
@@ -90,9 +94,9 @@ def _check(x: torch.Tensor, codebook: torch.Tensor) -> None:
         raise ValueError("codebook_nearest_cuda: the codebook is not float")
     n, d = x.shape
     k = codebook.shape[0]
-    if n == 0 or k == 0 or d == 0 or d % 8:
-        raise ValueError(f"codebook_nearest_cuda: N={n}, K={k} must be > 0 "
-                         f"and D={d} a positive multiple of 8")
+    if n == 0 or k == 0 or d == 0:
+        raise ValueError(f"codebook_nearest_cuda: N={n}, K={k}, D={d} must "
+                         "be > 0")
     if max(n, k) >= 2 ** 30:
         raise ValueError("codebook_nearest_cuda: N or K too large")
     if not x.is_contiguous():
@@ -113,6 +117,9 @@ def nearest_codebook_indices_cuda(x: torch.Tensor, codebook: torch.Tensor
     n, d = x.shape
     k = codebook.shape[0]
     cb = codebook.detach().to(x.dtype).contiguous()
+    if cb.data_ptr() % 16:
+        raise ValueError("codebook_nearest_cuda: the codebook is not 16-byte "
+                         "aligned")
     c_sq = codebook.detach().float().square().sum(-1).contiguous()
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     splits = k_splits(n, k, sms)
@@ -127,7 +134,7 @@ def nearest_codebook_indices_cuda(x: torch.Tensor, codebook: torch.Tensor
         err = lib.codebook_nearest(
             x.data_ptr(), cb.data_ptr(), c_sq.data_ptr(), part.data_ptr(),
             out.data_ptr(), n, k, d, splits, SUPPORTED_DTYPES[x.dtype],
-            stream)
+            copy_bytes(d * x.element_size()), stream)
     if err != 0:
         msg = lib.codebook_nearest_error_string(err).decode()
         raise RuntimeError(f"codebook_nearest kernel launch failed: {msg} "

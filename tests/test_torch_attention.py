@@ -35,7 +35,10 @@ def _qkv(b, n, c, n_kv=None, seed=0, dtype=np.float32):
     (2, 64, 37, 512),      # cross-attention, ragged key count
     (2, 300, None, 64),    # long ragged sequence at head width 64
     (1, 256, 130, 64),     # cross-attention, nq != nkv
-    (3, 8, 8, 192),        # a middle width of the supported range
+    (3, 8, 8, 192),        # a middle width
+    (2, 64, None, 16),     # the smoke presets' attention width
+    (2, 70, 33, 100),      # a width that is no multiple of 16
+    (1, 64, None, 1024),   # wider than 512: many column slices
 ])
 def test_plain_matches_xla(b, n, n_kv, c):
     q, k, v = _qkv(b, n, c, n_kv)
@@ -60,6 +63,48 @@ def test_plain_matches_pallas_interpret(n, n_kv, block):
     out = tattn.voxel_attention(torch.from_numpy(q), torch.from_numpy(k),
                                 torch.from_numpy(v), scale).numpy()
     np.testing.assert_allclose(out, ref, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("n,n_kv,c", [
+    (64, None, 16),        # the smoke presets' attention width
+    (72, 40, 100),         # ragged keys at a width no tile divides
+    (64, None, 1024),      # wider than 512
+])
+def test_plain_matches_pallas_interpret_at_any_width(n, n_kv, c):
+    q, k, v = _qkv(2, n, c, n_kv, seed=6)
+    scale = c ** -0.5
+    ref = np.asarray(_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), scale, block_q=64,
+                                       block_k=64, interpret=True))
+    out = tattn.voxel_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), scale).numpy()
+    np.testing.assert_allclose(out, ref, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("row_bytes,want", [
+    (16 * 4, 16),          # float32 C = 16
+    (100 * 4, 16),         # float32 C = 100: 400 bytes
+    (10 * 4, 4),           # float32 C = 10: 40 bytes
+    (33 * 2, 2),           # bfloat16 C = 33: odd
+    (100 * 2, 4),          # bfloat16 C = 100: 200 bytes
+    (1024 * 2, 16),        # bfloat16 C = 1024
+])
+def test_copy_bytes_never_straddles_rows(row_bytes, want):
+    got = tattn.copy_bytes(row_bytes)
+    assert got == want and row_bytes % got == 0
+
+
+@pytest.mark.parametrize("c,want", [
+    (512, 64),             # the flagship head width
+    (1024, 64),            # wider: 16 column slices
+    (100, 64),             # two slices, the second ragged
+    (33, 64),
+    (32, 32),              # fits in one 32-column slice
+    (16, 32),              # the smoke presets' width
+    (1, 32),
+])
+def test_column_tile(c, want):
+    assert tattn.column_tile(c) == want
 
 
 def test_plain_bf16_matches_xla():
@@ -121,6 +166,8 @@ def test_kernel_source_names_the_tpu_kernel_and_its_bound():
     (16, 64, 64, 512, torch.float32, 1e-4),
     (16, 64, 37, 512, torch.bfloat16, 3e-2),
     (2, 300, 300, 64, torch.float32, 1e-4),
+    (16, 64, 64, 16, torch.float32, 1e-4),       # C = 16
+    (4, 300, 257, 100, torch.float32, 1e-4),     # C = 100, ragged
 ])
 def test_cuda_kernel_matches_plain(b, nq, nkv, c, dtype, tol):
     if not torch.cuda.is_available():

@@ -91,6 +91,29 @@ def test_plain_matches_xla_and_pallas_interpret(n, dtype):
                        _distances(xv, cbv))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_xla_and_pallas_interpret_at_d20(dtype):
+    # D = 20: a depth no 16-element tile divides
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((300, 20)).astype(np.float32)
+    cb = rng.standard_normal((40, 20)).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    xj = jnp.asarray(x, jdt)
+    out = tq.nearest_codebook_indices(torch.from_numpy(x).to(tdt),
+                                      torch.from_numpy(cb))
+    xv = np.array(xj.astype(jnp.float32))
+    cbv = np.array(jnp.asarray(cb, jdt).astype(jnp.float32))
+    with pltpu.force_tpu_interpret_mode():
+        pallas = _nearest_indices_pallas(xj, jnp.asarray(cb))
+    assert_same_argmin(out.numpy(), np.asarray(pallas), _distances(xv, cbv, cb))
+    xla = _nearest_indices_xla(xj, jnp.asarray(cbv))
+    out_cast = tq.nearest_codebook_indices(torch.from_numpy(x).to(tdt),
+                                           torch.from_numpy(cbv))
+    assert_same_argmin(out_cast.numpy(), np.asarray(xla),
+                       _distances(xv, cbv))
+
+
 def test_duplicate_codes_give_the_first_index():
     rng = np.random.default_rng(3)
     cb = rng.standard_normal((K, D)).astype(np.float32)
@@ -134,11 +157,11 @@ def test_quantize_lookup_counts_and_perplexity_match():
 
 
 @pytest.mark.parametrize("n,k,sms,want", [
-    (4096, 1024, 132, 4),     # flagship train batch: 128 row tiles
-    (32768, 1024, 132, 1),    # a large encode batch fills the card alone
+    (4096, 1024, 132, 8),     # flagship train batch: 32 row tiles
+    (32768, 1024, 132, 2),    # a large encode batch: 256 row tiles
     (37, 16, 132, 1),         # one code tile cannot be split
-    (512, 1024, 132, 16),     # a small batch splits K into single tiles
-    (4096, 1000, 132, 4),     # ragged K
+    (512, 1024, 132, 8),      # a small batch splits K into single tiles
+    (4096, 1000, 132, 8),     # ragged K
 ])
 def test_k_splits_fill_the_card(n, k, sms, want):
     splits = tq.k_splits(n, k, sms)
@@ -194,6 +217,7 @@ def test_kernel_source_names_the_tpu_kernel_and_its_bound():
     (4096, 1024, 256, torch.float32),   # flagship train shape
     (4095, 1024, 256, torch.bfloat16),  # ragged N
     (37, 16, 8, torch.float32),         # the tiny slice
+    (4096, 1024, 20, torch.float32),    # D = 20, no multiple of 8
 ])
 def test_cuda_kernel_matches_plain(n, k, d, dtype):
     if not torch.cuda.is_available():
