@@ -26,6 +26,20 @@ not 0:
                 launch counters are zeroed before the first and read after
                 the last
   7. breakdown  a request's U-Net step and decode times
+     serve_samplers  main path 3: the same service answers DDIM, DPM++ and
+                DPM++ SDE requests, guided ones (the U-Net at 2 x num) and
+                one through a v-prediction twin of the weights, and the
+                trainer samples latents only (decode=False); the counters
+                are zeroed before the first and read after the last; then
+                U-Net step times at batch 16, 32 and 64
+     sampler_compare  guided DDIM (eta 0.5) and DPM++ SDE, 3 steps at
+                num 2 with injected noise, on the card (kernel) against
+                the CPU (plain), f32 with TF32 off
+     fidelity   main path 4: real features of two batches of 8 seeded
+                volumes (the codebook kernel), then fidelity_eval at its
+                defaults (64 samples, batch 16, 4 contexts, DDIM 25 steps)
+                with per-class splits; the counters are zeroed before and
+                read after
   8. encode     the full-width encoder + STE quantizer on the card against
                 the CPU, f32 with TF32 off
   9. train      main path 2: a seeded full-width DiffusionTrainer encodes two
@@ -46,6 +60,7 @@ build under ldm3d_torch/_build/. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -91,6 +106,38 @@ REQUESTS = [dict(num=16, context=1, seed=1), dict(num=16, context=0, seed=2),
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 UNET_REL_TOL = 1e-4   # card vs CPU, f32 without TF32, relative to max |cpu|
 REPEAT_REL_TOL = 1e-5  # the repeated request vs the first
+# Main path 3, in this order (the second repeats the first); guided
+# requests run the U-Net at 2 x num. V_REQUEST goes through a v-prediction
+# twin of the same weights; the decode=False call samples LATENT_STEPS of
+# DDIM at batch 16.
+SAMPLER_REQUESTS = [
+    dict(num=16, context=1, sampler="ddim", sample_steps=50, seed=11),
+    dict(num=16, context=1, sampler="ddim", sample_steps=50, seed=11),
+    dict(num=16, context=2, sampler="dpmpp", sample_steps=20, seed=12),
+    dict(num=16, context=3, sampler="dpmpp_sde", sample_steps=50, seed=13),
+    dict(num=16, context=1, sampler="ddim", sample_steps=50,
+         guidance_scale=3.0, seed=14),
+    dict(num=16, context=0, sampler="ddim", sample_steps=5,
+         guidance_scale=0.0, seed=15),
+    dict(num=32, context=2, sampler="ddim", sample_steps=5,
+         guidance_scale=3.0, seed=16),
+]
+V_REQUEST = dict(num=16, context=1, sampler="ddim", sample_steps=50, seed=17)
+LATENT_STEPS = 25
+# Samplers, card (kernel, f32 without TF32) vs CPU (plain), 3 chained steps
+# at num 2 from the same injected noise, relative to max |cpu latents|.
+# Each U-Net call agrees to UNET_REL_TOL of its largest output (6.1e-6 was
+# measured on an H100); guidance at scale 3 multiplies an eps error by at
+# most |1 - s| + |s| = 5; the DDIM steps at tau = 499, 250, 0 (eta 0.5)
+# move an eps error into x with weights 5.9, 1.6 and 0.01 and carry x's
+# error on with 6.6, 1.9 and 1.0, while x itself grows by the same 6.6 and
+# 1.9. At the measured per-step agreement that is about 1e-4 of max |x|;
+# 1e-3 leaves a factor 10 for the U-Net's sensitivity to its input, which
+# random weights do not bound.
+SAMPLER_REL_TOL = 1e-3
+SAMPLER_COMPARE_STEPS = 3
+FIDELITY_VOLUMES = 8   # per real batch; two batches
+FIDELITY_SAMPLES, FIDELITY_BATCH = 64, 16   # fidelity_eval's defaults
 # Codebook indices, kernel vs plain: equal, or else the float64 distances
 # of the two picks differ by at most CB_DIST_TOL. Both sum D = 256 float32
 # products of O(1) values in other orders; at distances of O(500) that is
@@ -258,6 +305,7 @@ def phase_kernel(card: str) -> Dict[str, dict]:
     the numbers of each case."""
     cases = [  # name, B, nq, nkv, C, dtype
         ("self_f32", 16, 64, 64, 512, torch.float32),     # served path
+        ("guided_f32", 32, 64, 64, 512, torch.float32),   # guided, num 16
         ("train_f32", 8, 64, 64, 512, torch.float32),     # train path
         ("self_bf16", 16, 64, 64, 512, torch.bfloat16),
         ("cross_ragged_f32", 16, 64, 37, 512, torch.float32),
@@ -377,6 +425,7 @@ ATTN_SHAPES = [  # B, nq, nkv, C, dtype
     (2, 130, 200, 100, torch.bfloat16),   # 4-byte copies, resident Q tile
     (1, 17, 33, 600, torch.float32),      # a ragged last column slice
     (2, 200, 300, 256, torch.float32),    # Q streamed over 5 key tiles
+    (64, 64, 64, 512, torch.float32),     # guided at num 32 (2 x 32)
 ]
 CB_SHAPES = [  # N, K, D, dtype
     (37, 16, 8, torch.float32),           # the tiny slice
@@ -542,6 +591,171 @@ def phase_breakdown(trainer: DiffusionTrainer, main: dict) -> None:
         attention_share=calls * main["ms"] / step_ms,
         attention_eager_ms_per_step=calls * main["eager_ms"],
         attention_eager_share=calls * main["eager_ms"] / step_ms)
+
+
+def _latent_shape(cfg, num: int) -> tuple:
+    s = cfg.latent_size
+    return (num, s, s, s, cfg.latent_channels)
+
+
+def _v_twin(trainer: DiffusionTrainer) -> DiffusionTrainer:
+    """The same weights read as a v-prediction model."""
+    twin = DiffusionTrainer(dataclasses.replace(trainer.cfg,
+                                                prediction_type="v"),
+                            device=trainer.device)
+    twin.model.load_state_dict(trainer.model.state_dict())
+    return twin
+
+
+def phase_serve_samplers(svc: GenerationService, card: str) -> dict:
+    """Main path 3: SAMPLER_REQUESTS through the service, V_REQUEST through
+    a v-prediction twin, and one decode=False call; each runs the U-Net
+    once per step, guided or not, so attention launches 12 x steps."""
+    trainer, cfg = svc.trainer, svc.cfg
+    calls = attention_calls_per_step(trainer.model.unet)
+    size = cfg.volume_size
+    v_svc = GenerationService(dataclasses.replace(cfg, prediction_type="v"),
+                              _v_twin(trainer), name="flagship-v")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    ctx = torch.ones(16, dtype=torch.long, device="cuda")
+    latents_only = dict(num=16, context=1, sampler="ddim",
+                        sample_steps=LATENT_STEPS, decode=False)
+    runs = [(req, partial(svc.generate, **req),
+             (req["num"], size, size, size, 1)) for req in SAMPLER_REQUESTS]
+    runs.append((dict(V_REQUEST, prediction_type="v"),
+                 partial(v_svc.generate, **V_REQUEST),
+                 (V_REQUEST["num"], size, size, size, 1)))
+    runs.append((latents_only, lambda: trainer.generate(
+        _latent_shape(cfg, 16), ctx, generator=gen, sampler="ddim",
+        sample_steps=LATENT_STEPS, decode=False).cpu().numpy(),
+        _latent_shape(cfg, 16)))
+    outs = []
+    attn.reset_launches()   # the main path starts here
+    cbq.reset_launches()
+    for req, run, want in runs:
+        before = attn.launches
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = attn.launches - before
+        finite = bool(np.isfinite(out).all())
+        guided = req.get("guidance_scale") is not None
+        say("serve_samplers", request=req,
+            unet_batch=req["num"] * (2 if guided else 1), wall_s=wall,
+            vol_per_min=60.0 * req["num"] / wall, attention_launches=n,
+            expected=calls * req["sample_steps"],
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            shape=list(out.shape), finite=finite, std=float(out.std()),
+            card=card)
+        if not (finite and out.shape == want
+                and n == calls * req["sample_steps"]):
+            raise RuntimeError(f"serve_samplers {req}: finite {finite}, "
+                               f"shape {out.shape}, launches {n}")
+        outs.append(out)
+    total = attn.launches   # read right after the main path
+    codebook = cbq.launches
+    expected = calls * sum(req["sample_steps"] for req, _, _ in runs)
+    rel = float(np.abs(outs[1] - outs[0]).max() / np.abs(outs[0]).max())
+    say("serve_samplers", repeat_rel_err=rel, tol=REPEAT_REL_TOL,
+        attention_launches=total, expected=expected,
+        codebook_launches=codebook)
+    if rel > REPEAT_REL_TOL or total != expected or codebook != 0:
+        raise RuntimeError(f"serve_samplers: repeat rel_err {rel}, launches "
+                           f"{total} (expected {expected}), codebook "
+                           f"launches {codebook}")
+    del v_svc, runs
+    torch.cuda.empty_cache()
+    step_ms = {}
+    with torch.no_grad():
+        for b in (16, 32, 64):
+            x = torch.randn(_latent_shape(cfg, b), generator=gen,
+                            device="cuda")
+            t = torch.full((b,), 250, device="cuda")
+            c = torch.ones(b, dtype=torch.long, device="cuda")
+            step_ms[b] = cuda_ms(lambda: trainer.model.unet(x, t, c), 10,
+                                 warmup=2)
+    say("serve_samplers", unet_step_ms_by_batch=step_ms, card=card)
+    return {attn.KERNEL: total, cbq.KERNEL: codebook}
+
+
+def phase_sampler_compare(trainer: DiffusionTrainer) -> None:
+    """Guided DDIM (scale 3, eta 0.5) and DPM++ SDE, SAMPLER_COMPARE_STEPS
+    steps at num 2 with injected noise, latents only: the card (kernel, f32
+    without TF32) against a CPU twin (plain version)."""
+    cfg = trainer.cfg
+    cpu = DiffusionTrainer(cfg, device="cpu")
+    cpu.model.load_state_dict({k: t.cpu() for k, t in
+                               trainer.model.state_dict().items()})
+    rng = np.random.default_rng(SEED + 9)
+    shape = _latent_shape(cfg, 2)
+    x_t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    noise = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+             for _ in range(SAMPLER_COMPARE_STEPS)]
+    ctx = torch.tensor([1, 2])
+    for case in (dict(sampler="ddim", eta=0.5, guidance_scale=3.0),
+                 dict(sampler="dpmpp_sde")):
+        kw = dict(sample_steps=SAMPLER_COMPARE_STEPS, decode=False, **case)
+        with torch.no_grad(), _NoTF32():
+            out = trainer.generate(
+                shape, ctx.cuda(), init_noise=x_t.cuda(),
+                step_noise=lambda i: noise[i].cuda(), **kw).cpu()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = cpu.generate(shape, ctx, init_noise=x_t,
+                               step_noise=noise.__getitem__, **kw)
+            cpu_s = time.perf_counter() - t0
+        err = float((out - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        ok = rel <= SAMPLER_REL_TOL and bool(torch.isfinite(out).all())
+        say("sampler_compare", **case, steps=SAMPLER_COMPARE_STEPS, num=2,
+            max_abs_err=err, max_abs_ref=float(ref.abs().max()),
+            rel_err=rel, tol=SAMPLER_REL_TOL, cpu_s=cpu_s, ok=ok)
+        if not ok:
+            raise RuntimeError(f"sampler_compare {case}: rel_err {rel}")
+
+
+def phase_fidelity(trainer: DiffusionTrainer, card: str) -> dict:
+    """Main path 4: latent features of two batches of seeded volumes (one
+    codebook launch each), then `fidelity_eval` at its defaults with the
+    real rows labelled 0..context_dim in turn."""
+    cfg = trainer.cfg
+    rng = np.random.default_rng(SEED + 8)
+    vols = [_seeded_volumes(rng, FIDELITY_VOLUMES, cfg.volume_size).cuda()
+            for _ in range(2)]
+    n_ctx = cfg.unet.context_dim + 1
+    labels = np.arange(2 * FIDELITY_VOLUMES) % n_ctx
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    torch.cuda.synchronize()
+    attn.reset_launches()   # the main path starts here
+    cbq.reset_launches()
+    t0 = time.perf_counter()
+    real = np.concatenate([trainer.latent_features(v) for v in vols])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    scores = trainer.fidelity_eval(real, gen, num_samples=FIDELITY_SAMPLES,
+                                   batch=FIDELITY_BATCH, real_ctx=labels)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = {attn.KERNEL: attn.launches, cbq.KERNEL: cbq.launches}
+    steps = max(cfg.timesteps // 20, 1)   # fidelity_eval's DDIM default
+    per_ctx = max(FIDELITY_SAMPLES // n_ctx, 1)
+    batches = n_ctx * -(-per_ctx // FIDELITY_BATCH)
+    expected = {attn.KERNEL: batches * steps
+                * attention_calls_per_step(trainer.model.unet),
+                cbq.KERNEL: len(vols)}
+    finite = all(np.isfinite(v) for v in scores.values())
+    splits = all(f"fid_same_c{c}" in scores for c in range(n_ctx))
+    say("fidelity", real=list(real.shape), features_s=t1 - t0,
+        fidelity_eval_s=t2 - t1, ddim_steps=steps, sample_batches=batches,
+        scores=scores, launches=counts, expected=expected, finite=finite,
+        card=card)
+    if not (finite and splits and counts == expected):
+        raise RuntimeError(f"fidelity: finite {finite}, splits {splits}, "
+                           f"launches {counts}")
+    return counts
 
 
 def _seeded_volumes(rng, b: int, size: int) -> torch.Tensor:
@@ -934,6 +1148,9 @@ def main() -> None:
     svc = GenerationService(trainer.cfg, trainer, name="flagship")
     counts = {"serve": phase_serve(svc, card)}
     phase_breakdown(trainer, attn_cases["self_f32"])
+    counts["serve_samplers"] = phase_serve_samplers(svc, card)
+    phase_sampler_compare(trainer)
+    counts["fidelity"] = phase_fidelity(trainer, card)
     del svc, trainer
     torch.cuda.empty_cache()
     phase_encode()

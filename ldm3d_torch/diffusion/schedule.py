@@ -3,9 +3,9 @@
 Linear beta in [beta_start, beta_end] over T steps, precomputed in float64
 and held as float32 tables. `make_schedule` puts the tables on the CPU:
 the sampler reads one timestep at a time as Python scalars, so no per-step
-gather runs on the device. The training functions (`q_sample`, `v_target`,
-`min_snr_weight`) gather a batch of timesteps on t's device;
-`Schedule.to(device)` gives a copy there.
+gather runs on the device. The batched functions (`q_sample`, `v_target`,
+`min_snr_weight`, `model_out_to_eps`) gather a batch of timesteps on t's
+device; `Schedule.to(device)` gives a copy there.
 """
 
 from __future__ import annotations
@@ -93,13 +93,16 @@ def min_snr_weight(sched: Schedule, t: torch.Tensor, gamma: float,
 
 def model_out_to_eps(sched: Schedule, x_t: torch.Tensor, t: torch.Tensor,
                      out: torch.Tensor, prediction_type: str) -> torch.Tensor:
-    """Model output in eps-space. Only eps-prediction is ported for
-    sampling (v-prediction is ported for training only)."""
+    """Model output in eps-space, so that every sampler keeps its eps-based
+    update. For v-prediction eps = sqrt(abar_t) v + sqrt(1 - abar_t) x_t,
+    the inverse of `v_target` given x_t = `q_sample`(x_0, t, eps)."""
     if prediction_type == "eps":
         return out
-    if prediction_type == "v":
-        raise ValueError("prediction_type 'v': not ported yet")
-    raise ValueError(f"unknown prediction_type {prediction_type!r}")
+    if prediction_type != "v":
+        raise ValueError(f"unknown prediction_type {prediction_type!r}")
+    g = sched.gather(t)
+    return (g.sqrt_alpha_bar.to(out.dtype) * out
+            + g.sqrt_one_minus_alpha_bar.to(out.dtype) * x_t)
 
 
 def posterior_coefficients(sched: Schedule, t: int):

@@ -1,33 +1,60 @@
-"""Volume-generation service: the port of `ldm3d.serve.GenerationService`.
+"""Volume-generation service: the port of `ldm3d.serve`.
 
-One model on one device answers requests in process:
+One model on one device answers requests, in process or over HTTP:
 
-    svc = GenerationService(cfg, trainer)
-    vols = svc.generate(num=16, context=1, seed=7)   # [16, H, W, D, 1]
+    svc = GenerationService.from_random_init(flagship_cfg(), seed=0)
+    vols = svc.generate(num=16, context=1, sampler="ddim", sample_steps=50,
+                        guidance_scale=3.0, seed=7)   # [16, H, W, D, 1]
 
-Request validation follows the JAX service. Only the full DDPM chain is
-ported: the other samplers and classifier-free guidance raise
-ValueError("... not ported yet"). The HTTP front is not ported.
+    server = serve(svc, "127.0.0.1", 8777)   # an http.server.HTTPServer
+    server.serve_forever()
+
+  POST /generate {"num": 4, "context": 1, "sampler": "ddim",
+                  "sample_steps": 50, "guidance_scale": null,
+                  "seed": 7, "format": "npy"}
+    -> application/octet-stream (.npy payload, shape [num, H, W, D, 1]);
+       "format": "nii" returns a .nii.gz of the first volume; a request
+       the service refuses gets 400 and {"error": ...}.
+  GET  /healthz  -> {"status": "ok", "model": ..., "compiled": [...]}
+
+Every request the JAX service accepts is accepted, with its validation
+and messages: samplers "ddpm" (the full T-step chain; `sample_steps` is
+ignored), "ddim", "dpmpp" and "dpmpp_sde" (`sample_steps` in [1, T],
+default T // 20), and classifier-free guidance (`guidance_scale` rounded
+to 0.1 in [0, 20]; 1.0 is the unguided chain; it needs a model trained
+with cfg_dropout > 0). The port compiles no programs: "compiled" lists
+the last MAX_SIGNATURES (num, sampler, sample_steps, guidance)
+signatures served, as the JAX service lists its cached programs.
+
+Requests are served one at a time (one device). The service is built by
+the caller, over seeded random weights (`from_random_init`) or over a
+trainer loaded with `convert.load_npz`'s state dicts; the port has no
+checkpoint format, so there is no `from_checkpoint` and no CLI.
 """
 
 from __future__ import annotations
 
+import gzip
+import io
+import json
 import threading
+from collections import OrderedDict
+from http.server import BaseHTTPRequestHandler, HTTPServer
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ldm3d_torch.core.config import DiffusionConfig
-from ldm3d_torch.train.dm_trainer import DiffusionTrainer
-
-SAMPLERS = ("ddpm", "ddim", "dpmpp", "dpmpp_sde")
+from ldm3d_torch.data.nifti import nifti_bytes
+from ldm3d_torch.train.dm_trainer import SAMPLERS, DiffusionTrainer
 
 
 class GenerationService:
     """Owns a `DiffusionTrainer` and serialises requests on its device."""
 
     MAX_BATCH = 32
+    MAX_SIGNATURES = 8
 
     def __init__(self, cfg: DiffusionConfig, trainer: DiffusionTrainer,
                  name: str = "ldm3d"):
@@ -36,6 +63,10 @@ class GenerationService:
         self.trainer = trainer
         self._lock = threading.Lock()
         self._counter = 0
+        # (num, sampler, sample_steps, guidance), most recent last; its own
+        # lock, so that /healthz does not wait for a generation
+        self._signatures: "OrderedDict[tuple, None]" = OrderedDict()
+        self._signatures_lock = threading.Lock()
 
     @classmethod
     def from_random_init(cls, cfg: DiffusionConfig, seed: int = 0,
@@ -59,20 +90,35 @@ class GenerationService:
         if sampler not in SAMPLERS:
             raise ValueError("sampler must be 'ddpm', 'ddim', 'dpmpp' "
                              "or 'dpmpp_sde'")
-        if sampler != "ddpm":
-            raise ValueError(f"sampler {sampler!r}: not ported yet")
+        if sampler == "ddpm":
+            sample_steps = None   # the full chain has no stride
+        if sample_steps is not None:
+            sample_steps = int(sample_steps)
+            if not 1 <= sample_steps <= self.cfg.timesteps:
+                raise ValueError(
+                    f"sample_steps must be in [1, {self.cfg.timesteps}]")
         if guidance_scale is not None:
             guidance_scale = round(float(guidance_scale), 1)
             if not 0.0 <= guidance_scale <= 20.0:
                 raise ValueError("guidance_scale must be in [0, 20]")
-            if guidance_scale != 1.0:      # 1.0 is the unguided chain
-                raise ValueError("guidance_scale: not ported yet")
+            if guidance_scale == 1.0:
+                guidance_scale = None   # the unguided chain
+            elif self.cfg.unet.cfg_dropout == 0.0:
+                raise ValueError(   # the JAX service's message
+                    "guidance_scale requires a model trained with "
+                    "cfg_dropout > 0 (restore one via --cfg_dropout)")
         if self.trainer.conditional:
             context = 0 if context is None else int(context)
             max_ctx = self.cfg.unet.context_dim
             if not 0 <= context <= max_ctx:
                 raise ValueError(f"context must be in [0, {max_ctx}]")
 
+        with self._signatures_lock:
+            key = (num, sampler, sample_steps, guidance_scale)
+            self._signatures.pop(key, None)
+            self._signatures[key] = None
+            while len(self._signatures) > self.MAX_SIGNATURES:
+                self._signatures.popitem(last=False)
         with self._lock:  # one device: serialise device work
             if seed is None:
                 self._counter += 1
@@ -85,5 +131,73 @@ class GenerationService:
             c = self.cfg
             shape = (num, c.latent_size, c.latent_size, c.latent_size,
                      c.latent_channels)
-            out = self.trainer.generate(shape, ctx, generator=gen)
+            out = self.trainer.generate(
+                shape, ctx, generator=gen, sampler=sampler,
+                sample_steps=sample_steps, guidance_scale=guidance_scale)
             return out.float().cpu().numpy()
+
+    def compiled_signatures(self):
+        """[num, sampler, sample_steps, guidance] of the signatures served
+        most recently, oldest first."""
+        with self._signatures_lock:
+            return [list(k) for k in self._signatures]
+
+
+def _make_handler(svc: GenerationService):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _send(self, code: int, body: bytes, content_type: str):
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _json(self, code: int, obj):
+            self._send(code, json.dumps(obj).encode(), "application/json")
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._json(200, {"status": "ok", "model": svc.name,
+                                 "compiled": svc.compiled_signatures()})
+            else:
+                self._json(404, {"error": "unknown path"})
+
+        def do_POST(self):
+            if self.path != "/generate":
+                self._json(404, {"error": "unknown path"})
+                return
+            # A bad request of any kind (body, JSON, field, validation)
+            # is answered with 400 and the server keeps serving.
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                vols = svc.generate(
+                    num=int(req.get("num", 1)),
+                    context=req.get("context"),
+                    sampler=req.get("sampler", "ddpm"),
+                    sample_steps=req.get("sample_steps"),
+                    guidance_scale=req.get("guidance_scale"),
+                    seed=req.get("seed"))
+            except Exception as e:
+                self._json(400, {"error": f"{type(e).__name__}: {e}"})
+                return
+            if req.get("format", "npy") == "nii":
+                payload = gzip.compress(nifti_bytes(vols[0]))
+            else:
+                buf = io.BytesIO()
+                np.save(buf, vols)
+                payload = buf.getvalue()
+            self._send(200, payload, "application/octet-stream")
+
+    return Handler
+
+
+def serve(svc: GenerationService, host: str = "127.0.0.1",
+          port: int = 8777) -> HTTPServer:
+    """An HTTPServer over `svc`, bound and not yet serving: the caller runs
+    `serve_forever()` (in a thread if it must go on) and `server_close()`.
+    Port 0 binds a free port (`server.server_address[1]`)."""
+    return HTTPServer((host, port), _make_handler(svc))

@@ -1,7 +1,9 @@
 """Stage-2 latent diffusion: the port of `ldm3d.train.dm_trainer`
 (`LatentDiffusion`, `DiffusionTrainer`): encode volumes through the frozen
-VQ-VAE, train the U-Net on volumes or on cached latents, and sample with
-the `ddpm` chain + decode.
+VQ-VAE, train the U-Net on volumes or on cached latents, sample with the
+DDPM, DDIM, DPM++(2M) or DPM++(2M) SDE sampler (optionally with
+classifier-free guidance, optionally decoded), and score samples with the
+latent-FID evaluation of the training CLI (`fidelity_eval`).
 
 The Python loop over `train_step_latents` is the counterpart of
 `train_epoch_latents`, whose `lax.scan` only saved TPU dispatches.
@@ -19,13 +21,19 @@ import torch.nn as nn
 
 from ldm3d_torch.core.config import DiffusionConfig, TrainConfig
 from ldm3d_torch.core.device import resolve_device
-from ldm3d_torch.diffusion.ddpm import sample_latents
+from ldm3d_torch.diffusion.ddpm import (sample_latents, sample_latents_ddim,
+                                        sample_latents_dpmpp,
+                                        sample_latents_dpmpp_sde)
 from ldm3d_torch.diffusion.schedule import (make_schedule, min_snr_weight,
                                             model_out_to_eps, q_sample,
                                             v_target)
 from ldm3d_torch.models.layers import init_params_
 from ldm3d_torch.models.unet3d import UNet3D
 from ldm3d_torch.models.vqvae import VQVAE
+from ldm3d_torch.ops.fid import (frechet_distance, latent_fidelity,
+                                 pool_latent_features)
+
+SAMPLERS = ("ddpm", "ddim", "dpmpp", "dpmpp_sde")
 
 
 def auto_latent_scale(lat_std: float, cfg: DiffusionConfig,
@@ -252,13 +260,35 @@ class DiffusionTrainer:
                  generator: Optional[torch.Generator] = None,
                  init_noise: Optional[torch.Tensor] = None,
                  step_noise: Optional[Callable[[int], torch.Tensor]] = None,
-                 use_ema: bool = True) -> torch.Tensor:
-        """The T-step DDPM chain from x_T, then the VQ decode.
+                 use_ema: bool = True, sampler: str = "ddpm",
+                 sample_steps: Optional[int] = None, eta: float = 0.0,
+                 guidance_scale: Optional[float] = None, last_step: int = 0,
+                 decode: bool = True) -> torch.Tensor:
+        """Sample latents from x_T and, with `decode`, VQ-decode them.
 
-        Samples from the EMA weights when they are loaded (`use_ema=False`
-        forces the raw weights). Noise is drawn from `generator` (on this
-        trainer's device) unless `init_noise` / `step_noise` inject it.
-        Returns volumes [B, H, W, D, out] (NDHWC)."""
+        sampler: "ddpm" is the T-step chain down to `last_step`; "ddim"
+        (with `eta`), "dpmpp" and "dpmpp_sde" take `sample_steps` U-Net
+        calls (default max(T // 20, 1)). `guidance_scale` s runs
+        classifier-free guidance: one U-Net call over [x; x] with contexts
+        [context; null], eps = eps_u + s (eps_c - eps_u); it needs a
+        conditional model trained with cfg_dropout > 0. Samples from the
+        EMA weights when they are loaded (`use_ema=False` forces the raw
+        weights). Noise is drawn from `generator` (on this trainer's
+        device) unless `init_noise` / `step_noise` inject it (see
+        `ldm3d_torch.diffusion.ddpm`). Returns volumes [B, H, W, D, out]
+        (NDHWC), or with `decode=False` the latents in diffusion space."""
+        if sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r}")
+        if guidance_scale is not None:
+            if not self.conditional:
+                raise ValueError(
+                    "guidance_scale requires a conditional model")
+            if self.cfg.unet.cfg_dropout <= 0:
+                raise ValueError(
+                    "guidance_scale requires a model trained with "
+                    "cfg_dropout > 0; this model never learned the null "
+                    "context token, so guided sampling would be a silent "
+                    "no-op")
         unet = self.ema_unet if (use_ema and self.ema_unet is not None) \
             else self.model.unet
         if self.conditional:
@@ -268,15 +298,114 @@ class DiffusionTrainer:
         else:
             context = None
         ptype = self.cfg.prediction_type
+        sched = self._sched_dev
 
         def denoise(x, t):
-            out = unet(x, t, context)
-            return model_out_to_eps(self.sched, x, t, out, ptype)
+            if guidance_scale is None:
+                return model_out_to_eps(sched, x, t, unet(x, t, context),
+                                        ptype)
+            null = torch.full_like(context, self.cfg.unet.context_dim + 1)
+            x2, t2 = torch.cat([x, x]), torch.cat([t, t])
+            out = model_out_to_eps(sched, x2, t2,
+                                   unet(x2, t2, torch.cat([context, null])),
+                                   ptype)
+            eps_c, eps_u = out.chunk(2)
+            return eps_u + guidance_scale * (eps_c - eps_u)
 
-        if generator is None and (init_noise is None or step_noise is None):
+        if generator is None and (init_noise is None or (
+                step_noise is None and sampler != "dpmpp")):
             raise ValueError("generate needs a generator or injected noise")
-        latents = sample_latents(
-            self.sched, denoise, tuple(latent_shape), generator=generator,
-            device=self.device, clip_value=self.cfg.clip_sample_range,
-            init_noise=init_noise, step_noise=step_noise)
-        return self.model.decode(latents)
+        shape = tuple(latent_shape)
+        common = dict(generator=generator, device=self.device,
+                      clip_value=self.cfg.clip_sample_range,
+                      init_noise=init_noise)
+        steps = sample_steps or max(self.cfg.timesteps // 20, 1)
+        if sampler == "ddim":
+            latents = sample_latents_ddim(
+                self.sched, denoise, shape, num_steps=steps, eta=eta,
+                step_noise=step_noise, **common)
+        elif sampler == "dpmpp":
+            latents = sample_latents_dpmpp(self.sched, denoise, shape,
+                                           num_steps=steps, **common)
+        elif sampler == "dpmpp_sde":
+            latents = sample_latents_dpmpp_sde(
+                self.sched, denoise, shape, num_steps=steps,
+                step_noise=step_noise, **common)
+        else:
+            latents = sample_latents(self.sched, denoise, shape,
+                                     last_step=last_step,
+                                     step_noise=step_noise, **common)
+        return self.model.decode(latents) if decode else latents
+
+    # -- fidelity ---------------------------------------------------------
+
+    def latent_features(self, images: torch.Tensor) -> np.ndarray:
+        """Pooled frozen-encoder features of volumes (NDHWC) for the latent
+        fidelity metrics, [B, 2C] float64 numpy. The features are in the
+        raw codebook range (divided by latent_scale): the Frechet distance
+        scales with the features' scale squared, so FID numbers stay
+        comparable across latent_scale recipes."""
+        lat = self.encode_latents(images)
+        if self.cfg.latent_scale != 1.0:
+            lat = lat / self.cfg.latent_scale
+        return pool_latent_features(lat.cpu().numpy())
+
+    def fidelity_eval(self, real_feats: np.ndarray,
+                      generator: torch.Generator, num_samples: int = 64,
+                      batch: int = 16, sampler: str = "ddim",
+                      sample_steps: Optional[int] = None,
+                      guidance_scale: Optional[float] = None,
+                      eta: float = 0.0, real_ctx=None) -> dict:
+        """Generate `num_samples` latents (split evenly over the context
+        values 0..context_dim of a conditional model), in batches of
+        `batch` with noise from `generator`, and score them against
+        `real_feats` with latent-FID and kernel-MMD (`ops.fid`).
+
+        With `real_ctx` (the context label of each row of `real_feats`; a
+        conditional model only) it also reports, from the same samples,
+        `fid_same_c{c}` (the ctx = c samples against the ctx = c real rows),
+        `fid_cross_c{c}` (against the other rows) and `fid_class_sep`, the
+        mean of cross - same; a context with fewer than 2 rows on either
+        side is skipped."""
+        ls = self.cfg.latent_size
+        shape = (batch, ls, ls, ls, self.cfg.latent_channels)
+        contexts = (list(range(self.cfg.unet.context_dim + 1))
+                    if self.conditional else [None])
+        per = max(num_samples // len(contexts), 1)
+        feats_by_ctx: Dict = {c: [] for c in contexts}
+        for c in contexts:
+            ctx = None if c is None else torch.full(
+                (batch,), c, dtype=torch.long, device=self.device)
+            done = 0
+            while done < per:
+                lats = self.generate(shape, ctx, generator=generator,
+                                     sampler=sampler,
+                                     sample_steps=sample_steps, eta=eta,
+                                     guidance_scale=guidance_scale,
+                                     decode=False)
+                n = min(batch, per - done)
+                if self.cfg.latent_scale != 1.0:
+                    lats = lats / self.cfg.latent_scale
+                feats_by_ctx[c].append(
+                    pool_latent_features(lats[:n].cpu().numpy()))
+                done += n
+        gen_all = np.concatenate(
+            [f for fs in feats_by_ctx.values() for f in fs], axis=0)
+        out = latent_fidelity(real_feats, gen_all)
+        if real_ctx is not None and self.conditional:
+            labels = np.asarray(real_ctx).reshape(-1)
+            real = np.asarray(real_feats)
+            seps = []
+            for c in contexts:
+                same, cross = real[labels == c], real[labels != c]
+                if same.shape[0] < 2 or cross.shape[0] < 2:
+                    continue
+                gen_c = np.concatenate(feats_by_ctx[c], axis=0)
+                f_same = frechet_distance(same, gen_c)
+                f_cross = frechet_distance(cross, gen_c)
+                out[f"fid_same_c{c}"] = f_same
+                out[f"fid_cross_c{c}"] = f_cross
+                seps.append(f_cross - f_same)
+            if seps:
+                out["fid_class_sep"] = float(np.mean(seps))
+        return out

@@ -2,7 +2,8 @@
 schedule, reverse step, `generate` (T-step DDPM chain + VQ decode) against
 `DiffusionTrainer.generate_fn(..., decode=True)` with the JAX sampler's own
 noise injected, the weight converter's two input forms, and the service's
-request validation.
+request validation. The other samplers, guidance and v-prediction are in
+test_torch_samplers.py.
 """
 
 import os
@@ -165,9 +166,9 @@ def test_service_generates_and_is_seeded(service):
     (dict(num=0), "num must be"),
     (dict(num=33), "num must be"),
     (dict(sampler="euler"), "sampler must be"),
-    (dict(sampler="ddim", sample_steps=4), "not ported yet"),
-    (dict(sampler="dpmpp"), "not ported yet"),
-    (dict(guidance_scale=2.0), "not ported yet"),
+    (dict(sampler="ddim", sample_steps=0), "sample_steps must be"),
+    (dict(sampler="dpmpp", sample_steps=9), "sample_steps must be"),
+    (dict(guidance_scale=2.0), "cfg_dropout > 0"),
     (dict(guidance_scale=25.0), "guidance_scale must be"),
     (dict(context=2), "context must be"),
     (dict(context=-1), "context must be"),

@@ -3,8 +3,10 @@ jax, flax or optax.
 
 A subprocess blocks `jax`, `flax`, `optax` and the JAX package `ldm3d` in
 `sys.modules` before anything is imported, then imports `chip_smoke`,
-serves the tiny slice and runs the tiny training slice (encode, latent
-scale, steps on volumes and on latents) on the CPU. The sources of the
+serves the tiny slice (DDPM, and guided DDIM), imports the HTTP front,
+builds a NIfTI response, runs the tiny training slice (encode, latent
+scale, steps on volumes and on latents) and a latent-FID evaluation on the
+CPU. The sources of the
 port and of `chip_smoke.py` are also searched for such imports.
 """
 
@@ -33,6 +35,18 @@ svc = GenerationService.from_random_init(flagship_cfg(tiny=True), seed=0,
                                          device="cpu")
 vols = svc.generate(num=2, context=1, seed=3)
 assert vols.shape == (2, 16, 16, 16, 1) and np.isfinite(vols).all()
+import dataclasses
+from ldm3d_torch.data.nifti import nifti_bytes
+from ldm3d_torch.ops.fid import latent_fidelity
+from ldm3d_torch.serve import serve
+cfg = flagship_cfg(tiny=True)
+guided = GenerationService.from_random_init(dataclasses.replace(
+    cfg, unet=dataclasses.replace(cfg.unet, cfg_dropout=0.1)), seed=0,
+    device="cpu")
+g = guided.generate(num=2, context=1, sampler="ddim", sample_steps=3,
+                    guidance_scale=3.0, seed=3)
+assert g.shape == (2, 16, 16, 16, 1) and np.isfinite(g).all()
+assert len(nifti_bytes(g[0])) == 352 + 4 * 16 ** 3
 import torch
 from ldm3d_torch.core.config import TrainConfig
 from ldm3d_torch.train.dm_trainer import DiffusionTrainer, auto_latent_scale
@@ -48,6 +62,10 @@ for m in (tr.train_step(images, ctx),
           tr.train_step_latents(lat * cfg.latent_scale, ctx)):
     assert all(np.isfinite(float(v)) for v in m.values()), m
 assert tr.step == 2 and tr.ema_unet is not None
+real = tr.latent_features(images)
+scores = tr.fidelity_eval(real, torch.Generator().manual_seed(0),
+                          num_samples=2, batch=1, sample_steps=2)
+assert np.isfinite(scores["latent_fid"]), scores
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
 assert not loaded, loaded
