@@ -52,19 +52,37 @@ not 0:
  11. train_breakdown  encode and step times, attention's share of a step,
                 and a torch.profiler table of two latent steps (device time
                 by kernel, the device's busy share)
- 12. kernels    one JSON line with the whole run's kernel numbers
- 13. last line  {"ok": true, "device": {...}}
-No socket, no thread, no profiler trace; nothing is written but the kernel
-build under ldm3d_torch/_build/. Imports nothing of JAX.
+ 12. cli        main path 5: the command line in process, at full flagship
+                width, in a temporary directory removed at the end (it
+                checks the free disk first): the conditional_dm3d preset
+                and flags equal flagship_cfg(); --create_dataset
+                --synthetic (24 volumes, 128^3); --train_dm --cache_latents
+                for one epoch at --lbs 8 (codebook launches = the split's
+                batches, 12 attention launches per U-Net call); the
+                epoch-1 checkpoint restored into a fresh trainer equals the
+                saving one and takes the same step; --resume_ckpt -1 to
+                epoch 2; --test_dm DDIM 10; from_checkpoint serves DDIM 20
+                at num 16 within 1e-5 of the trainer's own generate
+ 13. kernels    one JSON line with the whole run's kernel numbers
+ 14. last line  {"ok": true, "device": {...}}
+No socket, no profiler trace; the only threads are the CLI's data loader
+prefetchers, joined when their epoch ends. Nothing is written but the
+kernel build under ldm3d_torch/_build/ and the cli phase's temporary
+directory. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 from typing import Dict
@@ -76,7 +94,11 @@ import torch  # noqa: E402
 
 import ldm3d_torch.ops.attention as attn  # noqa: E402
 import ldm3d_torch.ops.quantize as cbq  # noqa: E402
-from ldm3d_torch.core.config import TrainConfig, flagship_cfg  # noqa: E402
+from ldm3d_torch.cli import main as cli  # noqa: E402
+from ldm3d_torch.core.config import (TrainConfig, flagship_cfg,  # noqa: E402
+                                     replace)
+from ldm3d_torch.core.presets import get_preset  # noqa: E402
+from ldm3d_torch.data.pipeline import train_val_split  # noqa: E402
 from ldm3d_torch.models import unet3d  # noqa: E402
 from ldm3d_torch.models.layers import init_params_  # noqa: E402
 from ldm3d_torch.models.unet3d import (AttentionBlock,  # noqa: E402
@@ -85,8 +107,9 @@ from ldm3d_torch.models.unet3d import (AttentionBlock,  # noqa: E402
 from ldm3d_torch.models.vqvae import VQVAE  # noqa: E402
 from ldm3d_torch.ops import _build  # noqa: E402
 from ldm3d_torch.serve import GenerationService  # noqa: E402
+from ldm3d_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from ldm3d_torch.train.dm_trainer import (DiffusionTrainer,  # noqa: E402
-                                          auto_latent_scale)
+                                          LatentDiffusion, auto_latent_scale)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense), at a 700 W limit:
 # the tensor cores' rate for each input type (float32 at the TF32 rate,
@@ -168,6 +191,28 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_DELTA_ATOL = 1e-2 * TrainConfig().learning_rate
 PROFILE_TOP = 15       # kernels listed by the train step's profile
+# Main path 5 (`cli`): the port's command line, in process. These flags
+# make the conditional_dm3d preset the flagship (the phase checks that the
+# DiffusionConfig equals flagship_cfg()).
+CLI_FLAGSHIP = ["--preset", "conditional_dm3d", "--norm", "group",
+                "--num_classes", "4", "--cfg_dropout", "0.1", "--ema_decay",
+                "0.999", "--latent_scale", "20.834", "--clip_sample_range",
+                "0"]
+CLI_DEVICE = "cuda"
+CLI_VOLUMES, CLI_LBS = 24, 8   # the synthetic corpus, the batch
+CLI_KEEP = 2                   # checkpoints kept: at most two saves
+CLI_TEST_STEPS = 10            # --test_dm --sampler ddim --sample_steps
+CLI_REQUEST = dict(num=16, context=1, sampler="ddim", sample_steps=20,
+                   seed=21)
+# Resume: a restored trainer and the one that saved it take one latent
+# step from the same state with the same injected draws, cuDNN
+# deterministic: 0 is expected (the same kernels on the same inputs);
+# anything left is a nondeterministic kernel outside cuDNN, and up to 1e-6
+# of each tensor's largest value is accepted.
+CLI_RESUME_REL_TOL = 1e-6
+# The served request against the training trainer's own generate at the
+# same seed from the same EMA weights: the same computation twice.
+CLI_SERVE_REL_TOL = 1e-5
 
 
 def say(phase: str, **kv) -> None:
@@ -426,6 +471,7 @@ ATTN_SHAPES = [  # B, nq, nkv, C, dtype
     (1, 17, 33, 600, torch.float32),      # a ragged last column slice
     (2, 200, 300, 256, torch.float32),    # Q streamed over 5 key tiles
     (64, 64, 64, 512, torch.float32),     # guided at num 32 (2 x 32)
+    (4, 64, 64, 512, torch.float32),      # cli --test_dm at batch 4
 ]
 CB_SHAPES = [  # N, K, D, dtype
     (37, 16, 8, torch.float32),           # the tiny slice
@@ -1114,6 +1160,312 @@ def phase_train_breakdown(train: dict, attn_case: dict) -> None:
     say("train_profile", **_profile_step(trainer, batch, ctx, lat_ms))
 
 
+def _checkpoint_bytes(cfg) -> int:
+    """float32 bytes of one checkpoint: the model (VQ-VAE, U-Net and
+    statistics), the EMA U-Net and Adam's two moments of the U-Net."""
+    with torch.device("meta"):
+        model = LatentDiffusion(cfg.diffusion)
+    numel = sum(t.numel() for t in model.state_dict().values())
+    unet = sum(p.numel() for p in model.unet.parameters())
+    unet_all = sum(t.numel() for t in model.unet.state_dict().values())
+    return 4 * (numel + unet_all + 2 * unet)
+
+
+def _state_equal(a: DiffusionTrainer, b: DiffusionTrainer) -> list:
+    """Names of the state entries (model, EMA, Adam, step, generator)
+    that differ between two trainers."""
+    diff = []
+
+    def walk(prefix, x, y):
+        if isinstance(x, torch.Tensor):
+            if not (x.shape == y.shape and torch.equal(x.cpu(), y.cpu())):
+                diff.append(prefix)
+        elif isinstance(x, dict):
+            if x.keys() != y.keys():
+                diff.append(prefix + "/keys")
+            for k in x:
+                walk(f"{prefix}/{k}", x[k], y.get(k))
+        elif isinstance(x, (list, tuple)):
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(f"{prefix}/{i}", u, v)
+        elif x != y:
+            diff.append(prefix)
+    walk("", a.state_dict(), b.state_dict())
+    return diff
+
+
+def _resume_step_error(saver: DiffusionTrainer, restored: DiffusionTrainer,
+                       lat: torch.Tensor, ctx: torch.Tensor,
+                       device: str) -> dict:
+    """One latent step on both trainers with the same injected draws,
+    cuDNN deterministic: the largest relative difference of any U-Net
+    parameter, EMA weight or Adam moment afterwards."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    b = lat.shape[0]
+    draws = dict(t=torch.randint(0, saver.cfg.timesteps, (b,), generator=gen,
+                                 device=device),
+                 noise=torch.randn(lat.shape, generator=gen, device=device),
+                 drop=torch.rand(b, generator=gen, device=device) < 0.1)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for tr in (saver, restored):
+            tr.train_step_latents(lat, ctx, **draws)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst, where = 0.0, None
+    pairs = [(f"unet.{n}", p, q) for (n, p), q in zip(
+        saver.model.unet.named_parameters(),
+        restored.model.unet.parameters())]
+    pairs += [(f"ema.{n}", p, q) for (n, p), q in zip(
+        saver.ema_unet.named_parameters(), restored.ema_unet.parameters())]
+    for (name, p), q in zip(saver.model.unet.named_parameters(),
+                            restored.model.unet.parameters()):
+        for slot in ("exp_avg", "exp_avg_sq"):
+            pairs.append((f"adam.{slot}.{name}",
+                          saver.optimizer.state[p][slot],
+                          restored.optimizer.state[q][slot]))
+    for name, x, y in pairs:
+        x, y = x.detach(), y.detach()
+        diff = float((x - y).abs().max())
+        scale = float(x.abs().max())
+        err = diff / scale if scale > 0 else diff
+        if where is None or err > worst:
+            worst, where = err, name
+    return dict(max_rel_err=worst, at=where, bitwise=worst == 0.0,
+                tensors=len(pairs))
+
+
+def phase_cli(card: str) -> dict:
+    """Main path 5: the port's command line at full flagship width, in
+    process, in a temporary directory removed at the end: the flagship
+    config from the conditional_dm3d preset and flags, --create_dataset
+    --synthetic at 128^3, --train_dm --cache_latents for one epoch, an
+    exact-resume check, --resume_ckpt -1 to a second epoch, --test_dm with
+    DDIM, and GenerationService.from_checkpoint serving one request. The
+    counters are zeroed before each of those user-facing steps and read
+    after it; the checks between them (the resume step, the trainer's own
+    generate) are not counted."""
+    tmp = tempfile.mkdtemp(prefix="ldm3d_cli_")
+    dev = CLI_DEVICE
+    counts = {attn.KERNEL: 0, cbq.KERNEL: 0}
+
+    def counted(fn, *a, **kw):
+        torch.cuda.synchronize()
+        attn.reset_launches()   # a piece of the main path starts here
+        cbq.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {attn.KERNEL: attn.launches, cbq.KERNEL: cbq.launches}
+        for k in counts:
+            counts[k] += got[k]
+        return out, wall, got
+
+    def parse(*extra):
+        argv = CLI_FLAGSHIP + ["--cache_dir", os.path.join(tmp, "cache"),
+                               "--ckpt_dir", os.path.join(tmp, "ckpt"),
+                               "--out_dir", os.path.join(tmp, "out"),
+                               "--platform", "gpu" if dev == "cuda"
+                               else "cpu", *extra]
+        args = cli.build_parser().parse_args(argv)
+        return cli.apply_overrides(get_preset(args.preset), args), args
+
+    real_encode, real_save = cli._encode_corpus, CheckpointManager.save
+    real_restore = CheckpointManager.restore
+    # torch_load_s: the checkpoint file opened (memory-mapped) and
+    # unpickled; the tensors are read when a trainer loads them
+    timing: Dict[str, list] = {"encode_s": [], "save_s": [],
+                               "torch_load_s": []}
+    encoded = {}
+
+    def timed_encode(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat, ctx = real_encode(*a, **kw)
+        torch.cuda.synchronize()
+        timing["encode_s"].append(time.perf_counter() - t0)
+        timing.setdefault("epoch_start", []).append(time.perf_counter())
+        encoded["lat"], encoded["ctx"] = lat, ctx
+        return lat, ctx
+
+    def timed_save(self, epoch, state, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timing.setdefault("epoch_end", []).append(t0)
+        out = real_save(self, epoch, state, *a, **kw)
+        timing["save_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_restore(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = real_restore(self, *a, **kw)
+        timing["torch_load_s"].append(time.perf_counter() - t0)
+        return out
+
+    cli._encode_corpus = timed_encode
+    CheckpointManager.save = timed_save
+    CheckpointManager.restore = timed_restore
+    try:
+        cfg, _ = parse()
+        want = flagship_cfg()
+        differ = [f.name for f in dataclasses.fields(want)
+                  if getattr(cfg.diffusion, f.name) != getattr(want, f.name)]
+        ckpt_bytes = _checkpoint_bytes(cfg)
+        free = shutil.disk_usage(tmp).free
+        need = (CLI_KEEP + 1) * ckpt_bytes + 2 * 2 ** 30
+        say("cli", config_equals_flagship=not differ, differ=differ,
+            preset=CLI_FLAGSHIP[1], flags=CLI_FLAGSHIP, tmp=tmp,
+            disk_free=free, disk_needed=need,
+            checkpoint_bytes_expected=ckpt_bytes, card=card)
+        if differ:
+            raise RuntimeError(f"cli: config differs from flagship_cfg() "
+                               f"in {differ}")
+        if free < need:
+            raise RuntimeError(f"cli: {free} bytes free in {tmp}, "
+                               f"{need} needed for {CLI_KEEP} checkpoints")
+
+        cfg, args = parse("--create_dataset", "--synthetic",
+                          "--num_synthetic", str(CLI_VOLUMES))
+        _, corpus_s, got = counted(cli.run_create_dataset, cfg, args)
+        say("cli", step="create_dataset", volumes=CLI_VOLUMES,
+            volume=cfg.data.volume_size, corpus_write_s=corpus_s,
+            launches=got, card=card)
+
+        cfg, args = parse("--train_dm", "--cache_latents", "--epochs", "1",
+                          "--lbs", str(CLI_LBS))
+        cfg = replace(cfg, train=replace(cfg.train,
+                                         keep_checkpoints=CLI_KEEP))
+        torch.cuda.reset_peak_memory_stats()
+        saver, train_s, got1 = counted(cli.run_train_dm, cfg, args)
+        peak_train = torch.cuda.max_memory_allocated()
+        tr_idx, _ = train_val_split(CLI_VOLUMES, cfg.train.val_fraction,
+                                    cfg.train.seed)
+        batches = len(tr_idx) // CLI_LBS   # encoded; one step each
+        steps = batches
+        calls = attention_calls_per_step(saver.model.unet)
+        expect = {attn.KERNEL: calls * steps, cbq.KERNEL: batches}
+        ckpt_dir = os.path.join(tmp, "ckpt", f"{cfg.name}_dm")
+        path1 = os.path.join(ckpt_dir, "1.pt")
+        size1 = os.path.getsize(path1)
+        epoch_s = timing["epoch_end"][0] - timing["epoch_start"][0]
+        say("cli", step="train_dm", epochs=1, batch=CLI_LBS,
+            encoded=list(encoded["lat"].shape),
+            encode_s=timing["encode_s"][0], epoch_s=epoch_s, steps=steps,
+            run_s=train_s, checkpoint_bytes=size1,
+            save_s=timing["save_s"][0], launches=got1, expected=expect,
+            max_memory_allocated=peak_train, card=card)
+        if got1 != expect or saver.step != steps:
+            raise RuntimeError(f"cli train_dm: launches {got1}, expected "
+                               f"{expect}, step {saver.step}")
+
+        # resume is exact: restore epoch 1 into a fresh trainer
+        fresh = DiffusionTrainer(cfg.diffusion, device=dev,
+                                 train_cfg=cfg.train)
+        t0 = time.perf_counter()
+        state, ep = CheckpointManager(ckpt_dir).restore(1)
+        fresh.load_state_dict(state)
+        del state
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        differ = _state_equal(saver, fresh)
+        restored_step = fresh.step
+        lat = encoded["lat"][:CLI_LBS]
+        ctx = encoded["ctx"][:CLI_LBS]
+        err = _resume_step_error(saver, fresh, lat, ctx, dev)
+        say("cli", step="resume_check", restored_epoch=ep,
+            restored_step=restored_step, state_differs=differ,
+            restore_s=restore_s, **err,
+            tol=CLI_RESUME_REL_TOL, card=card)
+        if differ or err["max_rel_err"] > CLI_RESUME_REL_TOL:
+            raise RuntimeError(f"cli resume: state differs in {differ[:5]}, "
+                               f"step error {err}")
+        del fresh, saver
+        torch.cuda.empty_cache()
+
+        cfg, args = parse("--train_dm", "--cache_latents", "--epochs", "2",
+                          "--lbs", str(CLI_LBS), "--resume_ckpt", "-1")
+        cfg = replace(cfg, train=replace(cfg.train,
+                                         keep_checkpoints=CLI_KEEP))
+        out = io.StringIO()   # the CLI's own lines, shown after the run
+        with contextlib.redirect_stdout(out):
+            trainer, resume_s, got2 = counted(cli.run_train_dm, cfg, args)
+        text = out.getvalue()
+        print(text, end="", flush=True)
+        started = re.findall(r"^epoch (\d+)/2 ", text, re.M)
+        kept = CheckpointManager(ckpt_dir).all_epochs()
+        say("cli", step="resume", resumed_from=1, epochs_run=started,
+            run_s=resume_s, encode_s=timing["encode_s"][-1],
+            epoch_s=timing["epoch_end"][-1] - timing["epoch_start"][-1],
+            save_s=timing["save_s"][-1],
+            torch_load_s=timing["torch_load_s"][-1], checkpoints=kept,
+            trainer_step=trainer.step, launches=got2, expected=expect,
+            card=card)
+        if ("resumed from epoch 1" not in text or started != ["2"]
+                or got2 != expect or trainer.step != 2 * steps
+                or kept != [1, 2]):
+            raise RuntimeError(f"cli resume: epochs {started}, launches "
+                               f"{got2}, step {trainer.step}, kept {kept}")
+
+        cfg, args = parse("--test_dm", "--sampler", "ddim",
+                          "--sample_steps", str(CLI_TEST_STEPS))
+        paths, test_s, got3 = counted(cli.run_test_dm, cfg, args)
+        vols = [np.load(p) for p in paths]
+        size = cfg.data.volume_size
+        shapes_ok = len(vols) == cfg.diffusion.unet.context_dim + 1 and all(
+            v.shape == (4, size, size, size, 1) for v in vols)
+        finite = all(bool(np.isfinite(v).all()) for v in vols)
+        expect3 = {attn.KERNEL: calls * CLI_TEST_STEPS * len(vols),
+                   cbq.KERNEL: 0}
+        say("cli", step="test_dm", sampler="ddim", steps=CLI_TEST_STEPS,
+            files=[os.path.basename(p) for p in paths],
+            shapes=[list(v.shape) for v in vols], finite=finite,
+            test_dm_s=test_s, torch_load_s=timing["torch_load_s"][-1],
+            launches=got3, expected=expect3, card=card)
+        if not (shapes_ok and finite and got3 == expect3):
+            raise RuntimeError(f"cli test_dm: shapes {shapes_ok}, finite "
+                               f"{finite}, launches {got3}")
+        del vols
+
+        meta_cfg = cli._adopt_dm_meta(*parse())
+        svc = GenerationService.from_checkpoint(meta_cfg, ckpt_dir, ema=True,
+                                                device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        served, serve_s, got4 = counted(svc.generate, **CLI_REQUEST)
+        peak_serve = torch.cuda.max_memory_allocated()
+        shape = (CLI_REQUEST["num"],) + (cfg.diffusion.latent_size,) * 3 \
+            + (cfg.diffusion.latent_channels,)
+        gen = torch.Generator(device=dev).manual_seed(CLI_REQUEST["seed"])
+        own = trainer.generate(
+            shape, torch.full((CLI_REQUEST["num"],), CLI_REQUEST["context"],
+                              dtype=torch.long, device=dev),
+            generator=gen, sampler="ddim",
+            sample_steps=CLI_REQUEST["sample_steps"]).cpu().numpy()
+        rel = float(np.abs(served - own).max() / np.abs(own).max())
+        expect4 = {attn.KERNEL: calls * CLI_REQUEST["sample_steps"],
+                   cbq.KERNEL: 0}
+        say("cli", step="serve_from_checkpoint", epoch=svc.epoch,
+            request=CLI_REQUEST, wall_s=serve_s,
+            vol_per_min=60.0 * CLI_REQUEST["num"] / serve_s,
+            rel_err_vs_trainer=rel, tol=CLI_SERVE_REL_TOL,
+            finite=bool(np.isfinite(served).all()),
+            max_memory_allocated=peak_serve, launches=got4,
+            expected=expect4, card=card)
+        if rel > CLI_SERVE_REL_TOL or got4 != expect4 \
+                or not np.isfinite(served).all():
+            raise RuntimeError(f"cli serve: rel_err {rel}, launches {got4}")
+        say("cli", launches=counts, peak_train=peak_train,
+            peak_serve=peak_serve, card=card)
+        return counts
+    finally:
+        cli._encode_corpus = real_encode
+        CheckpointManager.save = real_save
+        CheckpointManager.restore = real_restore
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _kernel_line(name, source, replaces, counts, case, library):
     return {
         "name": name, "route": "cuda", "source": source,
@@ -1158,6 +1510,9 @@ def main() -> None:
     counts["train"] = train["counts"]
     phase_train_compare(train["trainer"], train["latents"])
     phase_train_breakdown(train, attn_cases["train_f32"])
+    del train
+    torch.cuda.empty_cache()
+    counts["cli"] = phase_cli(card)
     kernels = [
         _kernel_line(attn.KERNEL, "ldm3d_torch/csrc/voxel_attention.cu",
                      "ldm3d/ops/attention.py:38", counts,

@@ -1,0 +1,640 @@
+"""The command line of the PyTorch port: `python -m ldm3d_torch.cli.main`,
+the port of `ldm3d.cli.main` with the same flags, destinations and
+defaults.
+
+    python -m ldm3d_torch.cli.main --preset smoke_cond --platform cpu \
+        --create_dataset --synthetic --cache_dir ./cache
+    python -m ldm3d_torch.cli.main --preset conditional_dm3d --train_dm \
+        --cache_latents --epochs 100 --lbs 8 --ema_decay 0.999
+    python -m ldm3d_torch.cli.main --preset conditional_dm3d --test_dm \
+        --sampler ddim --sample_steps 50
+
+Ported modes: --create_dataset (synthetic or NIfTI), --train_dm (on
+volumes or, with --cache_latents, on latents encoded once and cached on
+disk beside the corpus when a stage-1 snapshot is given), with the AUTO
+latent scale, train_meta.json, --resume_ckpt, --auto_resume,
+--ckpt_freq, --fidelity_freq and --image_log_freq; --test_dm. The run
+goes on the GPU unless `--platform cpu` is given; with no GPU visible it
+raises. Checkpoints are `ldm3d_torch.train.checkpoint` files (one
+`torch.save` of the trainer's whole state per epoch) under
+`{ckpt_dir}/{name}_dm/`. `--vqvae_load_ckpt` reads a stage-1 VQ-VAE
+snapshot in the JAX package's `.npz` export layout
+(`ldm3d_torch.utils.export`).
+
+Modes and flags not ported yet are parsed and then refused with the
+ROADMAP item that brings them: --train_vq / --test_vq (stage-1 and VQ-GAN
+training, queue 1 items 6 and 7), --fidelity_sweep, --sweep,
+--device_data and --profile (item 5), and the multi-host and mesh flags
+(item 9). Flags that only configure the stage-1 or VQ-GAN models
+(--kernel_resize, --vqvae_mode, --num_embeddings, --embedding_dim and the
+adversarial ones) change nothing the diffusion modes read, as in the JAX
+CLI.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ldm3d_torch.core.config import replace
+from ldm3d_torch.core.device import resolve_device
+from ldm3d_torch.train.meta import adopt_meta, train_meta
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("ldm3d_torch",
+                                description="3D latent diffusion, PyTorch")
+    p.add_argument("--preset", default="vqvae_b8_all")
+    # modes
+    p.add_argument("--create_dataset", action="store_true")
+    p.add_argument("--train_vq", action="store_true")
+    p.add_argument("--test_vq", action="store_true")
+    p.add_argument("--train_dm", action="store_true")
+    p.add_argument("--test_dm", action="store_true")
+    # data
+    p.add_argument("--dataset", default=None,
+                   help="CC|NFBS|HCP|BraTS|all|all-T")
+    p.add_argument("--dataset_dir", default=None)
+    p.add_argument("--cache_dir", default=None)
+    p.add_argument("--augment", action="store_true")
+    p.add_argument("--synthetic", action="store_true",
+                   help="use generated volumes (no NIfTI data needed)")
+    p.add_argument("--device_data", action="store_true",
+                   help="not ported (ROADMAP queue 1 item 5)")
+    p.add_argument("--num_synthetic", type=int, default=24)
+    p.add_argument("--num_classes", type=int, default=None,
+                   help="synthetic-corpus class count; also sizes the "
+                        "conditional U-Net's context embedding")
+    p.add_argument("--volume_size", type=int, default=None)
+    # training
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--lbs", type=int, default=None,
+                   help="batch size per device (one device here)")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--val_perc", type=float, default=None)
+    p.add_argument("--kernel_resize", action="store_true")
+    p.add_argument("--suffix", default=None)
+    p.add_argument("--test_epoch", type=int, default=None)
+    p.add_argument("--save_best_only", action="store_true")
+    p.add_argument("--vqvae_load_ckpt", type=str, default=None,
+                   help="stage-1 VQ-VAE snapshot (.npz, export layout)")
+    p.add_argument("--timesteps", type=int, default=None)
+    p.add_argument("--norm", default=None, choices=["batch", "group"],
+                   help="normalization family of the autoencoder")
+    p.add_argument("--resume_ckpt", type=int, default=None,
+                   help="resume from this checkpoint epoch; -1 resumes the "
+                        "latest if one exists and starts fresh otherwise")
+    p.add_argument("--test_run", action="store_true")
+    p.add_argument("--vqvae_mode", type=int, default=None, choices=[1, 2])
+    p.add_argument("--num_embeddings", type=int, default=None)
+    p.add_argument("--embedding_dim", type=int, default=None)
+    p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
+                   help="recorded in the config; the port computes in "
+                        "float32 (TF32 convolutions)")
+    p.add_argument("--ckpt_dir", default=None)
+    p.add_argument("--ckpt_freq", type=int, default=1,
+                   help="save a checkpoint every N epochs (the final "
+                        "epoch is always saved)")
+    p.add_argument("--out_dir", default="./generated_images_dm3d")
+    p.add_argument("--profile", action="store_true",
+                   help="not ported (ROADMAP queue 1 item 5)")
+    p.add_argument("--disc_threshold", type=int, default=None)
+    p.add_argument("--adaptive_gan_weight", action="store_true",
+                   default=None)
+    p.add_argument("--adaptive_g_max", type=float, default=None)
+    p.add_argument("--g_adv_delay", type=int, default=None)
+    p.add_argument("--r1_gamma", type=float, default=None)
+    p.add_argument("--disc_lr", type=float, default=None)
+    p.add_argument("--auto_resume", type=int, default=0, metavar="N",
+                   help="on a training crash, restore the latest "
+                        "checkpoint and resume, up to N times")
+    p.add_argument("--sampler", default="ddpm",
+                   choices=["ddpm", "ddim", "dpmpp", "dpmpp_sde"],
+                   help="test_dm sampler")
+    p.add_argument("--sample_steps", type=int, default=None,
+                   help="strided sampler U-Net evaluations (default "
+                        "timesteps//20)")
+    p.add_argument("--eta", type=float, default=0.0,
+                   help="DDIM stochasticity (0 = deterministic)")
+    p.add_argument("--guidance_scale", type=float, default=None,
+                   help="classifier-free guidance scale for test_dm "
+                        "(needs a model trained with cfg_dropout > 0)")
+    p.add_argument("--prediction_type", default=None,
+                   choices=["eps", "v"])
+    p.add_argument("--min_snr_gamma", type=float, default=None)
+    p.add_argument("--loss_reduction", default=None,
+                   choices=["mean", "ref"])
+    p.add_argument("--cfg_dropout", type=float, default=None,
+                   help="context-drop probability during --train_dm")
+    p.add_argument("--save_nifti", action="store_true",
+                   help="with --test_dm: also export volumes as .nii.gz")
+    p.add_argument("--ema_decay", type=float, default=None,
+                   help="EMA decay of the U-Net weights during --train_dm; "
+                        "sampling then uses the averaged weights")
+    p.add_argument("--fidelity_freq", type=int, default=0,
+                   help="with --train_dm: latent-FID / kernel-MMD every N "
+                        "epochs; 0 disables")
+    p.add_argument("--fidelity_samples", type=int, default=64,
+                   help="generated samples per fidelity eval")
+    p.add_argument("--unet_stem", type=int, default=None)
+    p.add_argument("--unet_widths", type=str, default=None,
+                   help="comma list of denoiser level widths")
+    p.add_argument("--unet_attention", type=str, default=None,
+                   help="comma list of 0/1 per level (middle always "
+                        "attends)")
+    p.add_argument("--latent_scale", type=float, default=None,
+                   help="multiply the frozen encoder's latents before "
+                        "diffusion, divide before decode")
+    p.add_argument("--clip_sample_range", type=float, default=None,
+                   help="samplers' clipping half-width; <= 0 disables")
+    p.add_argument("--context_in_time", action="store_true", default=None)
+    p.add_argument("--fidelity_by_class", action="store_true",
+                   help="conditional models: also report per-class FID")
+    p.add_argument("--fidelity_sweep", action="store_true",
+                   help="not ported (ROADMAP queue 1 item 5)")
+    p.add_argument("--sweep_samplers", default="ddpm,ddim:50,dpmpp:25")
+    p.add_argument("--guidance_grid", default="none")
+    p.add_argument("--cache_latents", action="store_true",
+                   help="with --train_dm: encode the corpus once through "
+                        "the frozen stage-1 and train from device-resident "
+                        "latents")
+    p.add_argument("--image_log_freq", type=int, default=0,
+                   help="save generated-sample slice montages every N "
+                        "epochs; 0 disables")
+    p.add_argument("--sweep", type=str, default=None,
+                   help="not ported (ROADMAP queue 1 item 5)")
+    p.add_argument("--sweep_count", type=int, default=None)
+    p.add_argument("--coordinator", default=None,
+                   help="not ported (ROADMAP queue 1 item 9)")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--platform", default=None, choices=["cpu", "gpu"],
+                   help="the device: the GPU by default; cpu runs the "
+                        "plain PyTorch path on the CPU")
+    p.add_argument("--cpu_devices", type=int, default=0,
+                   help="not ported (ROADMAP queue 1 item 9)")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    """SystemExit for a mode or flag the port does not have yet."""
+    refusals = [
+        (args.train_vq, "--train_vq", "queue 1 items 6 and 7 (stage-1 "
+         "and VQ-GAN training)"),
+        (args.test_vq, "--test_vq", "queue 1 items 6 and 7 (stage-1 "
+         "models; ops/metrics.py stays with item 5)"),
+        (args.fidelity_sweep, "--fidelity_sweep", "queue 1 item 5"),
+        (args.sweep, "--sweep", "queue 1 item 5 (core/sweep.py)"),
+        (args.device_data, "--device_data", "queue 1 item 5 "
+         "(DeviceSyntheticLoader)"),
+        (args.profile, "--profile", "queue 1 item 5"),
+        (args.coordinator or args.num_processes or args.process_id
+         is not None or os.environ.get("LDM3D_COORDINATOR"),
+         "multi-host training (--coordinator, --num_processes, "
+         "--process_id, LDM3D_COORDINATOR)", "queue 1 item 9"),
+        (args.cpu_devices, "--cpu_devices (a mesh of virtual devices)",
+         "queue 1 item 9"),
+    ]
+    for given, what, item in refusals:
+        if given:
+            raise SystemExit(f"ldm3d_torch: {what} is not ported yet; "
+                             f"see ROADMAP {item}")
+
+
+def _device(args) -> torch.device:
+    """The GPU unless --platform cpu; raises when no GPU is visible."""
+    return resolve_device("cpu" if args.platform == "cpu" else None)
+
+
+def apply_overrides(cfg, args):
+    """Fold CLI flags into the preset's config tree (one device: the
+    global batch is --lbs)."""
+    train = cfg.train
+    if args.lr is not None:
+        train = replace(train, learning_rate=args.lr)
+    if args.epochs is not None:
+        train = replace(train, epochs=args.epochs)
+    if args.lbs is not None:
+        train = replace(train, batch_size=args.lbs)
+    if args.val_perc is not None:
+        train = replace(train, val_fraction=args.val_perc)
+    if args.dtype is not None:
+        train = replace(train, dtype=args.dtype)
+    if getattr(args, "ema_decay", None) is not None:
+        train = replace(train, ema_decay=args.ema_decay)
+    cfg = replace(cfg, train=train)
+
+    data = cfg.data
+    if args.dataset is not None:
+        data = replace(data, dataset=args.dataset)
+    if args.dataset_dir is not None:
+        data = replace(data, dataset_dir=args.dataset_dir)
+    if args.cache_dir is not None:
+        data = replace(data, cache_dir=args.cache_dir)
+    if args.volume_size is not None:
+        data = replace(data, volume_size=args.volume_size)
+    if args.augment:
+        data = replace(data, augment=True)
+    if args.test_run:
+        data = replace(data, test_run=True)
+    if getattr(args, "num_classes", None) is not None:
+        data = replace(data, num_classes=args.num_classes)
+        if cfg.diffusion.unet.context_dim:
+            # context ids run 0..num_classes-1
+            cfg = replace(cfg, diffusion=replace(
+                cfg.diffusion, unet=replace(cfg.diffusion.unet,
+                                            context_dim=args.num_classes - 1)))
+    cfg = replace(cfg, data=data)
+
+    diff = cfg.diffusion
+    if args.norm is not None:
+        diff = replace(diff, vqvae=replace(diff.vqvae, norm=args.norm))
+    if getattr(args, "unet_stem", None) is not None:
+        diff = replace(diff, unet=replace(diff.unet,
+                                          first_conv_channels=args.unet_stem))
+    if getattr(args, "unet_widths", None) is not None:
+        widths = tuple(int(w) for w in args.unet_widths.split(","))
+        attn = diff.unet.has_attention
+        if len(attn) != len(widths) + 1:
+            # level count changed: attention on the deepest level + middle
+            attn = (False,) * (len(widths) - 1) + (True, True)
+        diff = replace(diff, unet=replace(diff.unet, widths=widths,
+                                          has_attention=attn))
+    if getattr(args, "unet_attention", None) is not None:
+        attn = tuple(bool(int(v))
+                     for v in args.unet_attention.split(",")) + (True,)
+        diff = replace(diff, unet=replace(diff.unet, has_attention=attn))
+    if args.timesteps is not None:
+        diff = replace(diff, timesteps=args.timesteps)
+    if getattr(args, "cfg_dropout", None) is not None:
+        diff = replace(diff, unet=replace(diff.unet,
+                                          cfg_dropout=args.cfg_dropout))
+    if getattr(args, "context_in_time", None):
+        diff = replace(diff, unet=replace(diff.unet, context_in_time=True))
+    if getattr(args, "prediction_type", None) is not None:
+        diff = replace(diff, prediction_type=args.prediction_type)
+    if getattr(args, "min_snr_gamma", None) is not None:
+        diff = replace(diff, min_snr_gamma=args.min_snr_gamma)
+    if getattr(args, "latent_scale", None) is not None:
+        diff = replace(diff, latent_scale=args.latent_scale)
+    if getattr(args, "loss_reduction", None) is not None:
+        diff = replace(diff, loss_reduction=args.loss_reduction)
+    if getattr(args, "clip_sample_range", None) is not None:
+        diff = replace(diff, clip_sample_range=args.clip_sample_range)
+    cfg = replace(cfg, diffusion=diff)
+
+    if args.ckpt_dir is not None:
+        cfg = replace(cfg, ckpt_dir=args.ckpt_dir)
+    if args.suffix is not None:
+        cfg = replace(cfg, name=args.suffix)
+    return cfg
+
+
+def _loaders(cfg, args, device):
+    """Train and val loaders over the cache (written first from the
+    synthetic corpus with --synthetic when there is none); the val loader
+    is None when the split is smaller than a batch."""
+    from ldm3d_torch.data.pipeline import (DataLoader, VolumeCache,
+                                           train_val_split,
+                                           write_synthetic_cache)
+
+    cache_dir = cfg.data.cache_dir
+    manifest = os.path.join(cache_dir, "manifest.json")
+    if args.synthetic and not os.path.exists(manifest):
+        write_synthetic_cache(cache_dir, args.num_synthetic,
+                              cfg.data.volume_size, seed=cfg.train.seed,
+                              num_classes=cfg.data.num_classes,
+                              device=device)
+    if not os.path.exists(manifest):
+        raise SystemExit(
+            f"no cache at {cache_dir}: run --create_dataset first "
+            f"(or pass --synthetic)")
+    cache = VolumeCache(cache_dir)
+    tr, va = train_val_split(cache, cfg.train.val_fraction, cfg.train.seed)
+    train = DataLoader(cache, cfg.train.batch_size, cfg.data,
+                       seed=cfg.train.seed, train=True, indices=tr,
+                       device=device)
+    val = DataLoader(cache, cfg.train.batch_size, cfg.data,
+                     seed=cfg.train.seed, train=False, indices=va,
+                     device=device) \
+        if len(va) >= cfg.train.batch_size else None
+    return train, val
+
+
+def _ckpt_dir(cfg, stage: str) -> str:
+    return os.path.join(cfg.ckpt_dir, f"{cfg.name}_{stage}")
+
+
+def _maybe_resume(ckpt, trainer, resume_ckpt) -> int:
+    """Restore per --resume_ckpt into `trainer`: None = fresh start, N >= 0
+    = that epoch (raises if missing), -1 = the latest if one exists, else
+    a fresh start. Returns the epoch to start from."""
+    if resume_ckpt is None:
+        return 0
+    try:
+        state, epoch = ckpt.restore(None if resume_ckpt < 0 else resume_ckpt)
+    except FileNotFoundError:
+        if resume_ckpt >= 0:
+            raise
+        return 0
+    if (state["ema_unet"] is not None) != (trainer.train_cfg.ema_decay > 0):
+        # the JAX restore fails on the state tree's mismatch
+        raise ValueError(
+            f"checkpoint epoch {epoch} in {ckpt.directory} "
+            + ("holds" if state["ema_unet"] is not None else "has no")
+            + " EMA weights: resume with the --ema_decay it was trained "
+              "with")
+    trainer.load_state_dict(state)
+    print(f"resumed from epoch {epoch}")
+    return epoch
+
+
+def _dm_trainer(cfg, device):
+    from ldm3d_torch.train.dm_trainer import DiffusionTrainer
+    return DiffusionTrainer(cfg.diffusion, device=device,
+                            train_cfg=cfg.train).init_random(cfg.train.seed)
+
+
+def _adopt_dm_meta(cfg, args):
+    """`adopt_meta` of the run's own train_meta.json."""
+    return adopt_meta(cfg, args, os.path.join(_ckpt_dir(cfg, "dm"),
+                                              "train_meta.json"))
+
+
+def _encode_corpus(trainer, loader, t0: float):
+    """(latents, contexts) of every batch of `loader`, on the device."""
+    lats, ctxs = [], []
+    for i, (vol, _mask, ctx) in enumerate(loader):
+        lats.append(trainer.encode_latents(vol))
+        ctxs.append(ctx)
+        if (i + 1) % 32 == 0:
+            print(f"cache_latents: encoded {i + 1} batches "
+                  f"[{time.time() - t0:.0f}s]", flush=True)
+    return torch.cat(lats), torch.cat(ctxs)
+
+
+def run_train_dm(cfg, args):
+    """Stage-2 training; returns the trainer."""
+    from ldm3d_torch.data.pipeline import LatentLoader
+    from ldm3d_torch.train.callbacks import (CSVLogger, ImageLogger,
+                                             MetricsLogger)
+    from ldm3d_torch.train.checkpoint import CheckpointManager
+    from ldm3d_torch.train.loop import fit, fit_with_recovery
+    from ldm3d_torch.train.dm_trainer import auto_latent_scale
+    from ldm3d_torch.utils.export import load_stage1_npz
+
+    device = _device(args)
+    train_loader, val_loader = _loaders(cfg, args, device)
+    size = cfg.data.volume_size
+    trainer = _dm_trainer(cfg, device)
+    vq_epoch = None
+    if args.vqvae_load_ckpt:
+        meta = load_stage1_npz(args.vqvae_load_ckpt, trainer)
+        vq_epoch = int(meta.get("epoch", 0))
+        print(f"loaded stage-1 VQ-VAE weights from epoch {vq_epoch}")
+
+    ckpt = CheckpointManager(_ckpt_dir(cfg, "dm"),
+                             keep=cfg.train.keep_checkpoints)
+    initial_epoch = _maybe_resume(ckpt, trainer, args.resume_ckpt)
+    # a checkpoint carries its latent scale: encode and record with it
+    cfg = replace(cfg, diffusion=trainer.cfg)
+
+    def step_fn(batch):
+        vol, _mask, ctx = batch
+        return trainer.train_step(vol, ctx)
+
+    logdir = _ckpt_dir(cfg, "dm")
+    image_logger = None
+    if args.image_log_freq:
+        f = cfg.diffusion.vqvae.spatial_factor
+        lat = (1, size // f, size // f, size // f,
+               cfg.diffusion.latent_channels)
+        contexts = (list(range(cfg.diffusion.unet.context_dim + 1))
+                    if cfg.model == "conditional_dm" else [None])
+
+        def render(tr):
+            out = {}
+            for c in contexts:
+                ctx = None if not tr.conditional else torch.full(
+                    (1,), 0 if c is None else c, dtype=torch.long,
+                    device=device)
+                gen = torch.Generator(device=device).manual_seed(11)
+                vols = tr.generate(lat, ctx, generator=gen, sampler="ddim")
+                tag = f"generated_ctx{c}" if c is not None else "generated"
+                out[tag] = vols.float().cpu().numpy()
+            return out
+
+        image_logger = ImageLogger(os.path.join(logdir, "images"), render,
+                                   log_freq=args.image_log_freq)
+
+    epoch_callback = None
+    if args.fidelity_freq:
+        # real-corpus features once, from the frozen encoder; held-out
+        # volumes when a val split exists, else the train set
+        feats, ctx_rows = [], []
+        for batch in (val_loader or train_loader):
+            feats.append(trainer.latent_features(batch[0]))
+            ctx_rows.append(batch[2].cpu().numpy().reshape(-1))
+        real_feats = np.concatenate(feats, axis=0)
+        real_ctx = (np.concatenate(ctx_rows, axis=0)
+                    if args.fidelity_by_class and trainer.conditional
+                    else None)
+        print(f"fidelity: cached {real_feats.shape[0]} real-volume "
+              f"feature rows ({'val' if val_loader else 'train'} split)")
+
+        def epoch_callback(epoch, tr):
+            if (epoch + 1) % args.fidelity_freq != 0:
+                return {}
+            gen = torch.Generator(device=device).manual_seed(
+                cfg.train.seed + 5000 + epoch)
+            scores = tr.fidelity_eval(
+                real_feats, gen, num_samples=args.fidelity_samples,
+                batch=min(args.fidelity_samples, 16), sampler="ddim",
+                sample_steps=args.sample_steps, real_ctx=real_ctx)
+            out = {"latent_fid": scores["latent_fid"],
+                   "latent_mmd": scores["latent_mmd"]}
+            if "fid_class_sep" in scores:
+                out["fid_class_sep"] = scores["fid_class_sep"]
+            return out
+
+    if args.cache_latents:
+        # one frozen-encoder pass over the corpus, then train from latents
+        # resident on the device
+        if cfg.data.augment:
+            print("cache_latents: augmentation frozen to a single draw "
+                  "(matches the reference's static augmented copies)")
+        t0 = time.time()
+        # the raw (unscaled) latents persist beside the corpus, keyed by
+        # the stage-1 epoch, when the stage-1 weights come from a snapshot
+        lat_disk = None
+        if args.vqvae_load_ckpt and not cfg.data.augment:
+            os.makedirs(cfg.data.cache_dir, exist_ok=True)
+            lat_disk = os.path.join(
+                cfg.data.cache_dir,
+                f"latents_s1ep{vq_epoch}_b{cfg.train.batch_size}.npz")
+        lat_all = ctx_all = None
+        if lat_disk and os.path.exists(lat_disk):
+            try:
+                with np.load(lat_disk) as z:
+                    lat_all = torch.from_numpy(
+                        z["lat"].astype(np.float32)).to(device)
+                    ctx_all = torch.from_numpy(z["ctx"]).to(device)
+                print(f"cache_latents: loaded {lat_all.shape[0]} latents "
+                      f"from {lat_disk}", flush=True)
+            except (OSError, ValueError, KeyError) as e:
+                print(f"cache_latents: disk cache unreadable ({e}); "
+                      f"re-encoding", flush=True)
+                lat_all = ctx_all = None
+        if lat_all is None:
+            lat_all, ctx_all = _encode_corpus(trainer, train_loader, t0)
+            if lat_disk:
+                np.savez(lat_disk,
+                         lat=lat_all.cpu().numpy().astype(np.float16),
+                         ctx=ctx_all.cpu().numpy())
+                print(f"cache_latents: persisted to {lat_disk}", flush=True)
+        lat_std = float(torch.std(lat_all.float(), correction=0))
+        print(f"cache_latents: {lat_all.shape[0]} latents "
+              f"{tuple(lat_all.shape[1:])} resident on {device} "
+              f"({lat_all.nelement() * lat_all.element_size() / 1e6:.0f} "
+              f"MB, encoded in {time.time() - t0:.1f}s); latent std "
+              f"{lat_std:.4f} in diffusion space (latent_scale "
+              f"{cfg.diffusion.latent_scale:g} applied) — for "
+              f"unit-variance latents train with --latent_scale "
+              f"{cfg.diffusion.latent_scale / max(lat_std, 1e-8):.4f}")
+        # AUTO latent scale: unless a scale was given, rescale the cached
+        # latents to unit variance and turn off the sampler clip
+        new = auto_latent_scale(lat_std, cfg.diffusion, args.latent_scale,
+                                args.clip_sample_range)
+        if new is not cfg.diffusion:
+            cfg = replace(cfg, diffusion=new)
+            trainer.set_latent_scale(new.latent_scale,
+                                     new.clip_sample_range)
+            lat_all = lat_all * new.latent_scale
+            print(f"cache_latents: AUTO latent_scale {new.latent_scale:.4f}"
+                  f" (corpus-derived; clip_sample_range -> "
+                  f"{new.clip_sample_range:g}). Pass --latent_scale 1 to "
+                  f"force raw reference behavior; restore/serve adopt the "
+                  f"value from train_meta.json.")
+        train_loader = LatentLoader(lat_all, ctx_all, cfg.train.batch_size,
+                                    seed=cfg.train.seed)
+
+        def step_fn(batch):  # noqa: F811 - replaces the volume path
+            lat, ctx = batch
+            return trainer.train_step_latents(lat, ctx)
+
+    os.makedirs(logdir, exist_ok=True)
+    with open(os.path.join(logdir, "train_meta.json"), "w") as f:
+        json.dump(train_meta(cfg), f, indent=1)
+
+    fit_fn = fit if not args.auto_resume else functools.partial(
+        fit_with_recovery, max_restarts=args.auto_resume)
+    metrics = fit_fn(
+        trainer, train_loader, cfg.train.epochs,
+        ckpt=None if args.test_run else ckpt,
+        image_logger=image_logger,
+        epoch_callback=epoch_callback,
+        csv_logger=CSVLogger(os.path.join(logdir, "training.log"),
+                             append=args.resume_ckpt is not None),
+        metrics_logger=MetricsLogger(os.path.join(logdir, "metrics.jsonl"),
+                                     run_name=cfg.name),
+        initial_epoch=initial_epoch, ckpt_freq=args.ckpt_freq,
+        step_fn=step_fn)
+    ckpt.wait()
+    print("final:", {k: round(float(v), 8) for k, v in metrics.items()})
+    return trainer
+
+
+def run_test_dm(cfg, args):
+    """Sample 4 volumes per context from a checkpoint and save them as
+    .npy (and .nii.gz with --save_nifti); returns the saved paths."""
+    from ldm3d_torch.data.nifti import save_nifti
+    from ldm3d_torch.train.checkpoint import CheckpointManager
+    from ldm3d_torch.train.dm_trainer import DiffusionTrainer
+
+    cfg = _adopt_dm_meta(cfg, args)
+    device = _device(args)
+    size = cfg.data.volume_size
+    trainer = DiffusionTrainer(cfg.diffusion, device=device,
+                               train_cfg=cfg.train)
+    ckpt = CheckpointManager(_ckpt_dir(cfg, "dm"))
+    state, epoch = ckpt.restore(args.test_epoch)
+    trainer.load_state_dict(state, optimizer=False)
+    del state
+    print(f"sampling from epoch {epoch} ({cfg.diffusion.timesteps} steps)")
+
+    f = cfg.diffusion.vqvae.spatial_factor
+    lat = size // f
+    shape = (4, lat, lat, lat, cfg.diffusion.latent_channels)
+    os.makedirs(args.out_dir, exist_ok=True)
+    contexts = (list(range(cfg.diffusion.unet.context_dim + 1))
+                if cfg.model == "conditional_dm" else [None])
+    paths = []
+    for c in contexts:
+        ctx = None if not trainer.conditional else torch.full(
+            (shape[0],), 0 if c is None else c, dtype=torch.long,
+            device=device)
+        gen = torch.Generator(device=device).manual_seed(7)
+        out = trainer.generate(shape, ctx, generator=gen,
+                               sampler=args.sampler,
+                               sample_steps=args.sample_steps, eta=args.eta,
+                               guidance_scale=args.guidance_scale)
+        tag = f"-ctx{c}" if c is not None else ""
+        if args.sampler in ("ddim", "dpmpp", "dpmpp_sde"):
+            tag = f"-{args.sampler}{args.sample_steps or ''}{tag}"
+        path = os.path.join(
+            args.out_dir,
+            f"{cfg.name}-{cfg.diffusion.timesteps}rsteps{tag}.npy")
+        arr = out.float().cpu().numpy()
+        np.save(path, arr)
+        paths.append(path)
+        print("saved", path, arr.shape)
+        if args.save_nifti:
+            for b in range(arr.shape[0]):
+                nii = path.replace(".npy", f"_{b}.nii.gz")
+                save_nifti(nii, arr[b])
+                print("saved", nii)
+    return paths
+
+
+def run_create_dataset(cfg, args):
+    from ldm3d_torch.data.pipeline import build_cache, write_synthetic_cache
+    if args.synthetic:
+        write_synthetic_cache(cfg.data.cache_dir, args.num_synthetic,
+                              cfg.data.volume_size, seed=cfg.train.seed,
+                              num_classes=cfg.data.num_classes,
+                              device=_device(args))
+        print(f"synthetic cache at {cfg.data.cache_dir}")
+    else:
+        build_cache(cfg.data)
+        print(f"cache at {cfg.data.cache_dir}")
+
+
+def main(argv=None):
+    if hasattr(sys.stdout, "reconfigure"):
+        # one line per epoch must reach a log file as it is written
+        sys.stdout.reconfigure(line_buffering=True)
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    _device(args)           # no GPU and no --platform cpu: raise first
+    from ldm3d_torch.core.presets import get_preset
+    cfg = apply_overrides(get_preset(args.preset), args)
+
+    if args.create_dataset:
+        run_create_dataset(cfg, args)
+    if args.train_dm:
+        run_train_dm(cfg, args)
+    if args.test_dm:
+        run_test_dm(cfg, args)
+    if not any([args.create_dataset, args.train_dm, args.test_dm]):
+        print("nothing to do: pass --train_dm/--test_dm/--create_dataset")
+
+
+if __name__ == "__main__":
+    main()

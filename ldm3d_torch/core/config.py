@@ -8,6 +8,7 @@ it imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -114,6 +115,55 @@ class TrainConfig:
     seed: int = 0
     # EMA of the U-Net weights, used for sampling when > 0
     ema_decay: float = 0.0
+    epochs: int = 200
+    val_fraction: float = 0.1
+    # the JAX package's compute dtype, recorded only: the port computes in
+    # float32 (TF32 convolutions)
+    dtype: str = "bfloat16"
+    checkpoint_every: int = 1
+    keep_checkpoints: int = 5
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """NIfTI ingest and the preprocessed volume cache."""
+
+    dataset: str = "all"               # CC | NFBS | HCP | BraTS | all | all-T
+    dataset_dir: str = "/data/mri"
+    cache_dir: str = "./cache"
+    volume_size: int = 128
+    augment: bool = False
+    augment_fraction: float = 0.04
+    flip_chance: float = 0.6           # probability of KEEPING the original
+    brightness_range: Tuple[float, float] = (0.9, 1.1)
+    contrast_range: Tuple[float, float] = (0.9, 1.1)
+    test_run: bool = False             # truncate to 24 files
+    # host -> device batch dtype: the cache is float16, so moving float16
+    # and widening on the device is exact and halves the bytes moved
+    transfer_dtype: str = "float16"    # the port moves float16 only
+    # synthetic-corpus class count (`data/synthetic.py`)
+    num_classes: int = 2
+
+
+@dataclass(frozen=True)
+class ExperimentConfig:
+    """One run of the command line: a diffusion model, its training, its
+    data and where its checkpoints go. The JAX package's stage-1 and
+    VQ-GAN subtrees (`vqvae`, `vqgan`) come with stage-1 training."""
+
+    name: str = "default"
+    # the JAX package's model name; the diffusion CLI modes read only
+    # whether it is "conditional_dm" (one sample file per context)
+    model: str = "vqvae"
+    diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    ckpt_dir: str = "./checkpoints"
+
+
+def replace(cfg, **kwargs):
+    """`dataclasses.replace` over the frozen config tree."""
+    return dataclasses.replace(cfg, **kwargs)
 
 
 def flagship_cfg(tiny: bool = False) -> DiffusionConfig:

@@ -1,0 +1,276 @@
+"""Preprocess-once volume cache and the loaders of training: the port of
+`ldm3d.data.pipeline`.
+
+The cache is the JAX package's, in both directions: one float16 `.npy`
+pair per volume (`vol_00000_img.npy`, `vol_00000_mask.npy`, [S, S, S, 1])
+and a `manifest.json` of entries {stem, context, source} and the volume
+size. `DataLoader` visits a cache in the JAX loader's order: the epoch's
+shuffle is `np.random.default_rng(seed + epoch)`, and the augmentation
+generator is seeded from that generator's next `integers(2**31)` draw.
+Batches are read on a thread (a bounded queue of `prefetch` batches), moved
+to the device at the cache's float16 and widened there. `LatentLoader`
+serves the latents of `--cache_latents` from the device, in one
+`np.random.default_rng(seed).permutation` per epoch, dropping the ragged
+tail as the JAX loader does.
+
+Not ported: `DeviceSyntheticLoader` (`--device_data`), the optional ctypes
+reader (`ldm3d/data/native.py`; numpy reads the cache here) and mesh
+sharding.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import queue as queue_mod
+import threading
+from typing import Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ldm3d_torch.core.config import DataConfig
+from ldm3d_torch.core.device import resolve_device
+
+MANIFEST = "manifest.json"
+
+
+# ---------------------------------------------------------------------------
+# Cache construction (--create_dataset)
+# ---------------------------------------------------------------------------
+
+
+def build_cache(cfg: DataConfig, paths: Optional[Sequence[str]] = None,
+                verbose: bool = True) -> str:
+    """Preprocess NIfTI files once into `cfg.cache_dir`
+    (`nifti.load_transform_img` of each; the dataset's files by default)."""
+    from ldm3d_torch.data.nifti import get_dataset_list, load_transform_img
+
+    os.makedirs(cfg.cache_dir, exist_ok=True)
+    if paths is None:
+        paths = get_dataset_list(cfg.dataset, cfg.test_run, cfg.dataset_dir)
+    entries = []
+    for i, path in enumerate(paths):
+        vol, mask, context = load_transform_img(path)
+        stem = f"vol_{i:05d}"
+        np.save(os.path.join(cfg.cache_dir, stem + "_img.npy"),
+                vol.astype(np.float16))
+        np.save(os.path.join(cfg.cache_dir, stem + "_mask.npy"),
+                mask.astype(np.float16))
+        entries.append({"stem": stem, "context": context, "source": path})
+        if verbose and (i + 1) % 25 == 0:
+            print(f"cached {i + 1}/{len(paths)} volumes")
+    with open(os.path.join(cfg.cache_dir, MANIFEST), "w") as f:
+        json.dump({"entries": entries, "volume_size": cfg.volume_size}, f)
+    return cfg.cache_dir
+
+
+def write_synthetic_cache(cache_dir: str, num_volumes: int, size: int = 64,
+                          seed: int = 0, gen_batch: int = 8,
+                          num_classes: int = 2, device=None) -> str:
+    """Write a synthetic corpus (`synthetic.synthetic_batch`) as a cache.
+    The draws come from one CPU generator seeded with `seed`, in groups of
+    `gen_batch` volumes; the volumes are computed on `device` (the GPU
+    unless "cpu" is given)."""
+    from ldm3d_torch.data.synthetic import synthetic_batch
+
+    device = resolve_device(device)
+    os.makedirs(cache_dir, exist_ok=True)
+    gen = torch.Generator().manual_seed(seed)
+    entries = []
+    for start in range(0, num_volumes, gen_batch):
+        b = min(gen_batch, num_volumes - start)
+        vol, mask, ctx = synthetic_batch(gen, b, size,
+                                         num_classes=num_classes,
+                                         device=device)
+        vol = vol.to(torch.float16).cpu().numpy()
+        mask = mask.to(torch.float16).cpu().numpy()
+        for j in range(b):
+            stem = f"vol_{start + j:05d}"
+            np.save(os.path.join(cache_dir, stem + "_img.npy"), vol[j])
+            np.save(os.path.join(cache_dir, stem + "_mask.npy"), mask[j])
+            entries.append({"stem": stem, "context": int(ctx[j]),
+                            "source": "synthetic"})
+    with open(os.path.join(cache_dir, MANIFEST), "w") as f:
+        json.dump({"entries": entries, "volume_size": size,
+                   "num_classes": num_classes}, f)
+    return cache_dir
+
+
+# ---------------------------------------------------------------------------
+# Loading
+# ---------------------------------------------------------------------------
+
+
+class VolumeCache:
+    """Random-access view over a cache directory."""
+
+    def __init__(self, cache_dir: str):
+        with open(os.path.join(cache_dir, MANIFEST)) as f:
+            manifest = json.load(f)
+        self.cache_dir = cache_dir
+        self.entries = manifest["entries"]
+        self.volume_size = manifest["volume_size"]
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def read(self, idx: int) -> Tuple[np.ndarray, np.ndarray, int]:
+        stem = os.path.join(self.cache_dir, self.entries[idx]["stem"])
+        return (np.load(stem + "_img.npy"), np.load(stem + "_mask.npy"),
+                self.entries[idx]["context"])
+
+
+class DataLoader:
+    """Shuffled, batched loader with host prefetch on a thread and
+    augmentation on the device. Yields (vol [B, S, S, S, 1] float32,
+    mask float32, context [B] int32), all on `device` (the GPU unless
+    "cpu" is given); drops the ragged tail."""
+
+    def __init__(self, cache: VolumeCache, batch_size: int, cfg: DataConfig,
+                 seed: int = 0, train: bool = True,
+                 indices: Optional[Sequence[int]] = None,
+                 prefetch: int = 2, device=None):
+        self.cache = cache
+        self.batch_size = batch_size
+        self.cfg = cfg
+        self.seed = seed
+        self.train = train
+        self.indices = list(indices if indices is not None
+                            else range(len(cache)))
+        self.prefetch = prefetch
+        self.device = resolve_device(device)
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return len(self.indices) // self.batch_size
+
+    def _host_batches(self, order: np.ndarray) -> Iterator:
+        """(img, mask, ctx) numpy batches, float16 as cached; they are
+        widened on the device."""
+        bs = self.batch_size
+        for i in range(len(order) // bs):
+            idxs = [int(j) for j in order[i * bs:(i + 1) * bs]]
+            rows = [self.cache.read(j) for j in idxs]
+            yield (np.stack([r[0] for r in rows]),
+                   np.stack([r[1] for r in rows]),
+                   np.asarray([r[2] for r in rows], np.int32))
+
+    def __iter__(self) -> Iterator:
+        rng = np.random.default_rng(self.seed + self._epoch)
+        self._epoch += 1
+        order = np.array(self.indices)
+        if self.train:
+            rng.shuffle(order)
+        aug_gen = torch.Generator(device=self.device).manual_seed(
+            int(rng.integers(2 ** 31)))
+
+        q: queue_mod.Queue = queue_mod.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        done = object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue_mod.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for batch in self._host_batches(order):
+                    if not put(batch):
+                        return
+                put(done)
+            except Exception as e:  # handed to the consumer, which raises
+                put(e)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                vol, mask, ctx = (torch.from_numpy(a).to(self.device)
+                                  for a in item)
+                vol, mask = vol.float(), mask.float()   # widen on device
+                if self.train and self.cfg.augment:
+                    vol, mask = augment_batch(vol, mask, self.cfg,
+                                              generator=aug_gen)
+                yield vol, mask, ctx
+        finally:
+            stop.set()
+            t.join(timeout=10)
+
+
+class LatentLoader:
+    """The cached latents of `--cache_latents`, on their device: (latents
+    [B, ...], context [B]) batches in a fresh permutation per epoch from
+    `np.random.default_rng(seed)`, dropping the ragged tail."""
+
+    def __init__(self, latents: torch.Tensor, context: torch.Tensor,
+                 batch_size: int, seed: int = 0):
+        self.latents = latents
+        self.context = context
+        self.batch_size = int(batch_size)
+        self._rng = np.random.default_rng(seed)
+        self.n = int(latents.shape[0])
+        if self.n < self.batch_size:
+            raise ValueError(
+                f"{self.n} cached latents < batch size {self.batch_size}")
+
+    def __len__(self):
+        return self.n // self.batch_size
+
+    def __iter__(self):
+        order = torch.from_numpy(self._rng.permutation(self.n)).to(
+            self.latents.device)
+        bs = self.batch_size
+        for i in range(self.n // bs):
+            idx = order[i * bs:(i + 1) * bs]
+            yield (self.latents.index_select(0, idx),
+                   self.context.index_select(0, idx))
+
+
+def train_val_split(cache, val_fraction: float, seed: int = 0):
+    """(train indices, val indices), a seeded permutation split.
+    `cache` is a VolumeCache or a volume count."""
+    n = cache if isinstance(cache, int) else len(cache)
+    order = np.random.default_rng(seed).permutation(n)
+    n_val = max(int(n * val_fraction), 1) if val_fraction > 0 else 0
+    return order[n_val:].tolist(), order[:n_val].tolist()
+
+
+def augment_batch(vol: torch.Tensor, mask: torch.Tensor, cfg: DataConfig,
+                  generator: Optional[torch.Generator] = None,
+                  flip_u: Optional[torch.Tensor] = None,
+                  brightness: Optional[torch.Tensor] = None,
+                  contrast: Optional[torch.Tensor] = None):
+    """Per volume: flip axis 1 unless u < flip_chance, scale by the
+    brightness factor and clip to [0, 1], then contrast c:
+    clip((1 + c)(vol - mean) + mean, 0, 1). The draws, [B] or
+    [B, 1, 1, 1, 1] (u in [0, 1), the factors in their ranges), come from
+    `generator` unless injected."""
+    b, dev = vol.shape[0], vol.device
+    shape = (b, 1, 1, 1, 1)
+
+    def draw(x, lo, hi):
+        if x is None:
+            u = torch.rand(shape, generator=generator, device=dev)
+            return u if lo is None else lo + (hi - lo) * u
+        return torch.as_tensor(x, dtype=torch.float32).to(dev).reshape(shape)
+
+    keep = draw(flip_u, None, None) < cfg.flip_chance
+    vol = torch.where(keep, vol, torch.flip(vol, dims=[1]))
+    mask = torch.where(keep, mask, torch.flip(mask, dims=[1]))
+    factor = draw(brightness, *cfg.brightness_range)
+    vol = torch.clamp(vol * factor, 0.0, 1.0)
+    cf = draw(contrast, *cfg.contrast_range)
+    mean = vol.mean(dim=(1, 2, 3, 4), keepdim=True)
+    vol = torch.clamp((1.0 + cf) * (vol - mean) + mean, 0.0, 1.0)
+    return vol, mask

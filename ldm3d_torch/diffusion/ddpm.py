@@ -17,6 +17,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ldm3d_torch.core.device import resolve_device
 from ldm3d_torch.diffusion.schedule import Schedule, posterior, q_sample
 
 
@@ -63,8 +64,11 @@ def _noise_source(shape, generator, device, step_noise):
 
 
 def _start(shape, generator, device, init_noise):
+    """x_T and the sampler's device: `device`, else the generator's, else
+    the GPU (`resolve_device`), never the CPU unless asked for."""
     if device is None:
-        device = generator.device if generator is not None else "cpu"
+        device = generator.device if generator is not None \
+            else resolve_device(None)
     if init_noise is None:
         x = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)

@@ -26,17 +26,24 @@ with cfg_dropout > 0). The port compiles no programs: "compiled" lists
 the last MAX_SIGNATURES (num, sampler, sample_steps, guidance)
 signatures served, as the JAX service lists its cached programs.
 
-Requests are served one at a time (one device). The service is built by
-the caller, over seeded random weights (`from_random_init`) or over a
-trainer loaded with `convert.load_npz`'s state dicts; the port has no
-checkpoint format, so there is no `from_checkpoint` and no CLI.
+Requests are served one at a time (one device). The service is built
+over a checkpoint of a `--train_dm` run (`from_checkpoint`), over seeded
+random weights (`from_random_init`), or by the caller over a trainer
+loaded with `convert.load_npz`'s state dicts.
+
+CLI (the GPU unless `--platform cpu`; adopts the run's train_meta.json
+for every flag not given):
+    python -m ldm3d_torch.serve --preset conditional_dm3d \
+        --ckpt_dir ./checkpoints/conditional_dm3d_dm --port 8777
 """
 
 from __future__ import annotations
 
+import argparse
 import gzip
 import io
 import json
+import os
 import threading
 from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, HTTPServer
@@ -45,7 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ldm3d_torch.core.config import DiffusionConfig
+from ldm3d_torch.core.config import DiffusionConfig, replace
 from ldm3d_torch.data.nifti import nifti_bytes
 from ldm3d_torch.train.dm_trainer import SAMPLERS, DiffusionTrainer
 
@@ -61,6 +68,7 @@ class GenerationService:
         self.cfg = cfg
         self.name = name
         self.trainer = trainer
+        self.epoch: Optional[int] = None   # the checkpoint's, if any
         self._lock = threading.Lock()
         self._counter = 0
         # (num, sampler, sample_steps, guidance), most recent last; its own
@@ -74,6 +82,32 @@ class GenerationService:
         """A service over seeded random weights (no trained checkpoint)."""
         trainer = DiffusionTrainer(cfg, device=device).init_random(seed)
         return cls(cfg, trainer, name=name)
+
+    @classmethod
+    def from_checkpoint(cls, exp_cfg, ckpt_dir: str,
+                        epoch: Optional[int] = None, ema: bool = False,
+                        device=None):
+        """Restore the newest (or a given) epoch of a `--train_dm` run's
+        checkpoints in `ckpt_dir` (a `CheckpointManager` directory).
+
+        `ema=True` samples from the EMA weights, which the checkpoint must
+        then hold; without it a checkpoint that holds them is refused, as
+        the JAX service refuses the tree mismatch. The optimizer state is
+        not loaded."""
+        from ldm3d_torch.train.checkpoint import CheckpointManager
+
+        trainer = DiffusionTrainer(exp_cfg.diffusion, device=device)
+        state, ep = CheckpointManager(ckpt_dir).restore(epoch)
+        if ema != (state["ema_unet"] is not None):
+            raise ValueError(
+                f"checkpoint epoch {ep} in {ckpt_dir} "
+                + ("has no EMA weights: restore it without ema"
+                   if ema else "holds EMA weights: restore it with ema=True"
+                   " (--ema)"))
+        trainer.load_state_dict(state, optimizer=False)
+        svc = cls(trainer.cfg, trainer, name=exp_cfg.name)
+        svc.epoch = ep
+        return svc
 
     @property
     def device(self) -> torch.device:
@@ -201,3 +235,76 @@ def serve(svc: GenerationService, host: str = "127.0.0.1",
     `serve_forever()` (in a thread if it must go on) and `server_close()`.
     Port 0 binds a free port (`server.server_address[1]`)."""
     return HTTPServer((host, port), _make_handler(svc))
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser("ldm3d_torch.serve")
+    ap.add_argument("--preset", default="conditional_dm3d")
+    ap.add_argument("--ckpt_dir", required=True,
+                    help="checkpoint dir of the --train_dm run "
+                         "({ckpt_dir}/{name}_dm of its CLI)")
+    ap.add_argument("--epoch", type=int, default=None)
+    ap.add_argument("--cfg_dropout", type=float, default=None)
+    ap.add_argument("--prediction_type", default=None,
+                    choices=["eps", "v"])
+    ap.add_argument("--latent_scale", type=float, default=None)
+    ap.add_argument("--clip_sample_range", type=float, default=None)
+    ap.add_argument("--context_in_time", action="store_true",
+                    default=None)
+    ap.add_argument("--ema", action="store_true",
+                    help="sample from the EMA weights (the default when "
+                         "train_meta.json records ema_decay > 0)")
+    ap.add_argument("--norm", default=None, choices=["batch", "group"])
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8777)
+    ap.add_argument("--platform", default=None, choices=["cpu", "gpu"],
+                    help="the GPU by default; cpu serves from the CPU")
+    return ap
+
+
+def server_from_args(argv=None):
+    """(service, bound HTTPServer) of the serve CLI's arguments: the
+    preset, the flags given, and the run's train_meta.json (in
+    `--ckpt_dir`) for every sampling invariant not given."""
+    from ldm3d_torch.core.device import resolve_device
+    from ldm3d_torch.core.presets import get_preset
+    from ldm3d_torch.train.meta import adopt_meta
+
+    args = _parser().parse_args(argv)
+    device = resolve_device("cpu" if args.platform == "cpu" else None)
+    cfg = get_preset(args.preset)
+    diff = cfg.diffusion
+    if args.cfg_dropout is not None:
+        diff = replace(diff, unet=replace(diff.unet,
+                                          cfg_dropout=args.cfg_dropout))
+    if args.prediction_type is not None:
+        diff = replace(diff, prediction_type=args.prediction_type)
+    if args.context_in_time:
+        diff = replace(diff, unet=replace(diff.unet, context_in_time=True))
+    if args.latent_scale is not None:
+        diff = replace(diff, latent_scale=args.latent_scale)
+    if args.clip_sample_range is not None:
+        diff = replace(diff, clip_sample_range=args.clip_sample_range)
+    if args.norm is not None:
+        diff = replace(diff, vqvae=replace(diff.vqvae, norm=args.norm))
+    cfg = adopt_meta(replace(cfg, diffusion=diff), args,
+                     os.path.join(args.ckpt_dir, "train_meta.json"))
+    svc = GenerationService.from_checkpoint(
+        cfg, args.ckpt_dir, args.epoch,
+        ema=args.ema or cfg.train.ema_decay > 0, device=device)
+    return svc, serve(svc, args.host, args.port)
+
+
+def main(argv=None):
+    svc, server = server_from_args(argv)
+    host, port = server.server_address[:2]
+    print(f"serving {svc.name} (epoch {svc.epoch}) on "
+          f"http://{host}:{port}", flush=True)
+    try:
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

@@ -124,6 +124,44 @@ class DiffusionTrainer:
             ema.load_state_dict(ema_unet_state, strict=True)
             self.ema_unet = ema.eval().requires_grad_(False)
 
+    def state_dict(self) -> dict:
+        """The whole training state, as `ldm3d.train.state.TrainState`
+        holds it: the model (the frozen VQ-VAE and the BatchNorm statistics
+        included), the EMA U-Net, Adam's state (moments, step count,
+        learning rate), the step, the generator's state and the latent
+        scale. Tensors are the live ones (as `nn.Module.state_dict`):
+        serialise or copy before the next step."""
+        return {
+            "model": self.model.state_dict(),
+            "ema_unet": None if self.ema_unet is None
+            else self.ema_unet.state_dict(),
+            "optimizer": None if self.optimizer is None
+            else self.optimizer.state_dict(),
+            "step": self.step,
+            "generator": self.generator.get_state(),
+            "latent_scale": self.cfg.latent_scale,
+            "clip_sample_range": self.cfg.clip_sample_range,
+        }
+
+    def load_state_dict(self, state: dict, optimizer: bool = True) -> None:
+        """Restore `state_dict()`'s output onto this trainer's device, so
+        that training goes on as if it had never stopped. With
+        `optimizer=False` (sampling only) Adam's state is not restored and
+        no optimizer is built."""
+        self.set_latent_scale(float(state["latent_scale"]),
+                              float(state["clip_sample_range"]))
+        self.model.load_state_dict(state["model"], strict=True)
+        self.ema_unet = None
+        if state["ema_unet"] is not None:
+            ema = copy.deepcopy(self.model.unet)
+            ema.load_state_dict(state["ema_unet"], strict=True)
+            self.ema_unet = ema.eval().requires_grad_(False)
+        self.optimizer = None
+        if optimizer and state["optimizer"] is not None:
+            self._optimizer().load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        self.generator.set_state(state["generator"].cpu())
+
     def set_latent_scale(self, latent_scale: float,
                          clip_sample_range: float) -> None:
         """Adopt a new diffusion-space scale (e.g. `auto_latent_scale`'s)."""

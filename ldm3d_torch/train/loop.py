@@ -1,0 +1,158 @@
+"""The epoch training loop: the port of `ldm3d.train.loop` (`fit`,
+`fit_with_recovery`).
+
+The port's trainer holds its own state, so the loop passes batches to a
+step function and checkpoints `trainer.state_dict()`; the JAX loop
+threads a state pytree through instead. Steps run one by one (the JAX
+package's fused one-program epoch is ROADMAP queue 1 item 3(c)); each
+step's metrics stay on the device until the epoch ends, when they are
+fetched in one transfer.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ldm3d_torch.train.callbacks import CSVLogger, MetricsLogger
+from ldm3d_torch.train.checkpoint import CheckpointManager
+
+# best-metric checkpoint pinning: the first metric of this list that the
+# epoch reports decides; a new best epoch is saved and pinned
+_PIN_RULES = (("latent_fid", "min"), ("val_psnr", "max"))
+
+
+def _mean_metrics(history: List[Dict[str, torch.Tensor]]
+                  ) -> Dict[str, float]:
+    """Per-key means of an epoch's step metrics, fetched in one transfer
+    (one stacked tensor per device) and averaged in float64."""
+    keys = list(history[0])
+    rows = [torch.stack([torch.as_tensor(h[k], dtype=torch.float32)
+                         .reshape(()) for k in keys]) for h in history]
+    vals = torch.stack(rows).cpu().numpy()
+    return {k: float(np.mean(vals[:, i].astype(np.float64)))
+            for i, k in enumerate(keys)}
+
+
+def fit(trainer, train_loader, epochs: int,
+        ckpt: Optional[CheckpointManager] = None,
+        csv_logger: Optional[CSVLogger] = None,
+        metrics_logger: Optional[MetricsLogger] = None,
+        initial_epoch: int = 0,
+        ckpt_freq: int = 1,
+        step_fn: Optional[Callable] = None,
+        image_logger=None,
+        epoch_callback: Optional[Callable] = None,
+        verbose: bool = True) -> Dict[str, float]:
+    """Train `trainer` from `initial_epoch` to `epochs`; returns the last
+    epoch's metrics. (The JAX loop's validation pass, plateau schedule,
+    codebook replacement and GAN epoch counter serve stage-1 training,
+    which the port does not have yet.)
+
+    - `step_fn(batch) -> metrics` defaults to
+      `trainer.train_step(vol, context)` of a (vol, mask, context) batch.
+    - `epoch_callback(epoch, trainer) -> dict` runs after the epoch; its
+      entries join the logged metrics (the latent-FID of --train_dm).
+    - A checkpoint is saved every `ckpt_freq` epochs, at the last epoch,
+      and at every new best of the first `_PIN_RULES` metric the epoch
+      reports (pinned: retention never drops it).
+    """
+    last_metrics: Dict[str, float] = {}
+    best_pin: Dict[str, float] = {}
+    for epoch in range(initial_epoch, epochs):
+        t0 = time.time()
+        history = []
+        for batch in train_loader:
+            if step_fn is not None:
+                metrics = step_fn(batch)
+            else:
+                metrics = trainer.train_step(batch[0], batch[2])
+            history.append(metrics)
+        if not history:
+            raise ValueError("empty training loader")
+        num_batches = len(history)
+        last_metrics = _mean_metrics(history)
+
+        if epoch_callback is not None:
+            extra = epoch_callback(epoch, trainer)
+            if extra:
+                last_metrics.update({k: float(v) for k, v in extra.items()})
+
+        if csv_logger is not None:
+            csv_logger(epoch, last_metrics)
+        if metrics_logger is not None:
+            metrics_logger(epoch, last_metrics)
+        if image_logger is not None:
+            image_logger(epoch, trainer)
+        pin = None
+        if ckpt is not None:
+            for name, mode in _PIN_RULES:
+                if name not in last_metrics:
+                    continue
+                v = last_metrics[name]
+                prev = best_pin.get(name)
+                if prev is None or (v < prev if mode == "min" else v > prev):
+                    best_pin[name] = v
+                    pin = f"best_{name}"
+                break
+        if ckpt is not None and (pin is not None
+                                 or (epoch + 1) % max(ckpt_freq, 1) == 0
+                                 or epoch + 1 == epochs):
+            ckpt.save(epoch + 1, trainer.state_dict(),
+                      metric=last_metrics.get("loss"), pin=pin)
+            if pin is not None:
+                last_metrics["pinned_best"] = 1.0
+                if metrics_logger is not None:
+                    metrics_logger(epoch, {pin: best_pin[name],
+                                           "pinned_epoch": epoch + 1})
+        if verbose:
+            dt = time.time() - t0
+            msg = " ".join(f"{k}={v:.5f}" for k, v in last_metrics.items()
+                           if isinstance(v, float))
+            print(f"epoch {epoch + 1}/{epochs} [{dt:.1f}s "
+                  f"{num_batches} steps] {msg}")
+    return last_metrics
+
+
+def _cpu_copy(tree):
+    """A copy of a state dict with every tensor cloned to the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _cpu_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu_copy(v) for v in tree)
+    return tree
+
+
+def fit_with_recovery(trainer, train_loader, epochs: int,
+                      ckpt: Optional[CheckpointManager],
+                      max_restarts: int = 2, initial_epoch: int = 0,
+                      verbose: bool = True, **fit_kwargs
+                      ) -> Dict[str, float]:
+    """`fit`, restarted after an exception from the latest checkpoint (or,
+    with none yet, from the state the trainer had when this was called),
+    up to `max_restarts` times."""
+    start = _cpu_copy(trainer.state_dict())
+    restarts = 0
+    while True:
+        try:
+            return fit(trainer, train_loader, epochs, ckpt=ckpt,
+                       initial_epoch=initial_epoch, verbose=verbose,
+                       **fit_kwargs)
+        except Exception as e:   # any failure of a step or a callback
+            restarts += 1
+            if restarts > max_restarts or ckpt is None:
+                raise
+            try:
+                state, initial_epoch = ckpt.restore()
+            except FileNotFoundError:
+                state, initial_epoch = start, 0
+            trainer.load_state_dict(state)
+            if verbose:
+                print(f"recovered from '{type(e).__name__}: {e}' — "
+                      f"resuming at epoch {initial_epoch} "
+                      f"(restart {restarts}/{max_restarts})")

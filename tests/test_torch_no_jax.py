@@ -6,8 +6,11 @@ A subprocess blocks `jax`, `flax`, `optax` and the JAX package `ldm3d` in
 serves the tiny slice (DDPM, and guided DDIM), imports the HTTP front,
 builds a NIfTI response, runs the tiny training slice (encode, latent
 scale, steps on volumes and on latents) and a latent-FID evaluation on the
-CPU. The sources of the
-port and of `chip_smoke.py` are also searched for such imports.
+CPU, then the command line at `smoke_cond` (--create_dataset, --train_dm
+--cache_latents, --resume_ckpt -1, --test_dm) and serves from its
+checkpoint. The sources of the port (every module under `ldm3d_torch/`,
+so the CLI, data, checkpoint and export modules too) and of
+`chip_smoke.py` are also searched for such imports.
 """
 
 import os
@@ -66,6 +69,25 @@ real = tr.latent_features(images)
 scores = tr.fidelity_eval(real, torch.Generator().manual_seed(0),
                           num_samples=2, batch=1, sample_steps=2)
 assert np.isfinite(scores["latent_fid"]), scores
+import tempfile
+from ldm3d_torch.cli.main import main as cli_main
+from ldm3d_torch.core.presets import get_preset
+with tempfile.TemporaryDirectory() as d:
+    base = ["--preset", "smoke_cond", "--platform", "cpu", "--cache_dir",
+            d + "/cache", "--ckpt_dir", d + "/ckpt", "--out_dir", d + "/out",
+            "--val_perc", "0.34"]
+    cli_main(base + ["--create_dataset", "--synthetic", "--num_synthetic",
+                     "6"])
+    cli_main(base + ["--train_dm", "--cache_latents", "--epochs", "1",
+                     "--ema_decay", "0.9"])
+    cli_main(base + ["--train_dm", "--cache_latents", "--epochs", "2",
+                     "--ema_decay", "0.9", "--resume_ckpt", "-1"])
+    cli_main(base + ["--test_dm", "--sampler", "ddim", "--sample_steps",
+                     "2"])
+    served = GenerationService.from_checkpoint(
+        get_preset("smoke_cond"), d + "/ckpt/smoke_cond_dm", ema=True,
+        device="cpu").generate(num=1, sampler="ddim", sample_steps=2)
+    assert served.shape == (1, 16, 16, 16, 1) and np.isfinite(served).all()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
 assert not loaded, loaded
