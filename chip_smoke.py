@@ -22,9 +22,9 @@ not 0:
   5. unet_step  one full-width U-Net step on the card against the CPU, f32
                 with TF32 off
   6. serve      main path 1: GenerationService at full flagship width from a
-                seeded random init answers three requests in process; the
-                launch counters are zeroed before the first and read after
-                the last
+                seeded random init answers a DDPM request and its repeat
+                in process; the launch counters are zeroed before the
+                first and read after the last
   7. breakdown  a request's U-Net step and decode times
      serve_samplers  main path 3: the same service answers DDIM, DPM++ and
                 DPM++ SDE requests, guided ones (the U-Net at 2 x num) and
@@ -55,7 +55,8 @@ not 0:
  12. cli        main path 5: the command line in process, at full flagship
                 width, in a temporary directory removed at the end (it
                 checks the free disk first): the conditional_dm3d preset
-                and flags equal flagship_cfg(); --create_dataset
+                and flags equal flagship_cfg() (its stage-1 with remat
+                on); --create_dataset
                 --synthetic (24 volumes, 128^3); --train_dm --cache_latents
                 for one epoch at --lbs 8 (codebook launches = the split's
                 batches, 12 attention launches per U-Net call); the
@@ -63,12 +64,28 @@ not 0:
                 saving one and takes the same step; --resume_ckpt -1 to
                 epoch 2; --test_dm DDIM 10; from_checkpoint serves DDIM 20
                 at num 16 within 1e-5 of the trainer's own generate
- 13. kernels    one JSON line with the whole run's kernel numbers
- 14. last line  {"ok": true, "device": {...}}
+     quantizers  (after encode) each of the five quantizer kinds, one
+                training-mode forward and backward at 1,024 rows, K = 64,
+                on the card against the CPU with injected draws
+ 13. train_vq   main path 6: the flagship's stage-1 (vqvae_dm_stage1
+                --norm group) from the command line in process, in a
+                temporary directory: --create_dataset --synthetic (24 x
+                128^3), --train_vq one epoch at --lbs 8 with a validation
+                batch, image montages and codebook replacement (2 steps +
+                1 eval + 1 montage = 4 codebook launches), a bitwise resume
+                check, --test_vq (2 launches: eval, reconstruct), SSIM /
+                PSNR card vs CPU, --train_dm --cache_latents
+                --vqvae_load_ckpt <that stage-1> --test_run one epoch (2
+                codebook, 24 attention launches), one step each of
+                nsvqvae (1 launch) and rnsvqvae (4); then, uncounted, the
+                stage-1 step's time and peak memory with remat full, conv
+                and off (3 steps each on one trainer)
+ 14. kernels    one JSON line with the whole run's kernel numbers
+ 15. last line  {"ok": true, "device": {...}}
 No socket, no profiler trace; the only threads are the CLI's data loader
 prefetchers, joined when their epoch ends. Nothing is written but the
-kernel build under ldm3d_torch/_build/ and the cli phase's temporary
-directory. Imports nothing of JAX.
+kernel build under ldm3d_torch/_build/ and the cli and train_vq phases'
+temporary directories. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -95,21 +112,24 @@ import torch  # noqa: E402
 import ldm3d_torch.ops.attention as attn  # noqa: E402
 import ldm3d_torch.ops.quantize as cbq  # noqa: E402
 from ldm3d_torch.cli import main as cli  # noqa: E402
-from ldm3d_torch.core.config import (TrainConfig, flagship_cfg,  # noqa: E402
-                                     replace)
+from ldm3d_torch.core.config import (QuantizerConfig,  # noqa: E402
+                                     TrainConfig, flagship_cfg, replace)
 from ldm3d_torch.core.presets import get_preset  # noqa: E402
 from ldm3d_torch.data.pipeline import train_val_split  # noqa: E402
 from ldm3d_torch.models import unet3d  # noqa: E402
 from ldm3d_torch.models.layers import init_params_  # noqa: E402
+from ldm3d_torch.models.quantizers import Draws, make_quantizer  # noqa: E402
 from ldm3d_torch.models.unet3d import (AttentionBlock,  # noqa: E402
                                        CrossAttentionBlock, TimeEmbedding,
                                        UNet3D)
 from ldm3d_torch.models.vqvae import VQVAE  # noqa: E402
 from ldm3d_torch.ops import _build  # noqa: E402
+from ldm3d_torch.ops.metrics import volume_psnr, volume_ssim  # noqa: E402
 from ldm3d_torch.serve import GenerationService  # noqa: E402
 from ldm3d_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from ldm3d_torch.train.dm_trainer import (DiffusionTrainer,  # noqa: E402
                                           LatentDiffusion, auto_latent_scale)
+from ldm3d_torch.train.vq_trainer import VQTrainer  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense), at a 700 W limit:
 # the tensor cores' rate for each input type (float32 at the TF32 rate,
@@ -118,8 +138,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12}
 FMA_FLOPS = 67e12
 SEED = 0
-REQUESTS = [dict(num=16, context=1, seed=1), dict(num=16, context=0, seed=2),
-            dict(num=16, context=1, seed=1)]
+# a request and its repeat, 500 steps each: the script's time limit holds
+# no more (context 0 is served in serve_samplers and fidelity)
+REQUESTS = [dict(num=16, context=1, seed=1), dict(num=16, context=1, seed=1)]
 # Tolerances, max |kernel - plain| over the output:
 #  float32: both sum in float32 in different orders; scores are O(1) and
 #           outputs are averages of N(0, 1) values.
@@ -213,10 +234,39 @@ CLI_RESUME_REL_TOL = 1e-6
 # The served request against the training trainer's own generate at the
 # same seed from the same EMA weights: the same computation twice.
 CLI_SERVE_REL_TOL = 1e-5
+# The quantizers phase: each kind, one training-mode forward and backward
+# at [2, 8, 8, 8, 32] (1,024 rows) and K = 64 (3 stages for rnsvq), card
+# against CPU from the same buffers and injected draws. The card picks
+# codes with the kernel (3xTF32), the CPU with the plain version: the
+# indices must be equal (against the seeded codebooks the rows' two
+# nearest codes lie at least 4.2e-5 apart in float64, at distances of
+# O(1): far above float32 rounding, the kernel's error). Everything
+# else is float32 arithmetic summed in other orders (the one-hot sums in
+# float64 on both sides): 1e-5 of each tensor's largest value.
+QUANT_KINDS = ("ste", "ema", "ema_sonnet", "nsvq", "rnsvq")
+QUANT_SHAPE, QUANT_K = (2, 8, 8, 8, 32), 64
+QUANT_REL_TOL = 1e-5
+# Main path 6 (`train_vq`): the flagship's stage-1 from the command line.
+# vqvae_dm_stage1 --norm group is flagship_cfg().vqvae with remat on.
+TRAIN_VQ_FLAGS = ["--preset", "vqvae_dm_stage1", "--norm", "group"]
+TRAIN_VQ_VOLUMES, TRAIN_VQ_LBS = 24, 8
+TRAIN_VQ_VAL = 0.34        # 8 held-out volumes: one validation batch
+TRAIN_VQ_SIZE = 128        # the volume of the direct steps (nsvq, rnsvq,
+                           # remat on / off)
+REMAT_STEPS = 3            # timed stage-1 steps per remat setting
+# SSIM and PSNR of the card against the CPU on the same volumes: the
+# window's sums in float32 in other orders; SSIM 1e-5 absolute, PSNR
+# 1e-5 relative.
+SSIM_ATOL, PSNR_RTOL = 1e-5, 1e-5
+
+
+_T0 = time.perf_counter()
 
 
 def say(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One JSON line; "t" is the script's wall time so far, in s."""
+    print(json.dumps({"phase": phase, "t": time.perf_counter() - _T0,
+                      **kv}), flush=True)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -407,13 +457,18 @@ def _codebook_case(gen, n, k, d, dtype, dup: bool):
 def phase_codebook(card: str) -> Dict[str, dict]:
     """Codebook kernel against `_nearest_indices_reference` at the train
     shape [4096, 256] x [1024, 256], in f32 and bf16, with a ragged N and
-    with duplicated codes (which must give the first index exactly)."""
+    with duplicated codes (which must give the first index exactly), and at
+    the nsvqvae and rnsvqvae stage-1 shapes."""
     cases = [  # name, N, K, D, dtype, duplicated codes
         ("train_f32", 4096, 1024, 256, torch.float32, False),  # train path
         ("train_bf16", 4096, 1024, 256, torch.bfloat16, False),
         ("ragged_f32", 4095, 1024, 256, torch.float32, False),
         ("duplicates_f32", 4096, 1024, 256, torch.float32, True),
         ("d20_f32", 4096, 1024, 20, torch.float32, False),
+        # stage-1 training at batch 8 and 128^3: rnsvqvae's 16^3 x 128
+        # latents, one call per residual stage; nsvqvae's 8^3 x 256
+        ("rnsvq_f32", 32768, 256, 128, torch.float32, False),
+        ("nsvq_f32", 4096, 512, 256, torch.float32, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
@@ -606,7 +661,7 @@ def phase_serve(svc: GenerationService, card: str) -> dict:
         outs.append(vols)
     total = attn.launches   # read right after the main path
     codebook = cbq.launches
-    rel = float(np.abs(outs[2] - outs[0]).max() / np.abs(outs[0]).max())
+    rel = float(np.abs(outs[-1] - outs[0]).max() / np.abs(outs[0]).max())
     say("serve", repeat_rel_err=rel, tol=REPEAT_REL_TOL,
         attention_launches=total,
         expected=calls_per_request * len(REQUESTS))
@@ -1250,19 +1305,7 @@ def phase_cli(card: str) -> dict:
     tmp = tempfile.mkdtemp(prefix="ldm3d_cli_")
     dev = CLI_DEVICE
     counts = {attn.KERNEL: 0, cbq.KERNEL: 0}
-
-    def counted(fn, *a, **kw):
-        torch.cuda.synchronize()
-        attn.reset_launches()   # a piece of the main path starts here
-        cbq.reset_launches()
-        t0 = time.perf_counter()
-        out = fn(*a, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = {attn.KERNEL: attn.launches, cbq.KERNEL: cbq.launches}
-        for k in counts:
-            counts[k] += got[k]
-        return out, wall, got
+    counted = partial(_counted, counts)
 
     def parse(*extra):
         argv = CLI_FLAGSHIP + ["--cache_dir", os.path.join(tmp, "cache"),
@@ -1310,7 +1353,10 @@ def phase_cli(card: str) -> dict:
     CheckpointManager.restore = timed_restore
     try:
         cfg, _ = parse()
+        # the preset's stage-1 has remat on, which only acts where
+        # gradients flow (stage-1 training), never in the frozen stage-1
         want = flagship_cfg()
+        want = replace(want, vqvae=replace(want.vqvae, remat=True))
         differ = [f.name for f in dataclasses.fields(want)
                   if getattr(cfg.diffusion, f.name) != getattr(want, f.name)]
         ckpt_bytes = _checkpoint_bytes(cfg)
@@ -1466,6 +1512,335 @@ def phase_cli(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| relative to max |b| (b the CPU reference)."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    scale = float(b.abs().max())
+    return float((a - b).abs().max()) / scale if scale > 0 else \
+        float((a - b).abs().max())
+
+
+def _quantizer_pass(q, x, w, draws: dict, dev: str) -> dict:
+    """One training-mode forward and backward of sum(out * w) + loss."""
+    xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+    injected = {k: [torch.from_numpy(a) for a in v] for k, v in draws.items()}
+    out, aux = q.train()(xt, Draws(**injected))
+    (torch.sum(out * torch.from_numpy(w).to(dev)) + aux.loss).backward()
+    return dict(out=out, loss=aux.loss, perplexity=aux.perplexity,
+                indices=aux.indices, x_grad=xt.grad,
+                **{f"grad.{n}": p.grad for n, p in q.named_parameters()},
+                **{f"buffer.{n}": b for n, b in q.named_buffers()})
+
+
+def phase_quantizers() -> None:
+    """Each quantizer kind, one training-mode forward and backward on the
+    card (the codebook kernel) against the CPU (the plain version), from
+    the same initial buffers with the same injected draws (the NSVQ and
+    RNSVQ noise, the EMA quantizer's two row permutations): output, loss,
+    indices, gradients and the updated usage and EMA state."""
+    rng = np.random.default_rng(SEED + 11)
+    x = rng.standard_normal(QUANT_SHAPE).astype(np.float32)
+    w = rng.standard_normal(QUANT_SHAPE).astype(np.float32)
+    n = int(np.prod(QUANT_SHAPE[:-1]))
+    draws = dict(normal=[rng.standard_normal(QUANT_SHAPE).astype(np.float32)],
+                 permutation=[rng.permutation(n), rng.permutation(n)])
+    for kind in QUANT_KINDS:
+        cfg = QuantizerConfig(kind=kind, num_embeddings=QUANT_K,
+                              embedding_dim=QUANT_SHAPE[-1], num_stages=3)
+        cpu_q = make_quantizer(cfg)
+        cpu_q.reset_parameters(torch.Generator().manual_seed(SEED))
+        card_q = make_quantizer(cfg).cuda()
+        card_q.load_state_dict(cpu_q.state_dict())
+        ref = _quantizer_pass(cpu_q, x, w, draws, "cpu")
+        got = _quantizer_pass(card_q, x, w, draws, "cuda")
+        torch.cuda.synchronize()
+        same_indices = torch.equal(got.pop("indices").cpu(),
+                                   ref.pop("indices"))
+        errs = {k: _max_rel(got[k], ref[k]) for k in ref}
+        worst = max(errs, key=errs.get)
+        ok = same_indices and errs[worst] <= QUANT_REL_TOL
+        say("quantizers", kind=kind, rows=n, K=QUANT_K,
+            indices_equal=same_indices, max_rel_err=errs[worst], at=worst,
+            tol=QUANT_REL_TOL, compared=sorted(errs), ok=ok)
+        if not ok:
+            raise RuntimeError(f"quantizers {kind}: indices equal "
+                               f"{same_indices}, {worst} {errs[worst]}")
+
+
+def _counted(totals: Dict[str, int], fn, *a, **kw):
+    """Run one user-facing piece of a main path with the launch counters
+    zeroed just before and read just after; (result, wall s, counts)."""
+    torch.cuda.synchronize()
+    attn.reset_launches()   # a piece of the main path starts here
+    cbq.reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {attn.KERNEL: attn.launches, cbq.KERNEL: cbq.launches}
+    for k in totals:
+        totals[k] += got[k]
+    return out, wall, got
+
+
+def _vq_batch(rng, b: int, size: int, dev: str):
+    vol = _seeded_volumes(rng, b, size).to(dev)
+    return vol, (vol > 0.5).float()
+
+
+def _remat_steps(tr: VQTrainer, vol, mask, steps: int, **remat) -> dict:
+    """`steps` train steps of `tr` with its encoder and decoder switched to
+    the remat setting `remat`: each step's wall ms, the peak memory over
+    them, the last step's codebook launches and metrics."""
+    for part in (tr.model.encoder, tr.model.decoder):
+        part.cfg = replace(part.cfg, **remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(steps):
+        m, wall, got = _counted({attn.KERNEL: 0, cbq.KERNEL: 0},
+                                tr.train_step, vol, mask)
+        walls.append(1e3 * wall)
+    return dict(step_ms=walls, median_step_ms=float(np.median(walls)),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                launches=got, metrics={k: float(v) for k, v in m.items()})
+
+
+def phase_train_vq(card: str) -> dict:
+    """Main path 6: the flagship's stage-1 trained from the command line
+    at full width, in process, in a temporary directory removed at the
+    end: --create_dataset --synthetic (24 volumes, 128^3); --train_vq
+    --epochs 1 at --lbs 8 with a validation batch, image montages and
+    unused-code replacement after the epoch; an exact-resume check;
+    --test_vq; --train_dm --cache_latents --vqvae_load_ckpt <that stage-1>
+    for one epoch (--test_run: no 6.3 GB checkpoint); one train step each
+    of nsvqvae and rnsvqvae at batch 8. Then, uncounted: SSIM / PSNR card
+    against CPU, and the stage-1 step's time and peak memory with remat
+    full, conv and off."""
+    tmp = tempfile.mkdtemp(prefix="ldm3d_train_vq_")
+    dev = CLI_DEVICE
+    counts = {attn.KERNEL: 0, cbq.KERNEL: 0}
+
+    def parse(flags, *extra):
+        argv = flags + ["--cache_dir", os.path.join(tmp, "cache"),
+                        "--ckpt_dir", os.path.join(tmp, "ckpt"),
+                        "--out_dir", os.path.join(tmp, "out"),
+                        "--platform", "gpu" if dev == "cuda" else "cpu",
+                        *extra]
+        args = cli.build_parser().parse_args(argv)
+        return cli.apply_overrides(get_preset(args.preset), args), args
+
+    timing: Dict[str, list] = {"train_step_ms": [], "eval_ms": [],
+                               "save_s": []}
+    real_step, real_eval = VQTrainer.train_step, VQTrainer.eval_step
+    real_save = CheckpointManager.save
+
+    def timed(fn, key, scale):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timing[key].append(scale * (time.perf_counter() - t0))
+            return out
+        return run
+
+    VQTrainer.train_step = timed(real_step, "train_step_ms", 1e3)
+    VQTrainer.eval_step = timed(real_eval, "eval_ms", 1e3)
+    CheckpointManager.save = timed(real_save, "save_s", 1.0)
+    try:
+        cfg, _ = parse(TRAIN_VQ_FLAGS)
+        want = flagship_cfg().vqvae
+        same = cfg.vqvae == replace(want, remat=True)
+        say("train_vq", preset=TRAIN_VQ_FLAGS[1], flags=TRAIN_VQ_FLAGS,
+            config_equals_flagship_stage1=same, remat=cfg.vqvae.remat,
+            tmp=tmp, disk_free=shutil.disk_usage(tmp).free, card=card)
+        if not same:
+            raise RuntimeError(f"train_vq: {cfg.vqvae} is not the flagship "
+                               "stage-1")
+
+        cfg, args = parse(TRAIN_VQ_FLAGS, "--create_dataset", "--synthetic",
+                          "--num_synthetic", str(TRAIN_VQ_VOLUMES))
+        _, corpus_s, _ = _counted(counts, cli.run_create_dataset, cfg, args)
+
+        cfg, args = parse(TRAIN_VQ_FLAGS, "--train_vq", "--epochs", "1",
+                          "--lbs", str(TRAIN_VQ_LBS), "--val_perc",
+                          str(TRAIN_VQ_VAL), "--image_log_freq", "1")
+        cfg = replace(cfg, train=replace(cfg.train, replace_codebook_freq=1))
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            saver, train_s, got1 = _counted(counts, cli.run_train_vq, cfg,
+                                            args)
+        text = out.getvalue()
+        print(text, end="", flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        tr_idx, va_idx = train_val_split(TRAIN_VQ_VOLUMES,
+                                         cfg.train.val_fraction,
+                                         cfg.train.seed)
+        steps = len(tr_idx) // TRAIN_VQ_LBS
+        val_batches = len(va_idx) // TRAIN_VQ_LBS
+        # one launch per train step, eval batch and montage reconstruction
+        expect1 = {attn.KERNEL: 0, cbq.KERNEL: steps + val_batches + 1}
+        ckpt_dir = os.path.join(tmp, "ckpt", f"{cfg.name}_vq")
+        size1 = os.path.getsize(os.path.join(ckpt_dir, "1.pt"))
+        n_params = sum(p.numel() for p in saver.model.parameters())
+        n_state = sum(t.numel() for t in saver.model.state_dict().values())
+        images = sorted(os.listdir(os.path.join(ckpt_dir, "images")))
+        log_header = open(os.path.join(ckpt_dir, "training.log")).readline()
+        val_cols = all(c in log_header for c in ("val_loss", "val_ssim",
+                                                 "val_psnr",
+                                                 "codebooks_replaced"))
+        say("train_vq", step="train_vq", epochs=1, batch=TRAIN_VQ_LBS,
+            volume=cfg.data.volume_size, steps=steps,
+            val_batches=val_batches, run_s=train_s,
+            train_step_ms=timing["train_step_ms"][:steps],
+            eval_ms_per_batch=timing["eval_ms"][:val_batches],
+            checkpoint_bytes=size1, checkpoint_bytes_float32=4 * (
+                n_state + 2 * n_params), parameters=n_params,
+            save_s=timing["save_s"][0], images=images,
+            log_has_val_and_replacement=val_cols, corpus_write_s=corpus_s,
+            launches=got1, expected=expect1, max_memory_allocated=peak,
+            remat=cfg.vqvae.remat, card=card)
+        if (got1 != expect1 or saver.step != steps or not val_cols
+                or "epoch 1/1" not in text or len(images) != 2):
+            raise RuntimeError(f"train_vq: launches {got1}, expected "
+                               f"{expect1}, step {saver.step}, log columns "
+                               f"{val_cols}, images {images}")
+
+        # resume is exact: restore epoch 1 into a fresh trainer
+        fresh = VQTrainer(cfg.vqvae, cfg.train, device=dev)
+        t0 = time.perf_counter()
+        state, ep = CheckpointManager(ckpt_dir).restore(1)
+        fresh.load_state_dict(state)
+        del state
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        differ = _state_equal(saver, fresh)
+        rng = np.random.default_rng(SEED + 12)
+        vol, mask = _vq_batch(rng, TRAIN_VQ_LBS, cfg.data.volume_size, dev)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            for tr in (saver, fresh):
+                tr.train_step(vol, mask)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        after = _state_equal(saver, fresh)
+        say("train_vq", step="resume_check", restored_epoch=ep,
+            restore_s=restore_s, state_differs=differ,
+            differs_after_one_step=after, bitwise=not differ and not after,
+            card=card)
+        if differ or after:
+            raise RuntimeError(f"train_vq resume: state differs in "
+                               f"{(differ + after)[:5]}")
+        del fresh, saver
+        torch.cuda.empty_cache()
+
+        cfg, args = parse(TRAIN_VQ_FLAGS, "--test_vq", "--lbs",
+                          str(TRAIN_VQ_LBS), "--val_perc", str(TRAIN_VQ_VAL))
+        (paths, mse), test_s, got2 = _counted(counts, cli.run_test_vq, cfg,
+                                              args)
+        expect2 = {attn.KERNEL: 0, cbq.KERNEL: 2 * val_batches}
+        orig = torch.from_numpy(np.load(os.path.join(tmp, "out",
+                                                     "original_0.npy")))
+        recon = torch.from_numpy(np.load(os.path.join(tmp, "out",
+                                                      "reconst_0.npy")))
+        finite = bool(torch.isfinite(recon).all())
+        shapes_ok = orig.shape == recon.shape == (TRAIN_VQ_LBS,) + (
+            cfg.data.volume_size,) * 3 + (1,)
+        ssim_card = float(volume_ssim(recon.to(dev), orig.to(dev)))
+        psnr_card = float(volume_psnr(recon.to(dev), orig.to(dev)))
+        ssim_cpu, psnr_cpu = float(volume_ssim(recon, orig)), \
+            float(volume_psnr(recon, orig))
+        metrics_ok = (ssim_card <= 1.0
+                      and abs(ssim_card - ssim_cpu) <= SSIM_ATOL
+                      and abs(psnr_card - psnr_cpu)
+                      <= PSNR_RTOL * abs(psnr_cpu))
+        say("train_vq", step="test_vq", files=sorted(
+            os.path.basename(p) for p in paths), mean_mse=mse,
+            test_vq_s=test_s, shapes_ok=shapes_ok, finite=finite,
+            ssim_card=ssim_card, ssim_cpu=ssim_cpu, ssim_tol=SSIM_ATOL,
+            psnr_card=psnr_card, psnr_cpu=psnr_cpu, psnr_rtol=PSNR_RTOL,
+            launches=got2, expected=expect2, card=card)
+        if not (shapes_ok and finite and metrics_ok and got2 == expect2
+                and len(paths) == 2 * val_batches):
+            raise RuntimeError(f"train_vq test_vq: shapes {shapes_ok}, "
+                               f"finite {finite}, ssim {ssim_card} / "
+                               f"{ssim_cpu}, psnr {psnr_card} / {psnr_cpu}, "
+                               f"launches {got2}")
+
+        cfg, args = parse(CLI_FLAGSHIP, "--train_dm", "--cache_latents",
+                          "--epochs", "1", "--lbs", str(CLI_LBS),
+                          "--test_run", "--vqvae_load_ckpt", ckpt_dir)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            dm, dm_s, got3 = _counted(counts, cli.run_train_dm, cfg, args)
+        text = out.getvalue()
+        print(text, end="", flush=True)
+        tr_idx, _ = train_val_split(TRAIN_VQ_VOLUMES, cfg.train.val_fraction,
+                                    cfg.train.seed)
+        dm_steps = len(tr_idx) // CLI_LBS
+        expect3 = {attn.KERNEL: attention_calls_per_step(dm.model.unet)
+                   * dm_steps, cbq.KERNEL: dm_steps}
+        loaded = "loaded stage-1 VQ-VAE weights from epoch 1" in text
+        say("train_vq", step="train_dm_on_stage1", run_s=dm_s,
+            stage1_loaded=loaded, steps=dm.step,
+            latent_scale=dm.cfg.latent_scale, launches=got3,
+            expected=expect3, card=card)
+        if not loaded or got3 != expect3 or dm.step != dm_steps:
+            raise RuntimeError(f"train_vq train_dm: loaded {loaded}, "
+                               f"launches {got3}, step {dm.step}")
+        del dm
+        torch.cuda.empty_cache()
+
+        rng = np.random.default_rng(SEED + 13)
+        vol, mask = _vq_batch(rng, TRAIN_VQ_LBS, TRAIN_VQ_SIZE, dev)
+        others = {}
+        for preset, per_step in (("nsvqvae", 1), ("rnsvqvae", 4)):
+            pcfg = get_preset(preset)
+            tc = replace(pcfg.train, batch_size=TRAIN_VQ_LBS)
+            tr = VQTrainer(pcfg.vqvae, tc, device=dev).init_random(SEED)
+            m, wall, got = _counted(counts, tr.train_step, vol, mask)
+            finite = all(np.isfinite(float(v)) for v in m.values())
+            others[preset] = dict(step_ms=1e3 * wall, launches=got,
+                                  expected={attn.KERNEL: 0,
+                                            cbq.KERNEL: per_step},
+                                  finite=finite,
+                                  metrics={k: float(v) for k, v in m.items()})
+            del tr
+            torch.cuda.empty_cache()
+            if got != others[preset]["expected"] or not finite:
+                raise RuntimeError(f"train_vq {preset}: launches {got}, "
+                                   f"finite {finite}")
+        say("train_vq", step="nsvq_rnsvq", batch=TRAIN_VQ_LBS,
+            volume=TRAIN_VQ_SIZE, **others, card=card)
+
+        # uncounted: the flagship stage-1 step with remat full, conv and
+        # off, on one trainer whose first step (Adam's state, cuDNN's
+        # set-up) is not timed; REMAT_STEPS timed steps each
+        cfg, _ = parse(TRAIN_VQ_FLAGS)
+        tc = replace(cfg.train, batch_size=TRAIN_VQ_LBS)
+        tr = VQTrainer(cfg.vqvae, tc, device=dev).init_random(SEED)
+        tr.train_step(vol, mask)
+        memory = {name: _remat_steps(tr, vol, mask, REMAT_STEPS, **kw)
+                  for name, kw in (
+                      ("full", dict(remat=True, remat_policy="full")),
+                      ("conv", dict(remat=True, remat_policy="conv")),
+                      ("off", dict(remat=False)))}
+        del tr
+        torch.cuda.empty_cache()
+        say("train_vq", step="remat_memory", batch=TRAIN_VQ_LBS,
+            volume=TRAIN_VQ_SIZE, **memory, card=card)
+        say("train_vq", launches=counts, card=card)
+        return counts
+    finally:
+        VQTrainer.train_step, VQTrainer.eval_step = real_step, real_eval
+        CheckpointManager.save = real_save
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _kernel_line(name, source, replaces, counts, case, library):
     return {
         "name": name, "route": "cuda", "source": source,
@@ -1506,6 +1881,7 @@ def main() -> None:
     del svc, trainer
     torch.cuda.empty_cache()
     phase_encode()
+    phase_quantizers()
     train = phase_train(card)
     counts["train"] = train["counts"]
     phase_train_compare(train["trainer"], train["latents"])
@@ -1513,6 +1889,8 @@ def main() -> None:
     del train
     torch.cuda.empty_cache()
     counts["cli"] = phase_cli(card)
+    torch.cuda.empty_cache()
+    counts["train_vq"] = phase_train_vq(card)
     kernels = [
         _kernel_line(attn.KERNEL, "ldm3d_torch/csrc/voxel_attention.cu",
                      "ldm3d/ops/attention.py:38", counts,

@@ -9,26 +9,35 @@ defaults.
     python -m ldm3d_torch.cli.main --preset conditional_dm3d --test_dm \
         --sampler ddim --sample_steps 50
 
-Ported modes: --create_dataset (synthetic or NIfTI), --train_dm (on
-volumes or, with --cache_latents, on latents encoded once and cached on
-disk beside the corpus when a stage-1 snapshot is given), with the AUTO
-latent scale, train_meta.json, --resume_ckpt, --auto_resume,
---ckpt_freq, --fidelity_freq and --image_log_freq; --test_dm. The run
-goes on the GPU unless `--platform cpu` is given; with no GPU visible it
-raises. Checkpoints are `ldm3d_torch.train.checkpoint` files (one
-`torch.save` of the trainer's whole state per epoch) under
-`{ckpt_dir}/{name}_dm/`. `--vqvae_load_ckpt` reads a stage-1 VQ-VAE
-snapshot in the JAX package's `.npz` export layout
-(`ldm3d_torch.utils.export`).
+Ported modes: --create_dataset (synthetic or NIfTI); --train_vq and
+--test_vq (stage-1 VQ-VAE training with the validation pass, the plateau
+schedule and unused-code replacement, and the held-out reconstructions,
+for the VQ-VAE family: the ste, nsvq and rnsvq presets and any
+quantizer kind); --train_dm (on volumes or, with --cache_latents, on
+latents encoded once and cached on disk beside the corpus when a stage-1
+is loaded), with the AUTO latent scale, train_meta.json, --resume_ckpt,
+--auto_resume, --ckpt_freq, --fidelity_freq and --image_log_freq;
+--test_dm. The run goes on the GPU unless `--platform cpu` is given; with
+no GPU visible it raises. Checkpoints are `ldm3d_torch.train.checkpoint`
+files (one `torch.save` of the trainer's whole state per epoch) under
+`{ckpt_dir}/{name}_vq/` and `{ckpt_dir}/{name}_dm/`. `--vqvae_load_ckpt`
+reads a stage-1 VQ-VAE from a `--train_vq` checkpoint directory (its
+latest epoch) or from a snapshot in the JAX package's `.npz` export
+layout (`ldm3d_torch.utils.export`); the stage-1 must have the
+architecture of the preset's `diffusion.vqvae`, or it is refused.
+
+    python -m ldm3d_torch.cli.main --preset vqvae_dm_stage1 --norm group \
+        --train_vq --epochs 100 --lbs 8
+    python -m ldm3d_torch.cli.main --preset conditional_dm3d --norm group \
+        --train_dm --cache_latents \
+        --vqvae_load_ckpt ./checkpoints/vqvae_dm_stage1_vq
 
 Modes and flags not ported yet are parsed and then refused with the
-ROADMAP item that brings them: --train_vq / --test_vq (stage-1 and VQ-GAN
-training, queue 1 items 6 and 7), --fidelity_sweep, --sweep,
---device_data and --profile (item 5), and the multi-host and mesh flags
-(item 9). Flags that only configure the stage-1 or VQ-GAN models
-(--kernel_resize, --vqvae_mode, --num_embeddings, --embedding_dim and the
-adversarial ones) change nothing the diffusion modes read, as in the JAX
-CLI.
+ROADMAP item that brings them: the VQ-GAN presets, `emavqvae` and
+`vqvae_legacy`, and --train_vq / --test_vq with --vqvae_mode (queue 1
+item 7), --fidelity_sweep, --sweep, --device_data and --profile (item
+5), and the multi-host and mesh flags (item 9). The adversarial flags configure the
+VQ-GAN models only.
 """
 
 from __future__ import annotations
@@ -84,7 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test_epoch", type=int, default=None)
     p.add_argument("--save_best_only", action="store_true")
     p.add_argument("--vqvae_load_ckpt", type=str, default=None,
-                   help="stage-1 VQ-VAE snapshot (.npz, export layout)")
+                   help="stage-1 VQ-VAE: a --train_vq checkpoint directory "
+                        "or a snapshot (.npz, export layout)")
     p.add_argument("--timesteps", type=int, default=None)
     p.add_argument("--norm", default=None, choices=["batch", "group"],
                    help="normalization family of the autoencoder")
@@ -134,7 +144,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cfg_dropout", type=float, default=None,
                    help="context-drop probability during --train_dm")
     p.add_argument("--save_nifti", action="store_true",
-                   help="with --test_dm: also export volumes as .nii.gz")
+                   help="with --test_dm/--test_vq: also export volumes as "
+                        ".nii.gz")
     p.add_argument("--ema_decay", type=float, default=None,
                    help="EMA decay of the U-Net weights during --train_dm; "
                         "sampling then uses the averaged weights")
@@ -186,10 +197,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """SystemExit for a mode or flag the port does not have yet."""
     refusals = [
-        (args.train_vq, "--train_vq", "queue 1 items 6 and 7 (stage-1 "
-         "and VQ-GAN training)"),
-        (args.test_vq, "--test_vq", "queue 1 items 6 and 7 (stage-1 "
-         "models; ops/metrics.py stays with item 5)"),
         (args.fidelity_sweep, "--fidelity_sweep", "queue 1 item 5"),
         (args.sweep, "--sweep", "queue 1 item 5 (core/sweep.py)"),
         (args.device_data, "--device_data", "queue 1 item 5 "
@@ -252,6 +259,21 @@ def apply_overrides(cfg, args):
                 cfg.diffusion, unet=replace(cfg.diffusion.unet,
                                             context_dim=args.num_classes - 1)))
     cfg = replace(cfg, data=data)
+
+    vq = cfg.vqvae
+    q = vq.quantizer
+    if args.num_embeddings is not None:
+        q = replace(q, num_embeddings=args.num_embeddings)
+    if args.embedding_dim is not None:
+        q = replace(q, embedding_dim=args.embedding_dim)
+    vq = replace(vq, quantizer=q)
+    if args.kernel_resize:
+        vq = replace(vq, kernel_resize=True)
+    if args.vqvae_mode is not None:
+        vq = replace(vq, family="legacy")
+    if args.norm is not None:
+        vq = replace(vq, norm=args.norm)
+    cfg = replace(cfg, vqvae=vq)
 
     diff = cfg.diffusion
     if args.norm is not None:
@@ -344,7 +366,9 @@ def _maybe_resume(ckpt, trainer, resume_ckpt) -> int:
         if resume_ckpt >= 0:
             raise
         return 0
-    if (state["ema_unet"] is not None) != (trainer.train_cfg.ema_decay > 0):
+    if "ema_unet" in state and (
+            (state["ema_unet"] is not None)
+            != (trainer.train_cfg.ema_decay > 0)):
         # the JAX restore fails on the state tree's mismatch
         raise ValueError(
             f"checkpoint epoch {epoch} in {ckpt.directory} "
@@ -354,6 +378,100 @@ def _maybe_resume(ckpt, trainer, resume_ckpt) -> int:
     trainer.load_state_dict(state)
     print(f"resumed from epoch {epoch}")
     return epoch
+
+
+def run_train_vq(cfg, args):
+    """Stage-1 VQ-VAE training; returns the trainer."""
+    from ldm3d_torch.train.callbacks import (CSVLogger, ImageLogger,
+                                             MetricsLogger,
+                                             ReduceLROnPlateau)
+    from ldm3d_torch.train.checkpoint import CheckpointManager
+    from ldm3d_torch.train.loop import fit, fit_with_recovery
+    from ldm3d_torch.train.vq_trainer import VQTrainer
+
+    device = _device(args)
+    train_loader, val_loader = _loaders(cfg, args, device)
+    trainer = VQTrainer(cfg.vqvae, cfg.train,
+                        device=device).init_random(cfg.train.seed)
+    lr_sched = ReduceLROnPlateau(monitor="val_loss", factor=0.5,
+                                 patience=10)
+    logdir = _ckpt_dir(cfg, "vq")
+    ckpt = CheckpointManager(logdir, keep=cfg.train.keep_checkpoints,
+                             save_best_only=args.save_best_only)
+    initial_epoch = _maybe_resume(ckpt, trainer, args.resume_ckpt)
+
+    image_logger = None
+    if args.image_log_freq:
+        batches = iter(val_loader or train_loader)
+        vol, mask, _ = next(batches)
+        batches.close()
+
+        def render(tr):
+            recon, _ = tr.reconstruct(vol, mask)
+            return {"original": vol[:2].float().cpu().numpy(),
+                    "reconstruction": recon[:2, ..., :1].float().cpu()
+                    .numpy()}
+
+        image_logger = ImageLogger(os.path.join(logdir, "images"), render,
+                                   log_freq=args.image_log_freq)
+    fit_fn = fit if not args.auto_resume else functools.partial(
+        fit_with_recovery, max_restarts=args.auto_resume)
+    metrics = fit_fn(
+        trainer, train_loader, cfg.train.epochs, val_loader=val_loader,
+        ckpt=None if args.test_run else ckpt, image_logger=image_logger,
+        csv_logger=CSVLogger(os.path.join(logdir, "training.log"),
+                             append=args.resume_ckpt is not None),
+        metrics_logger=MetricsLogger(os.path.join(logdir, "metrics.jsonl"),
+                                     run_name=cfg.name),
+        lr_schedule=lr_sched,
+        replace_codebook_freq=cfg.train.replace_codebook_freq,
+        initial_epoch=initial_epoch, ckpt_freq=args.ckpt_freq,
+        step_fn=lambda batch: trainer.train_step(batch[0], batch[1]))
+    ckpt.wait()
+    print("final:", {k: round(float(v), 6) for k, v in metrics.items()})
+    return trainer
+
+
+def run_test_vq(cfg, args):
+    """Reconstruct the held-out split from a --train_vq checkpoint: per
+    batch its metrics, `original_{i}.npy` and `reconst_{i}.npy` (the image
+    channel; `reconst_{i}_0.nii.gz` too with --save_nifti), then the mean
+    reconstruction MSE. Returns (paths written, mean MSE)."""
+    from ldm3d_torch.data.nifti import save_nifti
+    from ldm3d_torch.train.checkpoint import CheckpointManager
+    from ldm3d_torch.train.vq_trainer import VQTrainer
+
+    device = _device(args)
+    _, val_loader = _loaders(cfg, args, device)
+    if val_loader is None:
+        raise SystemExit("validation split is empty")
+    trainer = VQTrainer(cfg.vqvae, cfg.train, device=device)
+    state, epoch = CheckpointManager(_ckpt_dir(cfg, "vq")).restore(
+        args.test_epoch)
+    trainer.load_state_dict(state, optimizer=False)
+    del state
+    print(f"testing epoch {epoch}")
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    total_mse, n, paths = 0.0, 0, []
+    for i, (vol, mask, _ctx) in enumerate(val_loader):
+        metrics = trainer.eval_step(vol, mask)
+        total_mse += float(metrics["reconst_loss"])
+        n += 1
+        recon, _ = trainer.reconstruct(vol, mask)
+        recon = recon[..., :1].float().cpu().numpy()
+        for name, arr in ((f"original_{i}.npy", vol.float().cpu().numpy()),
+                          (f"reconst_{i}.npy", recon)):
+            paths.append(os.path.join(args.out_dir, name))
+            np.save(paths[-1], arr)
+        if args.save_nifti:
+            paths.append(os.path.join(args.out_dir, f"reconst_{i}_0.nii.gz"))
+            save_nifti(paths[-1], recon[0])
+        print(f"batch {i}: " + " ".join(
+            f"{k}={float(v):.5f}" for k, v in metrics.items()))
+    mean = total_mse / max(n, 1)
+    print(f"mean reconst MSE over {n} batches: {mean:.6f}")
+    return paths, mean
 
 
 def _dm_trainer(cfg, device):
@@ -388,6 +506,7 @@ def run_train_dm(cfg, args):
     from ldm3d_torch.train.checkpoint import CheckpointManager
     from ldm3d_torch.train.loop import fit, fit_with_recovery
     from ldm3d_torch.train.dm_trainer import auto_latent_scale
+    from ldm3d_torch.train.vq_trainer import load_stage1_checkpoint
     from ldm3d_torch.utils.export import load_stage1_npz
 
     device = _device(args)
@@ -396,8 +515,12 @@ def run_train_dm(cfg, args):
     trainer = _dm_trainer(cfg, device)
     vq_epoch = None
     if args.vqvae_load_ckpt:
-        meta = load_stage1_npz(args.vqvae_load_ckpt, trainer)
-        vq_epoch = int(meta.get("epoch", 0))
+        if os.path.isdir(args.vqvae_load_ckpt):
+            vq_epoch = load_stage1_checkpoint(args.vqvae_load_ckpt,
+                                              trainer.model.vqvae)
+        else:
+            meta = load_stage1_npz(args.vqvae_load_ckpt, trainer)
+            vq_epoch = int(meta.get("epoch", 0))
         print(f"loaded stage-1 VQ-VAE weights from epoch {vq_epoch}")
 
     ckpt = CheckpointManager(_ckpt_dir(cfg, "dm"),
@@ -622,18 +745,30 @@ def main(argv=None):
         sys.stdout.reconfigure(line_buffering=True)
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
-    _device(args)           # no GPU and no --platform cpu: raise first
     from ldm3d_torch.core.presets import get_preset
-    cfg = apply_overrides(get_preset(args.preset), args)
+    from ldm3d_torch.train.vq_trainer import check_family
+    try:
+        cfg = apply_overrides(get_preset(args.preset), args)
+        if args.train_vq or args.test_vq:
+            check_family(cfg.vqvae)
+    except NotImplementedError as e:   # a preset or family of item 7
+        raise SystemExit(f"ldm3d_torch: {e}") from None
+    _device(args)           # no GPU and no --platform cpu: raise before any work
 
     if args.create_dataset:
         run_create_dataset(cfg, args)
+    if args.train_vq:
+        run_train_vq(cfg, args)
+    if args.test_vq:
+        run_test_vq(cfg, args)
     if args.train_dm:
         run_train_dm(cfg, args)
     if args.test_dm:
         run_test_dm(cfg, args)
-    if not any([args.create_dataset, args.train_dm, args.test_dm]):
-        print("nothing to do: pass --train_dm/--test_dm/--create_dataset")
+    if not any([args.create_dataset, args.train_vq, args.test_vq,
+                args.train_dm, args.test_dm]):
+        print("nothing to do: pass --train_vq/--test_vq/--train_dm/"
+              "--test_dm/--create_dataset")
 
 
 if __name__ == "__main__":

@@ -14,11 +14,15 @@ torch key by joining with '.', renaming the leaf, and changing the layout:
     Both are the same axis permutation (4, 3, 0, 1, 2).
   - Dense kernel (in, out) -> weight (out, in)
   - norm scale -> weight; BatchNorm statistics mean / var -> running_mean /
-    running_var; Embed embedding -> weight; PReLU alpha -> alpha; the
-    quantizer's codebook [K, D] and its `vq_stats` usage counter
-    `codebooks_used` keep their names and layout.
-The encoder (`vqvae/encoder/**`), the quantizer and the decoder are all
-mapped.
+    running_var; Embed embedding -> weight; PReLU alpha -> alpha.
+  - the quantizers keep their names and layout: the parameters `codebook`
+    [K, D] (ste, nsvq) and `codebooks` [S, K, D] (rnsvq), and the
+    `vq_stats` collection, which is buffers here: `codebooks_used` ([K],
+    or [S, K]), and the EMA kinds' `codebook`, `ema_cluster_size`,
+    `ema_w` and `need_init` (bool).
+Diffusion states (`vqvae/encoder/**`, the quantizer, the decoder, the
+U-Net) and stage-1 states (`encoder/**`, `quantizer/**`, `decoder/**`)
+are both mapped.
 
 `flax_state` is the inverse map: a port module's parameters and buffers
 as the flax collections, numpy, for comparing a port state with a JAX one.
@@ -45,6 +49,10 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
+_VQ_STATS = ("codebooks_used", "codebook", "ema_cluster_size", "ema_w",
+             "need_init")
+
+
 def _leaf(path: str, arr: np.ndarray, stats: bool) -> Tuple[str, np.ndarray]:
     *mods, name = path.split("/")
     if stats:
@@ -59,13 +67,15 @@ def _leaf(path: str, arr: np.ndarray, stats: bool) -> Tuple[str, np.ndarray]:
             raise ValueError(f"unexpected kernel rank at {path}: {arr.shape}")
     elif name in ("scale", "embedding"):
         name = "weight"
-    elif name not in ("bias", "alpha", "codebook", "codebooks_used"):
+    elif name not in ("bias", "alpha", "codebooks") + _VQ_STATS:
         raise ValueError(f"unknown parameter {path}")
     return ".".join(mods + [name]), arr
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+    """float32 (bool stays bool: the EMA quantizer's `need_init`)."""
+    dtype = np.bool_ if arr.dtype == np.bool_ else np.float32
+    return torch.from_numpy(np.array(arr, dtype=dtype, order="C"))
 
 
 def module_state(params: Mapping, batch_stats: Optional[Mapping] = None
@@ -120,14 +130,15 @@ def load_npz(path: str) -> Tuple[Dict[str, torch.Tensor],
 def _flax_leaf(module: nn.Module, name: str, t: torch.Tensor
                ) -> Tuple[str, str, np.ndarray]:
     """(collection, flax leaf name, array) of one parameter or buffer."""
-    arr = t.detach().float().cpu().numpy().copy()   # not a view of t
+    t = t.detach() if t.dtype == torch.bool else t.detach().float()
+    arr = t.cpu().numpy().copy()                    # not a view of t
     if name == "running_mean":
         return "batch_stats", "mean", arr
     if name == "running_var":
         return "batch_stats", "var", arr
-    if name == "codebooks_used":
+    if name in _VQ_STATS and name in module._buffers:
         return "vq_stats", name, arr
-    if name in ("bias", "alpha", "codebook"):
+    if name in ("bias", "alpha", "codebook", "codebooks"):
         return "params", name, arr
     if name != "weight":
         raise ValueError(f"unknown parameter {name} of {type(module)}")

@@ -15,12 +15,23 @@ from typing import Optional, Tuple
 
 @dataclass(frozen=True)
 class QuantizerConfig:
-    """Codebook settings. Only kind "ste" is ported."""
+    """Codebook settings of the five quantizers: "ste" (straight-through,
+    commitment beta + codebook loss), "ema" (EMA codebook with a
+    data-dependent init and random restart), "ema_sonnet" (EMA with
+    Laplace smoothing), "nsvq" (noise substitution), "rnsvq" (residual
+    multi-stage noise substitution)."""
 
     kind: str = "ste"
     num_embeddings: int = 512
     embedding_dim: int = 256
-    beta: float = 0.25                 # commitment weight
+    beta: float = 0.25                 # commitment weight (ste / ema)
+    ema_decay: float = 0.99
+    commitment_cost: float = 6.0       # ema_sonnet's commitment weight
+    restart_thres: float = 1.0         # EMA random-restart usage threshold
+    no_random_restart: bool = False
+    discarding_threshold: float = 0.05  # unused-code replacement threshold
+    num_stages: int = 4                # rnsvq residual stages
+    quantize_loss_weight: float = 1.0  # the quantizer loss's weight
 
 
 @dataclass(frozen=True)
@@ -36,12 +47,20 @@ class VQVAEConfig:
     downsample_kernel: Tuple[int, ...] = (4, 4, 4)
     upsample_stride: Tuple[int, ...] = (2, 2, 2)
     upsample_kernel: Tuple[int, ...] = (4, 4, 4)
-    dropout: float = 0.0               # only 0 is ported
+    dropout: float = 0.0
+    kernel_resize: bool = False        # ICNR init of the transposed convs
     norm: str = "batch"                # "batch" | "group"
     act: str = "relu"
     output_act: Optional[str] = None
+    # "monai" (ported); "legacy" and "ema_skip" (ROADMAP queue 1 item 7)
+    family: str = "monai"
     # level-0 k4-s2 conv as zero-pad + space-to-depth(2) + k2 VALID conv
     stem_s2d: bool = False
+    # recompute each residual unit in the backward pass
+    # (torch.utils.checkpoint); "conv" keeps the convolutions' outputs and
+    # recomputes only the norm and activation tail
+    remat: bool = False
+    remat_policy: str = "full"         # "full" | "conv"
     quantizer: QuantizerConfig = field(default_factory=QuantizerConfig)
 
     @property
@@ -106,7 +125,7 @@ class DiffusionConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """The optimizer, EMA and seed settings of stage-2 training."""
+    """The optimizer, EMA and seed settings of training."""
 
     batch_size: int = 8                # global batch ("ref" loss divisor)
     learning_rate: float = 1e-4
@@ -120,6 +139,7 @@ class TrainConfig:
     # the JAX package's compute dtype, recorded only: the port computes in
     # float32 (TF32 convolutions)
     dtype: str = "bfloat16"
+    replace_codebook_freq: int = 10    # epochs between unused-code replacement
     checkpoint_every: int = 1
     keep_checkpoints: int = 5
 
@@ -147,14 +167,16 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class ExperimentConfig:
-    """One run of the command line: a diffusion model, its training, its
-    data and where its checkpoints go. The JAX package's stage-1 and
-    VQ-GAN subtrees (`vqvae`, `vqgan`) come with stage-1 training."""
+    """One run of the command line: a stage-1 VQ-VAE (`vqvae`, for
+    --train_vq / --test_vq), a diffusion model, their training, the data
+    and where checkpoints go. The JAX package's VQ-GAN subtree (`vqgan`)
+    comes with the VQ-GAN family (ROADMAP queue 1 item 7)."""
 
     name: str = "default"
     # the JAX package's model name; the diffusion CLI modes read only
     # whether it is "conditional_dm" (one sample file per context)
     model: str = "vqvae"
+    vqvae: VQVAEConfig = field(default_factory=VQVAEConfig)
     diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)

@@ -1,15 +1,22 @@
-"""Named experiment presets: the port's copy of the diffusion presets of
-`ldm3d.core.presets`, with the same names and values.
+"""Named experiment presets: the port's copy of the stage-1 and diffusion
+presets of `ldm3d.core.presets`, with the same names and values.
 
+  - vqvae_b8_all             3-level 32/64/128 VQ-VAE, K=512, D=256,
+                             2 channels (volume and mask)
+  - vqvae_5level_test        5-level, K=1024, D=512
+  - vqvae_dm_stage1          the 4-level stage-1 of the diffusion models
+                             (K=1024, D=256, 8^3 latents of 128^3)
+  - nsvqvae / rnsvqvae       noise-substitution quantizers (4 and 3
+                             levels; RNSVQ with 4 residual stages)
   - dm3d / conditional_dm3d  unconditional T=300 and conditional T=500
                              latent diffusion over a frozen 4-level VQ-VAE
                              (K=1024, D=256, 8^3 latents of 128^3 volumes)
   - smoke / smoke_cond       CPU-sized versions (T=8, 4^3 x 8 latents of
                              16^3 volumes, float32)
 
-The JAX package's stage-1 presets (VQ-VAE, NSVQ, RNSVQ, EMA-VQ-VAE,
-legacy) and VQ-GAN presets are known by name and refused: stage-1 training
-and the VQ-GAN family are not ported yet (ROADMAP queue 1 items 6 and 7).
+The JAX package's `emavqvae` (the skip-connection EMA model),
+`vqvae_legacy` and VQ-GAN presets are known by name and refused: they
+come with the VQ-GAN family (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -24,10 +31,9 @@ from ldm3d_torch.core.config import (DataConfig, DiffusionConfig,
 _REGISTRY: Dict[str, Callable[[], ExperimentConfig]] = {}
 
 # presets of the JAX package whose model the port cannot build yet
-STAGE1_PRESETS = ("vqvae_b8_all", "vqvae_5level_test", "vqvae_dm_stage1",
-                  "nsvqvae", "rnsvqvae", "emavqvae", "vqvae_legacy")
-VQGAN_PRESETS = ("vqgan_attn", "vqgan_attn_sym", "vqgan_baseline",
-                 "vqgan_gnorm", "vqgan_stride")
+UNPORTED_PRESETS = ("emavqvae", "vqvae_legacy", "vqgan_attn",
+                    "vqgan_attn_sym", "vqgan_baseline", "vqgan_gnorm",
+                    "vqgan_stride")
 
 
 def register(name: str):
@@ -38,12 +44,11 @@ def register(name: str):
 
 
 def get_preset(name: str) -> ExperimentConfig:
-    if name in STAGE1_PRESETS or name in VQGAN_PRESETS:
+    if name in UNPORTED_PRESETS:
         raise NotImplementedError(
-            f"preset '{name}' is a stage-1 VQ-VAE or VQ-GAN model, which "
-            f"ldm3d_torch does not port yet (ROADMAP queue 1 items 6 and "
-            f"7: stage-1 training, the VQ-GAN family); the port has "
-            f"{sorted(_REGISTRY)}")
+            f"preset '{name}' is not ported yet; see ROADMAP queue 1 item 7 "
+            f"(the VQ-GAN family, the skip-connection EMA VQ-VAE and the "
+            f"legacy VQ-VAE); the port has {sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown preset '{name}'; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
@@ -61,6 +66,64 @@ def _levels(channels, k=4, s=2):
                 upsample_stride=(s,) * n, upsample_kernel=(k,) * n)
 
 
+@register("vqvae_b8_all")
+def _vqvae_b8_all() -> ExperimentConfig:
+    vq = VQVAEConfig(
+        remat=True, in_channels=2, out_channels=2, num_res_layers=3,
+        **_levels((32, 64, 128)),
+        quantizer=QuantizerConfig(kind="ste", num_embeddings=512,
+                                  embedding_dim=256))
+    return ExperimentConfig(name="vqvae_b8_all", model="vqvae", vqvae=vq,
+                            train=TrainConfig(batch_size=8,
+                                              learning_rate=1e-4))
+
+
+@register("vqvae_5level_test")
+def _vqvae_5level() -> ExperimentConfig:
+    vq = VQVAEConfig(
+        remat=True, in_channels=2, out_channels=2, num_res_layers=3,
+        **_levels((32, 64, 128, 256, 512)),
+        quantizer=QuantizerConfig(kind="ste", num_embeddings=1024,
+                                  embedding_dim=512))
+    return ExperimentConfig(name="vqvae_5level_test", model="vqvae", vqvae=vq)
+
+
+@register("vqvae_dm_stage1")
+def _vqvae_dm_stage1() -> ExperimentConfig:
+    """The stage-1 of dm3d / conditional_dm3d: with --norm group it is the
+    flagship's."""
+    vq = VQVAEConfig(
+        remat=True, in_channels=1, out_channels=1, num_res_layers=5,
+        **_levels((32, 64, 128, 256)),
+        quantizer=QuantizerConfig(kind="ste", num_embeddings=1024,
+                                  embedding_dim=256))
+    return ExperimentConfig(name="vqvae_dm_stage1", model="vqvae", vqvae=vq)
+
+
+@register("nsvqvae")
+def _nsvqvae() -> ExperimentConfig:
+    vq = VQVAEConfig(
+        remat=True, in_channels=1, out_channels=1, num_res_layers=3,
+        **_levels((32, 64, 128, 256)), act="swish",
+        quantizer=QuantizerConfig(kind="nsvq", num_embeddings=512,
+                                  embedding_dim=256,
+                                  discarding_threshold=0.01,
+                                  quantize_loss_weight=1e2))
+    return ExperimentConfig(name="nsvqvae", model="nsvqvae", vqvae=vq)
+
+
+@register("rnsvqvae")
+def _rnsvqvae() -> ExperimentConfig:
+    vq = VQVAEConfig(
+        remat=True, in_channels=1, out_channels=1, num_res_layers=3,
+        **_levels((32, 64, 128)),
+        quantizer=QuantizerConfig(kind="rnsvq", num_embeddings=256,
+                                  embedding_dim=128, num_stages=4,
+                                  discarding_threshold=0.01,
+                                  quantize_loss_weight=1e2))
+    return ExperimentConfig(name="rnsvqvae", model="rnsvqvae", vqvae=vq)
+
+
 def _dm(conditional: bool, timesteps: int) -> ExperimentConfig:
     # stem 256 on a 256-channel latent for the conditional model: the
     # reference's 32-channel stem floors the eps-MSE (see the JAX preset)
@@ -72,7 +135,7 @@ def _dm(conditional: bool, timesteps: int) -> ExperimentConfig:
         first_conv_channels=256 if conditional else 64,
         context_dim=1 if conditional else None)
     vq = VQVAEConfig(
-        in_channels=1, out_channels=1, num_res_layers=5,
+        remat=True, in_channels=1, out_channels=1, num_res_layers=5,
         **_levels((32, 64, 128, 256)),
         quantizer=QuantizerConfig(kind="ste", num_embeddings=1024,
                                   embedding_dim=256))
@@ -98,9 +161,14 @@ def _conditional_dm3d() -> ExperimentConfig:
 
 @register("smoke")
 def _smoke() -> ExperimentConfig:
-    """CPU-runnable smoke config. Its model name is the JAX preset's
-    ("vqvae", the stage-1 smoke model); the diffusion modes use its
-    `diffusion` subtree."""
+    """CPU-runnable smoke config: a 2-channel stage-1 (`vqvae`, for
+    --train_vq) and a diffusion model over a 1-channel stage-1
+    (`diffusion`)."""
+    vq = VQVAEConfig(
+        in_channels=2, out_channels=2, num_res_layers=1,
+        **_levels((4, 8)),
+        quantizer=QuantizerConfig(kind="ste", num_embeddings=16,
+                                  embedding_dim=8))
     unet = UNetConfig(widths=(8, 16), has_attention=(False, True),
                       num_res_blocks=1, first_conv_channels=8,
                       context_dim=1)
@@ -112,7 +180,7 @@ def _smoke() -> ExperimentConfig:
     diff = DiffusionConfig(timesteps=8, latent_size=4, latent_channels=8,
                            unet=unet, vqvae=dm_vq)
     return ExperimentConfig(
-        name="smoke", model="vqvae", diffusion=diff,
+        name="smoke", model="vqvae", vqvae=vq, diffusion=diff,
         train=TrainConfig(batch_size=2, epochs=2, dtype="float32"),
         data=DataConfig(volume_size=16, test_run=True))
 

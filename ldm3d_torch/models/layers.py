@@ -1,6 +1,7 @@
 """Shared 3D building blocks of the port: convolutions with TF/flax 'SAME'
-padding, the TF-exact transposed convolution, per-channel PReLU, norm
-selection and activations (counterparts of `ldm3d.models.layers`).
+padding, the TF-exact transposed convolution (with the ICNR init of
+`kernel_resize`), per-channel PReLU, norm selection and activations
+(counterparts of `ldm3d.models.layers`).
 
 Inside the port volumes are NCDHW, the layout cuDNN's `conv3d` takes; the
 public functions of the port convert from and to the JAX package's NDHWC.
@@ -18,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ldm3d_torch.models.quantizers import VectorQuantizerSTE
+from ldm3d_torch.models.quantizers import Quantizer
 
 _Int3 = Union[int, Tuple[int, int, int]]
 
@@ -78,13 +79,18 @@ class ConvTranspose3d(nn.Module):
     the adjoint of a forward conv from OUT to IN channels it is PyTorch's
     `conv_transpose3d` weight (IN, OUT, kd, kh, kw) with no flip. The full
     transposed output is cropped to TF's SAME window: it starts at
-    pad_before = (k - s) // 2 and the odd unit is cut from the end."""
+    pad_before = (k - s) // 2 and the odd unit is cut from the end.
+
+    `kernel_resize` asks `init_params_` for the ICNR init (`icnr_init`)
+    instead of glorot-uniform, as the JAX layer's `kernel_resize` does."""
 
     def __init__(self, in_channels: int, features: int, kernel: _Int3 = 4,
-                 stride: _Int3 = 2, use_bias: bool = True):
+                 stride: _Int3 = 2, use_bias: bool = True,
+                 kernel_resize: bool = False):
         super().__init__()
         self.kernel = _triple(kernel)
         self.stride = _triple(stride)
+        self.kernel_resize = kernel_resize
         self.weight = nn.Parameter(
             torch.empty(in_channels, features, *self.kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
@@ -101,6 +107,33 @@ class ConvTranspose3d(nn.Module):
         n_out = [n * s for n, s in zip(x.shape[2:], self.stride)]
         sl = [slice(b - c, b - c + n) for b, c, n in zip(before, common, n_out)]
         return y[:, :, sl[0], sl[1], sl[2]]
+
+
+def icnr_init(small: torch.Tensor, kernel: Tuple[int, int, int]
+              ) -> torch.Tensor:
+    """ICNR, checkerboard-free init of a transposed conv: a kernel drawn at
+    1 / scale of the spatial size, `small` (IN, OUT, kd', kh', kw'),
+    resized trilinearly (half-pixel centres, edges clamped) to `kernel`,
+    as `jax.image.resize(..., "trilinear")` does when it enlarges."""
+    if tuple(small.shape[2:]) == tuple(kernel):
+        return small.clone()
+    return F.interpolate(small, size=tuple(kernel), mode="trilinear",
+                         align_corners=False)
+
+
+def _icnr_(m: "ConvTranspose3d", generator: torch.Generator) -> None:
+    """The JAX layer's ICNR init: flax glorot_normal (a normal truncated
+    at 2 std, variance 1 / fan_avg) of the kernel at 1 / stride of its
+    spatial size, then `icnr_init`."""
+    scale = m.stride[0]
+    small = [max(k // scale, 1) for k in m.kernel]
+    ci, co = m.weight.shape[:2]
+    rf = math.prod(small)
+    std = math.sqrt(2.0 / (ci * rf + co * rf)) / .87962566103423978
+    base = torch.empty(ci, co, *small, device=m.weight.device)
+    nn.init.trunc_normal_(base, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+    m.weight.copy_(icnr_init(base, m.kernel))
 
 
 class PReLU(nn.Module):
@@ -160,7 +193,9 @@ class _BatchNorm(nn.Module):
     normalises with the batch's mean and *biased* variance and updates
     ra = 0.99 * ra + 0.01 * batch, as flax does. The update is computed
     here: `F.batch_norm(training=True)` would store the unbiased variance
-    and reads its momentum as 1 - 0.99."""
+    and reads its momentum as 1 - 0.99. `update_stats = False` (set while
+    a checkpointed unit is recomputed in the backward pass) normalises the
+    same way without touching the statistics."""
 
     momentum = 0.99
     eps = 1e-3
@@ -171,6 +206,7 @@ class _BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -179,11 +215,12 @@ class _BatchNorm(nn.Module):
                                 eps=self.eps)
         dims = [0, *range(2, x.dim())]
         var, mean = torch.var_mean(x, dim=dims, correction=0)
-        with torch.no_grad():
-            self.running_mean.mul_(self.momentum).add_(
-                mean, alpha=1.0 - self.momentum)
-            self.running_var.mul_(self.momentum).add_(
-                var, alpha=1.0 - self.momentum)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(
+                    mean, alpha=1.0 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(
+                    var, alpha=1.0 - self.momentum)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.view(shape)) * mul.view(shape) \
@@ -254,11 +291,12 @@ def init_params_(module: nn.Module, generator: torch.Generator
     """Seeded random weights, in place, drawn on the module's device.
 
     Every conv, transposed-conv and dense weight is glorot-uniform (the
-    scale of the JAX package's own init), embeddings are N(0, 1), biases
-    zero, norms identity, BatchNorm statistics (0, 1), PReLU slopes 0.25,
-    codebooks U(-sqrt(6 / K), sqrt(6 / K)) (the JAX init) and usage
-    counters zero. Unlike the JAX init, no layer is zero-initialised: with
-    random weights every layer, attention included, reaches the output."""
+    scale of the JAX package's own init; ICNR for a transposed conv with
+    `kernel_resize`), embeddings are N(0, 1), biases zero, norms identity,
+    BatchNorm statistics (0, 1), PReLU slopes 0.25, and each quantizer
+    takes its JAX init (`Quantizer.reset_parameters`). Unlike the JAX
+    init, no layer is zero-initialised: with random weights every layer,
+    attention included, reaches the output."""
     for m in module.modules():
         if isinstance(m, (Conv3d, ConvTranspose3d)):
             w = m.weight
@@ -269,6 +307,8 @@ def init_params_(module: nn.Module, generator: torch.Generator
                 fan_in, fan_out = w.shape[0] * rf, w.shape[1] * rf
             a = math.sqrt(6.0 / (fan_in + fan_out))
             w.uniform_(-a, a, generator=generator)
+            if isinstance(m, ConvTranspose3d) and m.kernel_resize:
+                _icnr_(m, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Linear):
@@ -286,8 +326,6 @@ def init_params_(module: nn.Module, generator: torch.Generator
                 m.running_var.fill_(1.0)
         elif isinstance(m, PReLU):
             m.alpha.fill_(0.25)
-        elif isinstance(m, VectorQuantizerSTE):
-            a = math.sqrt(6.0 / m.num_embeddings)
-            m.codebook.uniform_(-a, a, generator=generator)
-            m.codebooks_used.zero_()
+        elif isinstance(m, Quantizer):
+            m.reset_parameters(generator)
     return module

@@ -1,24 +1,38 @@
-"""MONAI-style 3D VQ-VAE: the port of `ldm3d.models.vqvae` (encoder, STE
+"""MONAI-style 3D VQ-VAE: the port of `ldm3d.models.vqvae` (encoder,
 quantizer and decoder).
 
 Encoder: per level a k4 stride-2 conv (or the space-to-depth stem at level
 0), ReLU and N residual units, then a conv3 to the latent width + PReLU.
 Decoder: stem conv3 + PReLU, then per level N residual units and a
-TF-exact stride-2 transposed conv, ReLU between levels. NCDHW inside;
-`VQVAE.encode`, `encode_quantize` and `decode` take and return NDHWC like
-the JAX module. Dropout is not ported: a config with dropout > 0 raises.
+TF-exact stride-2 transposed conv, ReLU between levels. Dropout, in
+training mode only, sits where the JAX module has it: after each
+downsampling conv but the first and after the latent conv, after the
+decoder's stem and after each upsampling conv but the last. NCDHW inside;
+`VQVAE.forward`, `encode`, `encode_quantize` and `decode` take and return
+NDHWC like the JAX module.
+
+With `remat` each residual unit is recomputed in the backward pass
+(`torch.utils.checkpoint`); `remat_policy="conv"` keeps the convolutions'
+outputs and recomputes the rest. BatchNorm's running statistics are
+updated once per step either way, as flax's `nn.remat` does.
 """
 
 from __future__ import annotations
 
+import contextlib
+from functools import partial
+from typing import Optional
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ldm3d_torch.core.config import VQVAEConfig
 from ldm3d_torch.models.layers import (Conv3d, ConvTranspose3d, Norm, PReLU,
-                                       act_layer)
-from ldm3d_torch.models.quantizers import QuantAux, make_quantizer
+                                       _BatchNorm, act_layer)
+from ldm3d_torch.models.quantizers import Draws, QuantAux, make_quantizer
 
 
 class VQVAEResidualUnit(nn.Module):
@@ -63,16 +77,74 @@ class S2DStemConv(nn.Module):
         return self.conv(space_to_depth3d(F.pad(x, (1, 1) * 3), 2))
 
 
-def _no_dropout(cfg: VQVAEConfig) -> None:
-    if cfg.dropout:
-        raise ValueError(f"VQVAEConfig.dropout={cfg.dropout}: dropout is "
-                         "not ported yet")
+def _save_convolutions(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """remat_policy "conv": keep convolution outputs, recompute the rest."""
+    if op == torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+class _Recompute:
+    """The recompute context of a checkpointed unit: its BatchNorms leave
+    their running statistics alone (the forward pass updated them)."""
+
+    def __init__(self, unit: nn.Module, inner):
+        self.norms = [m for m in unit.modules() if isinstance(m, _BatchNorm)]
+        self.inner = inner
+
+    def __enter__(self):
+        for m in self.norms:
+            m.update_stats = False
+        return self.inner.__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return self.inner.__exit__(*exc)
+        finally:
+            for m in self.norms:
+                m.update_stats = True
+
+
+def _remat_contexts(unit: nn.Module, policy: str):
+    if policy == "conv":
+        fwd, rec = create_selective_checkpoint_contexts(_save_convolutions)
+    elif policy == "full":
+        fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+    else:
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    return fwd, _Recompute(unit, rec)
+
+
+def _run_unit(cfg: VQVAEConfig, unit: nn.Module, x: torch.Tensor
+              ) -> torch.Tensor:
+    """A residual unit, checkpointed when cfg.remat and gradients are on."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return unit(x)
+    return checkpoint(unit, x, use_reentrant=False,
+                      context_fn=partial(_remat_contexts, unit,
+                                         cfg.remat_policy))
+
+
+def _dropout(x: torch.Tensor, rate: float, training: bool,
+             draws: Optional[Draws]) -> torch.Tensor:
+    """flax Dropout of an NCDHW volume: keep with probability 1 - rate and
+    scale by 1 / (1 - rate). The keep mask is drawn in the JAX layout
+    (NDHWC), so that JAX's masks can be injected as they are."""
+    if not rate or not training:
+        return x
+    if draws is None:
+        raise ValueError("dropout in training mode needs its draws (a "
+                         "Draws with a generator)")
+    keep = 1.0 - rate
+    b, c, d, h, w = x.shape
+    mask = draws.bernoulli(keep, (b, d, h, w, c), x.device)
+    return torch.where(mask.permute(0, 4, 1, 2, 3), x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Encoder(nn.Module):
     def __init__(self, cfg: VQVAEConfig):
         super().__init__()
-        _no_dropout(cfg)
         self.cfg = cfg
         ch_in = cfg.in_channels
         for i, ch in enumerate(cfg.num_channels):
@@ -90,20 +162,25 @@ class Encoder(nn.Module):
         self.to_latent = Conv3d(ch_in, cfg.quantizer.embedding_dim, 3)
         self.latent_prelu = PReLU(cfg.quantizer.embedding_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, in, H, W, D] -> [B, emb, h, w, d] (NCDHW)."""
+    def forward(self, x: torch.Tensor, draws: Optional[Draws] = None
+                ) -> torch.Tensor:
+        """x [B, in, H, W, D] -> [B, emb, h, w, d] (NCDHW). `draws` gives
+        the dropout masks in training mode."""
         cfg = self.cfg
         for i in range(cfg.num_levels):
-            x = F.relu(getattr(self, f"down_{i}")(x))
+            x = getattr(self, f"down_{i}")(x)
+            if i > 0:
+                x = _dropout(x, cfg.dropout, self.training, draws)
+            x = F.relu(x)
             for j in range(cfg.num_res_layers):
-                x = getattr(self, f"res_{i}_{j}")(x)
-        return self.latent_prelu(self.to_latent(x))
+                x = _run_unit(cfg, getattr(self, f"res_{i}_{j}"), x)
+        x = _dropout(self.to_latent(x), cfg.dropout, self.training, draws)
+        return self.latent_prelu(x)
 
 
 class Decoder(nn.Module):
     def __init__(self, cfg: VQVAEConfig):
         super().__init__()
-        _no_dropout(cfg)
         self.cfg = cfg
         rev = list(reversed(cfg.num_channels))
         rev_res = list(reversed(cfg.num_res_channels))
@@ -117,21 +194,25 @@ class Decoder(nn.Module):
             out_ch = cfg.out_channels if i == n - 1 else rev[i + 1]
             self.add_module(f"up_{i}", ConvTranspose3d(
                 rev[i], out_ch, cfg.upsample_kernel[n - 1 - i],
-                stride=cfg.upsample_stride[n - 1 - i]))
+                stride=cfg.upsample_stride[n - 1 - i],
+                kernel_resize=cfg.kernel_resize))
         if cfg.output_act:
             self.output_act = act_layer(cfg.output_act, cfg.out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, C, h, w, d] -> [B, out, H, W, D] (NCDHW)."""
+    def forward(self, x: torch.Tensor, draws: Optional[Draws] = None
+                ) -> torch.Tensor:
+        """x [B, C, h, w, d] -> [B, out, H, W, D] (NCDHW). `draws` gives
+        the dropout masks in training mode."""
         cfg = self.cfg
         n = cfg.num_levels
-        x = self.stem_prelu(self.stem(x))
+        x = _dropout(self.stem(x), cfg.dropout, self.training, draws)
+        x = self.stem_prelu(x)
         for i in range(n):
             for j in range(cfg.num_res_layers):
-                x = getattr(self, f"res_{i}_{j}")(x)
+                x = _run_unit(cfg, getattr(self, f"res_{i}_{j}"), x)
             x = getattr(self, f"up_{i}")(x)
             if i != n - 1:
-                x = F.relu(x)
+                x = F.relu(_dropout(x, cfg.dropout, self.training, draws))
         if cfg.output_act:
             x = self.output_act(x)
         return x
@@ -146,9 +227,10 @@ def _ndhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class VQVAE(nn.Module):
-    """Encoder -> quantizer -> decoder (the frozen stage-1 of latent
-    diffusion). The quantizer's train/eval mode decides whether its usage
-    counter is updated."""
+    """Encoder -> quantizer -> decoder: stage-1, trained by `VQTrainer`,
+    frozen under latent diffusion. Training mode is where dropout, the
+    quantizer's noise and its state updates (usage, EMA) happen; their
+    randomness comes from `draws`."""
 
     def __init__(self, cfg: VQVAEConfig):
         super().__init__()
@@ -156,6 +238,14 @@ class VQVAE(nn.Module):
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
         self.quantizer = make_quantizer(cfg.quantizer)
+
+    def forward(self, x: torch.Tensor, draws: Optional[Draws] = None
+                ) -> tuple[torch.Tensor, QuantAux]:
+        """Volumes [B, H, W, D, in] (NDHWC) -> (reconstruction [B, H, W, D,
+        out], QuantAux)."""
+        z = _ndhwc(self.encoder(_ncdhw(x), draws))
+        quantized, aux = self.quantizer(z, draws)
+        return _ndhwc(self.decoder(_ncdhw(quantized), draws)), aux
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Volumes [B, H, W, D, in] (NDHWC) -> latents [B, h, w, d, emb]."""

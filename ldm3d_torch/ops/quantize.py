@@ -6,8 +6,12 @@ tensors on the GPU it launches the hand-written CUDA kernel
 (`csrc/codebook_nearest.cu`, the counterpart of the TPU kernel
 `_nearest_kernel`); for tensors on the CPU it computes the plain PyTorch
 version. A CUDA tensor never falls back to the plain version: the kernel
-runs or the call raises. `ema_statistics` is not ported yet (the EMA
-quantizers are not).
+runs or the call raises.
+
+The sums over rows that share a code (`ema_statistics`, and the gradient
+of `codebook_gather`) are one-hot products in float64, so that they are
+the same bits on every run: `index_add_` on the card adds with atomics in
+no fixed order, and a float32 product could run on TF32.
 """
 
 from __future__ import annotations
@@ -172,9 +176,51 @@ def perplexity_from_counts(counts: torch.Tensor, eps: float = 1e-10
     return torch.exp(-(avg * torch.log(avg + eps)).sum())
 
 
+def segment_sum(values: torch.Tensor, indices: torch.Tensor,
+                num_embeddings: int) -> torch.Tensor:
+    """[K, D] float32 sums of the rows of `values` [N, D] by code
+    `indices` [N]: a float64 one-hot product, deterministic."""
+    one_hot = torch.zeros(values.shape[0], num_embeddings,
+                          dtype=torch.float64, device=values.device)
+    one_hot.scatter_(1, indices.reshape(-1, 1).long(), 1.0)
+    return (one_hot.T @ values.double()).float()
+
+
+def ema_statistics(x_flat: torch.Tensor, indices: torch.Tensor,
+                   num_embeddings: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cluster counts [K], cluster sums [K, D]), float32, for the EMA
+    codebook updates."""
+    return (codebook_usage_counts(indices, num_embeddings),
+            segment_sum(x_flat.detach(), indices, num_embeddings))
+
+
+class _Gather(torch.autograd.Function):
+    """codebook[indices], with the codebook's gradient summed by
+    `segment_sum` instead of an atomic scatter."""
+
+    @staticmethod
+    def forward(ctx, codebook, indices):
+        ctx.save_for_backward(indices)
+        ctx.num_embeddings = codebook.shape[0]
+        return codebook[indices.long()]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (indices,) = ctx.saved_tensors
+        return segment_sum(grad, indices, ctx.num_embeddings), None
+
+
+def codebook_gather(codebook: torch.Tensor, indices: torch.Tensor
+                    ) -> torch.Tensor:
+    """Rows `indices` [N] of `codebook` [K, D] -> [N, D]; the gradient
+    reaches the codebook, deterministically."""
+    return _Gather.apply(codebook, indices.reshape(-1))
+
+
 def quantize_lookup(x_flat: torch.Tensor, codebook: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(quantized [N, D], indices [N]). Gradients flow to `codebook`
     through the gather."""
     indices = nearest_codebook_indices(x_flat, codebook)
-    return codebook[indices.long()], indices
+    return codebook_gather(codebook, indices), indices

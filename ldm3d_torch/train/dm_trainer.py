@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -112,6 +112,16 @@ class DiffusionTrainer:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         init_params_(self.model, gen)
         return self
+
+    def snapshot_modules(self) -> Tuple[nn.Module, Optional[nn.Module]]:
+        """(the model, the EMA U-Net or None): what a `.npz` snapshot
+        holds (`utils.export`). The EMA collection is there when the
+        trainer has an EMA U-Net or will make one (ema_decay > 0), as in
+        the JAX trainer's state."""
+        ema = self.ema_unet
+        if ema is None and self.train_cfg.ema_decay > 0:
+            ema = self.model.unet
+        return self.model, ema
 
     def load_state_dicts(self, model_state: Dict[str, torch.Tensor],
                          ema_unet_state: Optional[Dict] = None) -> None:

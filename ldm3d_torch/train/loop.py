@@ -6,7 +6,10 @@ step function and checkpoints `trainer.state_dict()`; the JAX loop
 threads a state pytree through instead. Steps run one by one (the JAX
 package's fused one-program epoch is ROADMAP queue 1 item 3(c)); each
 step's metrics stay on the device until the epoch ends, when they are
-fetched in one transfer.
+fetched in one transfer. Between epochs, in the JAX loop's order: the
+validation pass, unused-code replacement, the plateau schedule, the
+epoch callback, logging and the checkpoint. (The JAX loop's GAN epoch
+counter comes with the VQ-GAN family, ROADMAP queue 1 item 7.)
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ldm3d_torch.train.callbacks import CSVLogger, MetricsLogger
+from ldm3d_torch.train.callbacks import (CSVLogger, MetricsLogger,
+                                         ReduceLROnPlateau, get_learning_rate)
 from ldm3d_torch.train.checkpoint import CheckpointManager
 
 # best-metric checkpoint pinning: the first metric of this list that the
@@ -38,9 +42,12 @@ def _mean_metrics(history: List[Dict[str, torch.Tensor]]
 
 
 def fit(trainer, train_loader, epochs: int,
+        val_loader=None,
         ckpt: Optional[CheckpointManager] = None,
         csv_logger: Optional[CSVLogger] = None,
         metrics_logger: Optional[MetricsLogger] = None,
+        lr_schedule: Optional[ReduceLROnPlateau] = None,
+        replace_codebook_freq: int = 0,
         initial_epoch: int = 0,
         ckpt_freq: int = 1,
         step_fn: Optional[Callable] = None,
@@ -48,17 +55,23 @@ def fit(trainer, train_loader, epochs: int,
         epoch_callback: Optional[Callable] = None,
         verbose: bool = True) -> Dict[str, float]:
     """Train `trainer` from `initial_epoch` to `epochs`; returns the last
-    epoch's metrics. (The JAX loop's validation pass, plateau schedule,
-    codebook replacement and GAN epoch counter serve stage-1 training,
-    which the port does not have yet.)
+    epoch's metrics.
 
     - `step_fn(batch) -> metrics` defaults to
       `trainer.train_step(vol, context)` of a (vol, mask, context) batch.
+    - With `val_loader`, each epoch ends with `trainer.eval_step(vol,
+      mask)` over it, logged as `val_<name>`.
+    - `replace_codebook_freq` N > 0 (a `VQTrainer`): every N epochs
+      `trainer.replace_unused(num_batches)`, logged as
+      `codebooks_replaced`.
+    - `lr_schedule(epoch, metrics, trainer.optimizer)` may lower the
+      learning rate.
     - `epoch_callback(epoch, trainer) -> dict` runs after the epoch; its
       entries join the logged metrics (the latent-FID of --train_dm).
     - A checkpoint is saved every `ckpt_freq` epochs, at the last epoch,
       and at every new best of the first `_PIN_RULES` metric the epoch
-      reports (pinned: retention never drops it).
+      reports (pinned: retention never drops it); its metric for
+      save_best_only is val_loss, else loss.
     """
     last_metrics: Dict[str, float] = {}
     best_pin: Dict[str, float] = {}
@@ -75,6 +88,22 @@ def fit(trainer, train_loader, epochs: int,
             raise ValueError("empty training loader")
         num_batches = len(history)
         last_metrics = _mean_metrics(history)
+
+        if val_loader is not None:
+            vh = [trainer.eval_step(batch[0], batch[1])
+                  for batch in val_loader]
+            if vh:
+                last_metrics.update({f"val_{k}": v for k, v in
+                                     _mean_metrics(vh).items()})
+        if (replace_codebook_freq
+                and (epoch + 1) % replace_codebook_freq == 0):
+            last_metrics["codebooks_replaced"] = float(
+                trainer.replace_unused(num_batches))
+        if lr_schedule is not None:
+            _, reduced = lr_schedule(epoch, last_metrics, trainer.optimizer)
+            if reduced and verbose:
+                print(f"epoch {epoch + 1}: lr -> "
+                      f"{get_learning_rate(trainer.optimizer):.2e}")
 
         if epoch_callback is not None:
             extra = epoch_callback(epoch, trainer)
@@ -102,7 +131,9 @@ def fit(trainer, train_loader, epochs: int,
                                  or (epoch + 1) % max(ckpt_freq, 1) == 0
                                  or epoch + 1 == epochs):
             ckpt.save(epoch + 1, trainer.state_dict(),
-                      metric=last_metrics.get("loss"), pin=pin)
+                      metric=last_metrics.get("val_loss",
+                                              last_metrics.get("loss")),
+                      pin=pin)
             if pin is not None:
                 last_metrics["pinned_best"] = 1.0
                 if metrics_logger is not None:

@@ -1,0 +1,268 @@
+"""Stage-1 VQ-VAE training: the port of `ldm3d.train.vq_trainer`.
+
+The trainer owns its state, as the port's `DiffusionTrainer` does: the
+model on one device (weights, BatchNorm statistics, the quantizer's usage
+and EMA buffers), Adam over every parameter (its learning rate is the one
+a plateau schedule changes), the step count and the generator that every
+random draw of a step comes from (dropout masks, quantizer noise, the EMA
+quantizer's random rows, the replacement's donors). `state_dict` carries
+all of it, so that a restored trainer goes on exactly as the saving one.
+
+The loss is the reconstruction MSE of the image channel plus
+`quantize_loss_weight` times the quantizer's loss; a 2-channel config
+trains on concat(volume, mask). Eval adds per-slice SSIM and PSNR.
+The port has no compute-dtype field: it runs float32 (TF32 convolutions
+on the card), as `TrainConfig(dtype="float32")` does in JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ldm3d_torch.core.config import TrainConfig, VQVAEConfig
+from ldm3d_torch.core.device import resolve_device
+from ldm3d_torch.models.layers import _BatchNorm, init_params_
+from ldm3d_torch.models.quantizers import (Draws, QuantAux,
+                                           replace_unused_codebooks,
+                                           replace_unused_codebooks_staged)
+from ldm3d_torch.models.vqvae import VQVAE
+from ldm3d_torch.ops.metrics import volume_psnr, volume_ssim
+from ldm3d_torch.ops.quantize import perplexity_from_counts
+
+def check_family(cfg: VQVAEConfig) -> None:
+    """NotImplementedError unless `cfg` is of the one ported family."""
+    if cfg.family != "monai":
+        raise NotImplementedError(
+            f"VQVAEConfig.family={cfg.family!r} is not ported yet; see "
+            "ROADMAP queue 1 item 7 ('legacy': the functional VQ-VAE of "
+            "--vqvae_mode; 'ema_skip': the skip-connection EMA VQ-VAE); "
+            "the port has 'monai'")
+
+
+class VQTrainer:
+    """Trains a `VQVAE` on one device. The model is in training mode only
+    inside `train_step` and `recalibrate_batch_stats`."""
+
+    def __init__(self, cfg: VQVAEConfig,
+                 train_cfg: Optional[TrainConfig] = None, device=None):
+        check_family(cfg)
+        self.cfg = cfg
+        self.train_cfg = train_cfg or TrainConfig()
+        self.device = resolve_device(device)
+        self.model = VQVAE(cfg).to(self.device).eval()
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            self.train_cfg.seed)
+        tc = self.train_cfg
+        # optax adam's math, eps 1e-8; the learning rate held in float32
+        # as optax's injected hyper-parameter is
+        self.optimizer = torch.optim.Adam(
+            self.model.parameters(), lr=float(np.float32(tc.learning_rate)),
+            betas=(tc.adam_b1, tc.adam_b2), eps=1e-8)
+        self.step = 0
+
+    def init_random(self, seed: int) -> "VQTrainer":
+        """Seeded random weights (see `layers.init_params_`)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        init_params_(self.model, gen)
+        return self
+
+    # -- state ------------------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """The whole training state: the model (weights, BatchNorm
+        statistics, quantizer buffers), Adam's state (moments, step
+        counts, learning rate), the step, the generator's state and the
+        model's config. Tensors are the live ones: serialise or copy
+        before the next step."""
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step,
+            "generator": self.generator.get_state(),
+            "vqvae_cfg": dataclasses.asdict(self.cfg),
+        }
+
+    def snapshot_modules(self) -> Tuple[nn.Module, None]:
+        """(the model, None): what a `.npz` snapshot holds
+        (`utils.export`); a stage-1 has no EMA copy."""
+        return self.model, None
+
+    def load_state_dicts(self, model_state: Dict[str, torch.Tensor],
+                         ema_state: None = None) -> None:
+        """Load `convert.convert_state`'s output (strict); a stage-1
+        snapshot has no EMA collection."""
+        if ema_state is not None:
+            raise ValueError("a VQ-VAE snapshot has no ema_params")
+        self.model.load_state_dict(model_state, strict=True)
+
+    def load_state_dict(self, state: dict, optimizer: bool = True) -> None:
+        """Restore `state_dict()`'s output onto this trainer's device; with
+        `optimizer=False` (reconstruction only) Adam's state is left."""
+        self.model.load_state_dict(state["model"], strict=True)
+        if optimizer:
+            self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        self.generator.set_state(state["generator"].cpu())
+
+    # -- steps ------------------------------------------------------------
+
+    def _model_input(self, vol: torch.Tensor, mask: torch.Tensor
+                     ) -> torch.Tensor:
+        """concat(volume, mask) for a 2-channel config; the 1-channel ones
+        train on the bare volume."""
+        if self.cfg.in_channels > vol.shape[-1]:
+            return torch.cat([vol, mask], dim=-1)
+        return vol
+
+    def _losses(self, vol: torch.Tensor, recon: torch.Tensor,
+                aux: QuantAux) -> Tuple[torch.Tensor, Dict]:
+        img = recon[..., :vol.shape[-1]].float()
+        recon_loss = torch.mean(torch.square(img - vol))
+        q_weight = self.cfg.quantizer.quantize_loss_weight
+        loss = recon_loss + q_weight * aux.loss.float()
+        metrics = {"loss": loss, "reconst_loss": recon_loss,
+                   "quantize_loss": aux.loss, "perplexity": aux.perplexity}
+        if aux.usage_counts.dim() == 2:
+            # RNSVQ: one perplexity per stage, so that a dead later stage
+            # shows in training.log
+            for i, c in enumerate(aux.usage_counts):
+                metrics[f"perplexity_stage{i}"] = perplexity_from_counts(c)
+        return loss, metrics
+
+    def _batch(self, vol, mask):
+        return (vol.to(self.device, torch.float32),
+                mask.to(self.device, torch.float32))
+
+    def train_step(self, vol: torch.Tensor, mask: torch.Tensor,
+                   draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
+        """One Adam step on volumes and masks [B, H, W, D, 1] (NDHWC).
+        Random draws come from `self.generator` unless `draws` injects
+        them. Returns {"loss", "reconst_loss", "quantize_loss",
+        "perplexity"[, "perplexity_stage{i}"]} as 0-dim tensors on the
+        device."""
+        vol, mask = self._batch(vol, mask)
+        self.model.train()       # through the backward pass: remat
+        try:                     # recomputes units in training mode
+            recon, aux = self.model(self._model_input(vol, mask),
+                                    draws or Draws(self.generator))
+            loss, metrics = self._losses(vol, recon, aux)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        finally:
+            self.model.eval()
+        for p in self.model.parameters():
+            if p.grad is None:    # optax updates every parameter
+                p.grad = torch.zeros_like(p)
+        self.optimizer.step()
+        self.step += 1
+        return {k: v.detach() for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def eval_step(self, vol: torch.Tensor, mask: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+        """The train metrics in eval mode (no state changes), plus the
+        per-slice "ssim" and "psnr" of the image channel."""
+        vol, mask = self._batch(vol, mask)
+        recon, aux = self.model(self._model_input(vol, mask))
+        _, metrics = self._losses(vol, recon, aux)
+        img = recon[..., :vol.shape[-1]].float()
+        metrics["ssim"] = volume_ssim(img, vol)
+        metrics["psnr"] = volume_psnr(img, vol)
+        return metrics
+
+    @torch.no_grad()
+    def reconstruct(self, vol: torch.Tensor, mask: torch.Tensor
+                    ) -> Tuple[torch.Tensor, QuantAux]:
+        """(reconstruction [B, H, W, D, out], QuantAux) in eval mode."""
+        vol, mask = self._batch(vol, mask)
+        return self.model(self._model_input(vol, mask))
+
+    @torch.no_grad()
+    def recalibrate_batch_stats(self, loader, passes: int = 3) -> None:
+        """Re-estimate the BatchNorm running statistics with training-mode
+        forward passes over `loader` ((vol, mask, ...) batches); weights,
+        optimizer and the quantizer's state are left as they were (each
+        batch's quantizer updates are undone). Dropout and quantizer draws
+        come from a generator of their own, so that the training draws
+        do not move."""
+        if not any(isinstance(m, _BatchNorm) for m in self.model.modules()):
+            return
+        quantizer = self.model.quantizer
+        saved = {k: b.clone() for k, b in quantizer.named_buffers()}
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.train_cfg.seed + 0x5eca11b + self.step)
+        self.model.train()
+        try:
+            for _ in range(passes):
+                for batch in loader:
+                    vol, mask = self._batch(batch[0], batch[1])
+                    self.model(self._model_input(vol, mask), Draws(gen))
+                    for k, b in quantizer.named_buffers():
+                        b.copy_(saved[k])
+        finally:
+            self.model.eval()
+
+    # -- codebook maintenance ---------------------------------------------
+
+    @torch.no_grad()
+    def replace_unused(self, num_batches: int,
+                       draws: Optional[Draws] = None) -> int:
+        """Epoch-end replacement of unused codes; returns how many were
+        replaced. ste / nsvq re-seed dead rows of the codebook, rnsvq each
+        stage from its own used rows; the EMA kinds restart dead codes
+        inside the training step, so this is a no-op for them. Adam's
+        moments of the codebook are left as they are, as in JAX."""
+        kind = self.cfg.quantizer.kind
+        thresh = self.cfg.quantizer.discarding_threshold
+        q = self.model.quantizer
+        draws = draws or Draws(self.generator)
+        if kind in ("ste", "nsvq"):
+            new_cb, new_usage, n = replace_unused_codebooks(
+                q.codebook.detach(), q.codebooks_used, num_batches, draws,
+                thresh)
+            q.codebook.copy_(new_cb)
+        elif kind == "rnsvq":
+            new_cb, new_usage, n = replace_unused_codebooks_staged(
+                q.codebooks.detach(), q.codebooks_used, num_batches, draws,
+                thresh)
+            q.codebooks.copy_(new_cb)
+        else:
+            return 0
+        q.codebooks_used.copy_(new_usage)
+        return int(n)
+
+
+def load_stage1_checkpoint(directory: str, vqvae: VQVAE,
+                           epoch: Optional[int] = None) -> int:
+    """Load the VQ-VAE of a `--train_vq` checkpoint directory (its latest
+    epoch unless `epoch`) into `vqvae`, e.g. a diffusion trainer's frozen
+    stage-1. A checkpoint of another architecture (names or shapes that
+    differ) is refused before anything is loaded. Returns the epoch."""
+    from ldm3d_torch.train.checkpoint import CheckpointManager
+    if not os.path.isdir(directory):
+        raise FileNotFoundError(f"no stage-1 checkpoint directory "
+                                f"{directory}")
+    state, epoch = CheckpointManager(directory).restore(epoch)
+    saved, want = state["model"], vqvae.state_dict()
+    differ = sorted(set(want) ^ set(saved)) + [
+        f"{k}: {tuple(saved[k].shape)} saved, {tuple(t.shape)} here"
+        for k, t in want.items()
+        if k in saved and (saved[k].shape != t.shape
+                           or saved[k].dtype != t.dtype)]
+    if differ:
+        raise ValueError(
+            f"the stage-1 checkpoint {directory} (epoch {epoch}) is of "
+            f"another VQ-VAE than this one: {len(differ)} entries differ "
+            f"({'; '.join(differ[:3])}). It was trained as "
+            f"{state.get('vqvae_cfg')}; this model's stage-1 is "
+            f"{dataclasses.asdict(vqvae.cfg)}. Train the stage-1 with the "
+            "diffusion preset's own VQ-VAE (vqvae_dm_stage1 for dm3d and "
+            "conditional_dm3d, with the same --norm).")
+    vqvae.load_state_dict(saved, strict=True)
+    return epoch

@@ -1,13 +1,15 @@
 """Compact weight snapshots (.npz) in the JAX package's layout: the port
 of `ldm3d.utils.export`.
 
-A snapshot holds the sampling state of a `DiffusionTrainer`: the weights,
-the EMA U-Net, and the quantizer's and BatchNorm's statistics, float16,
-plus a JSON `__meta__` blob; no optimizer state. Keys are exactly the JAX
-package's: '/'-joined flax paths under their collection,
-`params/unet/down_res_0_0/conv1/kernel`, `ema_params/down_res_0_0/...`,
-`batch_stats/unet/...`, `vq_stats/vqvae/quantizer/codebooks_used`, in the
-flax layout (`convert.flax_state`). So a snapshot written here loads in the
+A snapshot holds the sampling state of a `DiffusionTrainer` (the weights,
+the EMA U-Net, and the quantizer's and BatchNorm's statistics) or of a
+`VQTrainer` (the stage-1 weights, `vq_stats` and `batch_stats`), float16
+(bool stays bool), plus a JSON `__meta__` blob; no optimizer state. Keys
+are exactly the JAX package's: '/'-joined flax paths under their
+collection, `params/unet/down_res_0_0/conv1/kernel`,
+`ema_params/down_res_0_0/...`, `batch_stats/unet/...`,
+`vq_stats/vqvae/quantizer/codebooks_used` (a stage-1:
+`params/encoder/...`, `vq_stats/quantizer/...`), in the flax layout (`convert.flax_state`). So a snapshot written here loads in the
 JAX package's `load_state_npz`, and one written there loads here. Loading
 is strict, as there: a missing, extra or reshaped array raises.
 
@@ -38,13 +40,10 @@ def _arrays(module: nn.Module, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def state_arrays(trainer) -> Dict[str, np.ndarray]:
-    """A trainer's sampling state in the snapshot layout, float32. The EMA
-    collection is there when the trainer has an EMA U-Net or will make one
-    (ema_decay > 0), as in the JAX trainer's state."""
-    out = _arrays(trainer.model)
-    ema = trainer.ema_unet
-    if ema is None and trainer.train_cfg.ema_decay > 0:
-        ema = trainer.model.unet
+    """A trainer's sampling state (`trainer.snapshot_modules()`: the model
+    and an EMA U-Net or None) in the snapshot layout, float32."""
+    model, ema = trainer.snapshot_modules()
+    out = _arrays(model)
     if ema is not None:
         out.update({"ema_params/" + k.split("/", 1)[1]: a
                     for k, a in _arrays(ema).items()
@@ -99,7 +98,8 @@ def _match(path: str, template: Dict[str, np.ndarray]
             if arr.shape != template[key].shape:
                 raise ValueError(f"{key}: snapshot shape {arr.shape} != "
                                  f"template {template[key].shape}")
-            out[key] = arr.astype(np.float32)
+            out[key] = arr if arr.dtype == np.bool_ \
+                else arr.astype(np.float32)
     stray = [k for k in arrays if k.split("/", 1)[0] in _COLLECTIONS]
     if stray:
         raise ValueError(f"snapshot has {len(stray)} arrays the trainer "
@@ -112,8 +112,8 @@ def load_state_npz(path: str, trainer):
     U-Net when the snapshot has one); its optimizer, step and generator
     are left as they are (a snapshot is for sampling). Returns the
     trainer."""
-    model, ema = convert_state(_match(path, state_arrays(trainer)))
-    trainer.load_state_dicts(model, ema)
+    trainer.load_state_dicts(*convert_state(_match(path,
+                                                 state_arrays(trainer))))
     return trainer
 
 

@@ -116,6 +116,13 @@ OVERRIDES = [
     ["--preset", "conditional_dm3d", "--kernel_resize", "--num_embeddings",
      "64", "--embedding_dim", "4", "--vqvae_mode", "2", "--disc_threshold",
      "3", "--r1_gamma", "1.0"],
+    # the stage-1 presets
+    ["--preset", "vqvae_dm_stage1", "--norm", "group", "--lbs", "8"],
+    ["--preset", "vqvae_b8_all", "--kernel_resize", "--num_embeddings",
+     "256"],
+    ["--preset", "vqvae_5level_test", "--embedding_dim", "64"],
+    ["--preset", "nsvqvae", "--lr", "2e-4"],
+    ["--preset", "rnsvqvae", "--epochs", "3"],
 ]
 
 
@@ -129,14 +136,31 @@ def test_apply_overrides_matches_jax(argv, monkeypatch):
                                jcli.build_parser().parse_args(argv))
     _same_fields(port, ref)
     if argv == OVERRIDES[0]:
-        _same_fields(port.diffusion, flagship_cfg())
-        assert port.diffusion == flagship_cfg()
+        # the flagship, but for the preset's stage-1 remat, which only
+        # matters where gradients flow (stage-1 training)
+        flag = flagship_cfg()
+        flag = dataclasses.replace(flag, vqvae=dataclasses.replace(
+            flag.vqvae, remat=True))
+        _same_fields(port.diffusion, flag)
+        assert port.diffusion == flag
+    if argv == OVERRIDES[5]:
+        # vqvae_dm_stage1 --norm group trains the flagship's stage-1
+        dm = cli.apply_overrides(get_preset("conditional_dm3d"),
+                                 cli.build_parser().parse_args(OVERRIDES[0]))
+        assert port.vqvae == dm.diffusion.vqvae
+        assert dataclasses.replace(port.vqvae, remat=False) \
+            == flagship_cfg().vqvae
 
 
 def test_stage1_presets_refused():
-    for name in ("vqvae_b8_all", "vqgan_attn", "nsvqvae"):
-        with pytest.raises(NotImplementedError, match="items 6 and 7"):
+    # the presets that still refuse: the VQ-GAN family, the skip EMA
+    # VQ-VAE and the legacy VQ-VAE (ROADMAP queue 1 item 7)
+    for name in ("emavqvae", "vqvae_legacy", "vqgan_attn", "vqgan_stride"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             get_preset(name)
+    for name in ("vqvae_b8_all", "vqvae_5level_test", "vqvae_dm_stage1",
+                 "nsvqvae", "rnsvqvae"):
+        assert get_preset(name).name == name
     with pytest.raises(KeyError):
         get_preset("no_such_preset")
 
@@ -430,7 +454,8 @@ def test_trained_state_samples_as_jax(against_jax):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--train_vq"], "items 6 and 7"), (["--test_vq"], "items 6 and 7"),
+    (["--train_vq", "--preset", "vqgan_attn"], "item 7"),
+    (["--test_vq", "--preset", "vqgan_gnorm"], "item 7"),
     (["--fidelity_sweep"], "item 5"), (["--sweep", "s.yaml"], "item 5"),
     (["--train_dm", "--synthetic", "--device_data"], "item 5"),
     (["--profile"], "item 5"), (["--coordinator", "h:1"], "item 9"),

@@ -19,7 +19,7 @@ from ldm3d.models.vqvae import (Encoder as JEncoder, S2DStemConv as JS2D,
                                 space_to_depth3d as j_s2d)
 from ldm3d.train.dm_trainer import LatentDiffusion as JLatentDiffusion
 from ldm3d_torch.convert import convert_state, module_state
-from ldm3d_torch.core.config import VQVAEConfig, flagship_cfg
+from ldm3d_torch.core.config import flagship_cfg
 from ldm3d_torch.models.layers import Conv3d
 from ldm3d_torch.models.quantizers import VectorQuantizerSTE
 from ldm3d_torch.models.vqvae import (VQVAE, Encoder, S2DStemConv,
@@ -259,7 +259,3 @@ def test_flagship_encoder_and_quantizer_shapes():
     assert vq.quantizer.codebook.shape == (1024, 256)
     assert vq.quantizer.codebooks_used.shape == (1024,)
 
-
-def test_dropout_is_not_ported():
-    with pytest.raises(ValueError, match="not ported yet"):
-        Encoder(VQVAEConfig(dropout=0.1))

@@ -8,7 +8,7 @@ builds a NIfTI response, runs the tiny training slice (encode, latent
 scale, steps on volumes and on latents) and a latent-FID evaluation on the
 CPU, then the command line at `smoke_cond` (--create_dataset, --train_dm
 --cache_latents, --resume_ckpt -1, --test_dm) and serves from its
-checkpoint. The sources of the port (every module under `ldm3d_torch/`,
+checkpoint, and stage-1 at `smoke` (--train_vq, --test_vq). The sources of the port (every module under `ldm3d_torch/`,
 so the CLI, data, checkpoint and export modules too) and of
 `chip_smoke.py` are also searched for such imports.
 """
@@ -88,6 +88,11 @@ with tempfile.TemporaryDirectory() as d:
         get_preset("smoke_cond"), d + "/ckpt/smoke_cond_dm", ema=True,
         device="cpu").generate(num=1, sampler="ddim", sample_steps=2)
     assert served.shape == (1, 16, 16, 16, 1) and np.isfinite(served).all()
+    s1 = ["--preset", "smoke"] + base[2:]
+    cli_main(s1 + ["--train_vq", "--epochs", "1"])
+    cli_main(s1 + ["--test_vq"])
+    import os
+    assert os.path.exists(d + "/out/reconst_0.npy")
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
 assert not loaded, loaded

@@ -194,10 +194,20 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert tq.launches == 0
 
 
-@pytest.mark.parametrize("kind", ["ema", "ema_sonnet", "nsvq", "rnsvq"])
-def test_other_quantizers_are_not_ported_yet(kind):
-    with pytest.raises(ValueError, match="not ported yet"):
-        make_quantizer(QuantizerConfig(kind=kind))
+@pytest.mark.parametrize("kind,cls", [
+    ("ste", "VectorQuantizerSTE"), ("ema", "VectorQuantizerEMA"),
+    ("ema_sonnet", "VectorQuantizerEMASonnet"), ("nsvq", "NSVQ"),
+    ("rnsvq", "RNSVQ")])
+def test_make_quantizer_builds_every_kind(kind, cls):
+    q = make_quantizer(QuantizerConfig(kind=kind, num_embeddings=K,
+                                       embedding_dim=D, num_stages=3))
+    assert type(q).__name__ == cls
+    # the EMA kinds' codebook is state, not a parameter
+    params = dict(q.named_parameters())
+    assert ("codebook" in params) == (kind in ("ste", "nsvq"))
+    assert ("codebooks" in params) == (kind == "rnsvq")
+    with pytest.raises(ValueError, match="unknown quantizer kind"):
+        make_quantizer(QuantizerConfig(kind=kind + "x"))
 
 
 def test_kernel_source_names_the_tpu_kernel_and_its_bound():
