@@ -80,8 +80,21 @@ not 0:
                 nsvqvae (1 launch) and rnsvqvae (4); then, uncounted, the
                 stage-1 step's time and peak memory with remat full, conv
                 and off (3 steps each on one trainer)
- 14. kernels    one JSON line with the whole run's kernel numbers
- 15. last line  {"ok": true, "device": {...}}
+ 14. train_gan  main path 7: the VQ-GAN. A warm and an adversarial step of
+                vqgan_attn at full width (R1 and the adaptive weight on,
+                32^3) on the card, f32 with TF32 off, against a float64
+                twin on the CPU;
+                --preset vqgan_attn --train_vq --disc_threshold 1 for 2
+                epochs at 128^3 (warm, then adversarial; 2 steps and a
+                validation batch each: 6 codebook launches), a bitwise
+                resume check, --test_vq (2); one step of each other
+                VQ-GAN preset, emavqvae and vqvae_legacy (--vqvae_mode 1
+                and 2) at 128^3 (1 each); attention launches 0
+                throughout; then, uncounted, the 128^3 warm, adversarial
+                and R1 + adaptive step times, the eval time and the peak
+                memory
+ 15. kernels    one JSON line with the whole run's kernel numbers
+ 16. last line  {"ok": true, "device": {...}}
 No socket, no profiler trace; the only threads are the CLI's data loader
 prefetchers, joined when their epoch ends. Nothing is written but the
 kernel build under ldm3d_torch/_build/ and the cli and train_vq phases'
@@ -101,6 +114,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from functools import partial
 from typing import Dict
 
@@ -129,6 +143,7 @@ from ldm3d_torch.serve import GenerationService  # noqa: E402
 from ldm3d_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from ldm3d_torch.train.dm_trainer import (DiffusionTrainer,  # noqa: E402
                                           LatentDiffusion, auto_latent_scale)
+from ldm3d_torch.train.gan_trainer import GANTrainer  # noqa: E402
 from ldm3d_torch.train.vq_trainer import VQTrainer  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense), at a 700 W limit:
@@ -258,6 +273,37 @@ REMAT_STEPS = 3            # timed stage-1 steps per remat setting
 # window's sums in float32 in other orders; SSIM 1e-5 absolute, PSNR
 # 1e-5 relative.
 SSIM_ATOL, PSNR_RTOL = 1e-5, 1e-5
+# Main path 7 (`train_gan`): the VQ-GAN. The card-against-CPU steps run
+# vqgan_attn's full widths with R1 and the adaptive weight on a 32^3
+# volume at batch 2: the card in float32 with TF32 off, the CPU in
+# float64 (a twin of the same weights), from one state with injected
+# draws. Not 64^3: there the decoder head bias's gradient, a sum over
+# 2 x 64^3 voxels of L1 signs and a few large LPIPS frame terms, is
+# ill-conditioned in float32 (a float32 CPU step lies 1.2e-3 of the
+# largest gradient from float64), and a float64 step at 64^3 takes the
+# CPU about 25 s. Tolerances:
+#  - every metric to 1e-4 relative (a float32 step is a few 1e-8 from
+#    float64 at 32^3; the adaptive weight, a ratio of two gradient norms,
+#    1e-5);
+#  - each subtree's gradients (ae, disc3d, disc2d) to 1e-3 of the
+#    subtree's largest, as the diffusion step's (TRAIN_GRAD_RTOL); a
+#    float32 CPU step is within 1e-4 of float64 here;
+#  - the critics' BatchNorm statistics and the EMA quantizer's buffers to
+#    1e-4 of each tensor's largest value.
+GAN_FLAGS = ["--preset", "vqgan_attn"]
+GAN_COMPARE_SIZE, GAN_BATCH = 32, 2
+GAN_METRIC_RTOL, GAN_GRAD_RTOL, GAN_STATS_RTOL = 1e-4, 1e-3, 1e-4
+# the command line at 128^3: 6 volumes, --val_perc 0.34 -> 4 training
+# volumes (2 steps at the preset's batch 2) and one validation batch;
+# --disc_threshold 1: epoch 1 warm, epoch 2 adversarial
+GAN_VOLUMES, GAN_VAL = 6, 0.34
+GAN_CLI = ["--disc_threshold", "1", "--epochs", "2"]
+GAN_TIMED_STEPS = 3          # timed steps per program at 128^3
+# one step each at 128^3: (preset, extra flags, adversarial)
+GAN_OTHERS = [("vqgan_attn_sym", [], True), ("vqgan_baseline", [], True),
+              ("vqgan_gnorm", [], True), ("vqgan_stride", [], True),
+              ("emavqvae", [], False), ("vqvae_legacy", [], False),
+              ("vqvae_legacy", ["--vqvae_mode", "2"], False)]
 
 
 _T0 = time.perf_counter()
@@ -458,7 +504,7 @@ def phase_codebook(card: str) -> Dict[str, dict]:
     """Codebook kernel against `_nearest_indices_reference` at the train
     shape [4096, 256] x [1024, 256], in f32 and bf16, with a ragged N and
     with duplicated codes (which must give the first index exactly), and at
-    the nsvqvae and rnsvqvae stage-1 shapes."""
+    the nsvqvae, rnsvqvae and vqgan_attn stage-1 shapes."""
     cases = [  # name, N, K, D, dtype, duplicated codes
         ("train_f32", 4096, 1024, 256, torch.float32, False),  # train path
         ("train_bf16", 4096, 1024, 256, torch.bfloat16, False),
@@ -469,6 +515,8 @@ def phase_codebook(card: str) -> Dict[str, dict]:
         # latents, one call per residual stage; nsvqvae's 8^3 x 256
         ("rnsvq_f32", 32768, 256, 128, torch.float32, False),
         ("nsvq_f32", 4096, 512, 256, torch.float32, False),
+        # the VQ-GAN: vqgan_attn's 32^3 x 256 latents at batch 2, 128^3
+        ("vqgan_attn_f32", 65536, 512, 256, torch.float32, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
@@ -534,6 +582,7 @@ CB_SHAPES = [  # N, K, D, dtype
     (1000, 513, 3, torch.float32),        # 4-byte copies, ragged code tile
     (257, 1000, 130, torch.bfloat16),     # 4-byte copies
     (64, 2048, 520, torch.float32),       # 16 code tiles, 17 depth slices
+    (524288, 128, 64, torch.float32),     # vqgan_attn_sym, 64^3 x 64
 ]
 
 
@@ -1841,6 +1890,315 @@ def phase_train_vq(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _gan_copy(src: GANTrainer, dst: GANTrainer) -> None:
+    """dst takes src's networks, both Adams and the epoch."""
+    dst.model.load_state_dict(src.model.state_dict())
+    dst.optimizer.load_state_dict(src.optimizer.state_dict())
+    dst.disc_optimizer.load_state_dict(src.disc_optimizer.state_dict())
+    dst.epoch = src.epoch
+
+
+def _gan_draws(rng, n_rows: int, lo: int, hi: int) -> dict:
+    """One step's draws: the EMA quantizer's two row permutations (init
+    and restart) and one frame index per item."""
+    return dict(permutation=[rng.permutation(n_rows) for _ in range(2)],
+                randint=[rng.integers(lo, hi, GAN_BATCH)])
+
+
+def _gan_step_errors(card: GANTrainer, ref: GANTrainer, mc: dict,
+                     mr: dict) -> dict:
+    """Relative errors of one step, card against CPU: each metric, each
+    subtree's gradients, the critics' statistics and the quantizer."""
+    errs = {f"metric.{k}": abs(float(mc[k]) - float(mr[k]))
+            / max(abs(float(mr[k])), 1e-30) for k in mr}
+    for sub in ("ae", "disc3d", "disc2d"):
+        pc = dict(getattr(card, sub).named_parameters())
+        pr = dict(getattr(ref, sub).named_parameters())
+        scale = max(float(p.grad.abs().max()) for p in pr.values())
+        err = max(float((pc[n].grad.cpu() - p.grad).abs().max())
+                  for n, p in pr.items())
+        errs[f"grad.{sub}"] = err / scale if scale > 0 else err
+    sc, sr = card.model.state_dict(), ref.model.state_dict()
+    for k, t in sr.items():
+        if "running" in k or ".quantizer." in k:
+            errs[f"state.{k}"] = _max_rel(sc[k].float(), t.float())
+    return errs
+
+
+def _gan_compare(card_name: str) -> dict:
+    """A warm and an adversarial step of vqgan_attn (R1, adaptive weight)
+    at GAN_COMPARE_SIZE on the card (the codebook kernel, f32 without
+    TF32) against a float64 twin on the CPU (the plain version), each
+    from one state with the same injected draws."""
+    cfg = get_preset("vqgan_attn")
+    gan = replace(cfg.vqgan, disc_threshold=1, r1_gamma=1.0,
+                  adaptive_g_weight=True)
+    tc = replace(cfg.train, batch_size=GAN_BATCH)
+    size = GAN_COMPARE_SIZE
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # the LPIPS surrogate
+        ref = GANTrainer(gan, tc, device="cpu", volume_size=size) \
+            .init_random(SEED)
+    card = GANTrainer(gan, tc, device="cuda", volume_size=size)
+    # the quantizer computes in float32 in both (its restart threshold,
+    # usage >= 1, is met exactly by 0.99 + 0.01 in float32)
+    ref.model.double()
+    ref.ae.quantizer.float()
+    rng = np.random.default_rng(SEED + 40)
+    vol, mask = _vq_batch(rng, GAN_BATCH, size, "cpu")
+    # "attn_cp": a k3 stem, then one k4-s2 conv per further width
+    n_rows = GAN_BATCH * (size >> (len(cfg.vqgan.ae.num_channels) - 1)) ** 3
+    lo, hi = gan.frame_idx_range
+    hi = min(hi, size)
+    lo = min(lo, hi - 1)
+    out = {}
+    for program in ("warm", "adversarial"):
+        draws = _gan_draws(rng, n_rows, lo, hi)
+        _gan_copy(ref, card)
+        with _NoTF32():
+            mc = card.train_step(vol.cuda(), mask.cuda(), Draws(**{
+                k: list(v) for k, v in draws.items()}))
+            torch.cuda.synchronize()
+        mr = ref.train_step(vol, mask, Draws(**draws))
+        errs = _gan_step_errors(card, ref, mc, mr)
+        tol = {k: GAN_METRIC_RTOL if k.startswith("metric.") else
+               GAN_GRAD_RTOL if k.startswith("grad.") else GAN_STATS_RTOL
+               for k in errs}
+        bad = sorted(k for k in errs if not errs[k] <= tol[k])
+        worst = {g: max((e for k, e in errs.items() if k.startswith(g)),
+                        default=0.0)
+                 for g in ("metric.", "grad.", "state.")}
+        say("train_gan", step=f"compare_{program}", volume=size,
+            batch=GAN_BATCH, reference="cpu float64", r1_gamma=gan.r1_gamma,
+            adaptive_g_weight=True,
+            metrics_cpu={k: float(v) for k, v in mr.items()},
+            grad_rel_err={k: errs[k] for k in errs
+                          if k.startswith("grad.")},
+            max_metric_rel_err=worst["metric."],
+            max_state_rel_err=worst["state."],
+            tol=dict(metric=GAN_METRIC_RTOL, grad=GAN_GRAD_RTOL,
+                     state=GAN_STATS_RTOL), failed=bad, ok=not bad,
+            card=card_name)
+        if bad:
+            raise RuntimeError(f"train_gan compare {program}: "
+                               f"{[(k, errs[k]) for k in bad[:5]]}")
+        if program == "warm":
+            if float(mr["disc_loss"]) != 0.0:
+                raise RuntimeError("train_gan: the warm step ran a critic")
+            ref.next_epoch()
+        out[program] = worst
+    del card, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gan_timings(cfg, size: int) -> dict:
+    """Wall ms of GAN_TIMED_STEPS steps of each program at `size` (the
+    warm one, the adversarial one, and with R1 and the adaptive weight),
+    eval ms per batch, and the peak memory over them; the first step of
+    each trainer (Adam's state, cuDNN's set-up) is not timed."""
+    rng = np.random.default_rng(SEED + 41)
+    vol, mask = _vq_batch(rng, cfg.train.batch_size, size, "cuda")
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    for name, over, warm in (
+            ("warm", {}, True), ("adversarial", {}, False),
+            ("adversarial_r1_adaptive", dict(r1_gamma=1.0,
+                                             adaptive_g_weight=True),
+             False)):
+        gan = replace(cfg.vqgan, **over)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            tr = GANTrainer(gan, cfg.train, device="cuda",
+                            volume_size=size).init_random(SEED)
+        tr.epoch = 0 if warm else gan.disc_threshold   # the critics on
+        tr.train_step(vol, mask, warm=warm)
+        walls = []
+        for _ in range(GAN_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(vol, mask, warm=warm)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        out[name] = dict(step_ms=walls, median_step_ms=float(
+            np.median(walls)), finite=all(np.isfinite(float(v))
+                                          for v in m.values()))
+        if name == "adversarial_r1_adaptive":
+            tr.eval_step(vol, mask)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.eval_step(vol, mask)
+            torch.cuda.synchronize()
+            out["eval_ms_per_batch"] = 1e3 * (time.perf_counter() - t0)
+        del tr
+        torch.cuda.empty_cache()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if not all(v["finite"] for v in out.values() if isinstance(v, dict)):
+        raise RuntimeError(f"train_gan timings: non-finite metrics {out}")
+    return out
+
+
+def phase_train_gan(card: str) -> dict:
+    """Main path 7: the VQ-GAN. (a) A warm and an adversarial step of
+    vqgan_attn at its full widths on the card against a float64 CPU twin
+    (32^3, see GAN_COMPARE_SIZE). (b) In process, in a temporary
+    directory removed at the end: --create_dataset --synthetic (6
+    volumes, 128^3), --preset vqgan_attn --train_vq --disc_threshold 1
+    --epochs 2 (epoch 1 warm, epoch 2 adversarial; 2 steps each and a
+    validation batch), an exact-resume check, --test_vq. (c) One step
+    of each other VQ-GAN preset (adversarial), of emavqvae and of
+    vqvae_legacy (--vqvae_mode 1 and 2), at 128^3. The counters are
+    zeroed before each user-facing piece of (b) and (c) and read after
+    it: the codebook kernel launches once per step, eval batch and
+    reconstruction, attention never. Then, uncounted, (d) the 128^3 step
+    times and peak memory."""
+    compare = _gan_compare(card)
+    tmp = tempfile.mkdtemp(prefix="ldm3d_train_gan_")
+    dev = CLI_DEVICE
+    counts = {attn.KERNEL: 0, cbq.KERNEL: 0}
+
+    def parse(flags, *extra):
+        argv = flags + ["--cache_dir", os.path.join(tmp, "cache"),
+                        "--ckpt_dir", os.path.join(tmp, "ckpt"),
+                        "--out_dir", os.path.join(tmp, "out"),
+                        "--val_perc", str(GAN_VAL),
+                        "--platform", "gpu" if dev == "cuda" else "cpu",
+                        *extra]
+        args = cli.build_parser().parse_args(argv)
+        return cli.apply_overrides(get_preset(args.preset), args), args
+
+    try:
+        cfg, args = parse(GAN_FLAGS, "--create_dataset", "--synthetic",
+                          "--num_synthetic", str(GAN_VOLUMES))
+        _counted(counts, cli.run_create_dataset, cfg, args)
+        cfg, args = parse(GAN_FLAGS, "--train_vq", *GAN_CLI)
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            saver, train_s, got1 = _counted(counts, cli.run_train_vq, cfg,
+                                            args)
+        text = out.getvalue()
+        print(text, end="", flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        tr_idx, va_idx = train_val_split(GAN_VOLUMES, cfg.train.val_fraction,
+                                         cfg.train.seed)
+        steps = len(tr_idx) // cfg.train.batch_size
+        val_batches = len(va_idx) // cfg.train.batch_size
+        epochs = cfg.train.epochs
+        expect1 = {attn.KERNEL: 0, cbq.KERNEL: epochs * (steps + val_batches)}
+        ckpt_dir = os.path.join(tmp, "ckpt", f"{cfg.name}_vq")
+        log = open(os.path.join(ckpt_dir, "training.log")).read()
+        rows = [r.split(",") for r in log.splitlines()]
+        col = rows[0].index("disc_loss")
+        disc = [float(r[col]) for r in rows[1:]]
+        ok = (got1 == expect1 and saver.step == epochs * steps
+              and saver.epoch == epochs and len(disc) == epochs
+              and disc[0] == 0.0 and disc[1] > 0.0
+              and f"epoch {epochs}/{epochs}" in text)
+        say("train_gan", step="train_vq", flags=GAN_FLAGS + GAN_CLI,
+            volume=cfg.data.volume_size, batch=cfg.train.batch_size,
+            steps_per_epoch=steps, val_batches=val_batches, run_s=train_s,
+            disc_loss_by_epoch=disc, launches=got1, expected=expect1,
+            checkpoint_bytes=os.path.getsize(os.path.join(ckpt_dir,
+                                                          "1.pt")),
+            max_memory_allocated=peak, lpips_pretrained=saver
+            .lpips_pretrained, card=card)
+        if not ok:
+            raise RuntimeError(f"train_gan train_vq: launches {got1} "
+                               f"(expected {expect1}), step {saver.step}, "
+                               f"epoch {saver.epoch}, disc_loss {disc}")
+
+        # resume is exact: the last epoch restored into a fresh trainer
+        # equals the one that saved it, and both take the same step
+        fresh = GANTrainer(cfg.vqgan, cfg.train, device=dev,
+                           volume_size=cfg.data.volume_size)
+        state, ep = CheckpointManager(ckpt_dir).restore(epochs)
+        fresh.load_state_dict(state)
+        del state
+        differ = _state_equal(saver, fresh)
+        rng = np.random.default_rng(SEED + 42)
+        vol, mask = _vq_batch(rng, cfg.train.batch_size,
+                              cfg.data.volume_size, dev)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            for tr in (saver, fresh):
+                tr.train_step(vol, mask)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        after = _state_equal(saver, fresh)
+        say("train_gan", step="resume_check", restored_epoch=ep,
+            state_differs=differ, differs_after_one_step=after,
+            bitwise=not differ and not after, card=card)
+        if differ or after:
+            raise RuntimeError(f"train_gan resume: state differs in "
+                               f"{(differ + after)[:5]}")
+        del fresh, saver
+        torch.cuda.empty_cache()
+
+        cfg, args = parse(GAN_FLAGS, "--test_vq")
+        (paths, mse), test_s, got2 = _counted(counts, cli.run_test_vq, cfg,
+                                              args)
+        expect2 = {attn.KERNEL: 0, cbq.KERNEL: 2 * val_batches}
+        recon = np.load(os.path.join(tmp, "out", "reconst_0.npy"))
+        shapes_ok = recon.shape == (cfg.train.batch_size,) + (
+            cfg.data.volume_size,) * 3 + (1,)
+        finite = bool(np.isfinite(recon).all())
+        say("train_gan", step="test_vq", mean_mse=mse, test_vq_s=test_s,
+            shapes_ok=shapes_ok, finite=finite, launches=got2,
+            expected=expect2, card=card)
+        if not (shapes_ok and finite and got2 == expect2):
+            raise RuntimeError(f"train_gan test_vq: shapes {shapes_ok}, "
+                               f"finite {finite}, launches {got2}")
+
+        others = {}
+        rng = np.random.default_rng(SEED + 43)
+        for preset, extra, adversarial in GAN_OTHERS:
+            pcfg, _ = parse(["--preset", preset], *extra)
+            b = pcfg.train.batch_size if pcfg.model == "vqgan" else 2
+            vol, mask = _vq_batch(rng, b, cfg.data.volume_size, dev)
+            if pcfg.model == "vqgan":
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    tr = GANTrainer(pcfg.vqgan, pcfg.train, device=dev,
+                                    volume_size=cfg.data.volume_size) \
+                        .init_random(SEED)
+                tr.epoch = pcfg.vqgan.disc_threshold
+            else:
+                tr = VQTrainer(pcfg.vqvae, replace(pcfg.train, batch_size=b),
+                               device=dev).init_random(SEED)
+            torch.cuda.reset_peak_memory_stats()
+            m, wall, got = _counted(counts, tr.train_step, vol, mask)
+            finite = all(np.isfinite(float(v)) for v in m.values())
+            key = preset + "".join(extra).replace("--vqvae_mode", "_mode")
+            others[key] = dict(
+                batch=b, step_ms=1e3 * wall, launches=got, finite=finite,
+                adversarial=adversarial and float(m["disc_loss"]) > 0.0,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                metrics={k: float(v) for k, v in m.items()})
+            del tr
+            torch.cuda.empty_cache()
+            want = {attn.KERNEL: 0, cbq.KERNEL: 1}
+            if got != want or not finite or (
+                    adversarial and not others[key]["adversarial"]):
+                raise RuntimeError(f"train_gan {key}: launches {got}, "
+                                   f"finite {finite}")
+        say("train_gan", step="other_presets", volume=cfg.data.volume_size,
+            **others, card=card)
+
+        timings = _gan_timings(cfg, cfg.data.volume_size)
+        say("train_gan", step="timings", volume=cfg.data.volume_size,
+            batch=cfg.train.batch_size, **timings, card=card)
+        if counts[cbq.KERNEL] <= 0 or counts[attn.KERNEL] != 0:
+            raise RuntimeError(f"train_gan: launches {counts}")
+        say("train_gan", launches=counts, compare=compare, card=card)
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _kernel_line(name, source, replaces, counts, case, library):
     return {
         "name": name, "route": "cuda", "source": source,
@@ -1891,6 +2249,8 @@ def main() -> None:
     counts["cli"] = phase_cli(card)
     torch.cuda.empty_cache()
     counts["train_vq"] = phase_train_vq(card)
+    torch.cuda.empty_cache()
+    counts["train_gan"] = phase_train_gan(card)
     kernels = [
         _kernel_line(attn.KERNEL, "ldm3d_torch/csrc/voxel_attention.cu",
                      "ldm3d/ops/attention.py:38", counts,

@@ -10,10 +10,13 @@ defaults.
         --sampler ddim --sample_steps 50
 
 Ported modes: --create_dataset (synthetic or NIfTI); --train_vq and
---test_vq (stage-1 VQ-VAE training with the validation pass, the plateau
-schedule and unused-code replacement, and the held-out reconstructions,
-for the VQ-VAE family: the ste, nsvq and rnsvq presets and any
-quantizer kind); --train_dm (on volumes or, with --cache_latents, on
+--test_vq (stage-1 training with the validation pass, the plateau
+schedule and unused-code replacement, and the held-out reconstructions):
+the VQ-VAE family (every quantizer kind; `emavqvae`; `vqvae_legacy` and
+--vqvae_mode 1 / 2) through `VQTrainer`, and the VQ-GAN presets
+(`model == "vqgan"`) through `GANTrainer`, with --disc_threshold,
+--disc_lr, --adaptive_gan_weight, --adaptive_g_max, --g_adv_delay and
+--r1_gamma; --train_dm (on volumes or, with --cache_latents, on
 latents encoded once and cached on disk beside the corpus when a stage-1
 is loaded), with the AUTO latent scale, train_meta.json, --resume_ckpt,
 --auto_resume, --ckpt_freq, --fidelity_freq and --image_log_freq;
@@ -31,13 +34,14 @@ architecture of the preset's `diffusion.vqvae`, or it is refused.
     python -m ldm3d_torch.cli.main --preset conditional_dm3d --norm group \
         --train_dm --cache_latents \
         --vqvae_load_ckpt ./checkpoints/vqvae_dm_stage1_vq
+    python -m ldm3d_torch.cli.main --preset vqgan_attn --train_vq \
+        --synthetic --disc_threshold 1 --epochs 2
 
+Without `LDM3D_LPIPS_WEIGHTS` (a converted VGG16 + LPIPS `.npz`) the
+VQ-GAN's perceptual loss is a self-calibrated random-feature surrogate.
 Modes and flags not ported yet are parsed and then refused with the
-ROADMAP item that brings them: the VQ-GAN presets, `emavqvae` and
-`vqvae_legacy`, and --train_vq / --test_vq with --vqvae_mode (queue 1
-item 7), --fidelity_sweep, --sweep, --device_data and --profile (item
-5), and the multi-host and mesh flags (item 9). The adversarial flags configure the
-VQ-GAN models only.
+ROADMAP item that brings them: --fidelity_sweep, --sweep, --device_data
+and --profile (item 5), and the multi-host and mesh flags (item 9).
 """
 
 from __future__ import annotations
@@ -226,6 +230,8 @@ def apply_overrides(cfg, args):
     train = cfg.train
     if args.lr is not None:
         train = replace(train, learning_rate=args.lr)
+    if getattr(args, "disc_lr", None) is not None:
+        train = replace(train, disc_learning_rate=args.disc_lr)
     if args.epochs is not None:
         train = replace(train, epochs=args.epochs)
     if args.lbs is not None:
@@ -270,7 +276,7 @@ def apply_overrides(cfg, args):
     if args.kernel_resize:
         vq = replace(vq, kernel_resize=True)
     if args.vqvae_mode is not None:
-        vq = replace(vq, family="legacy")
+        vq = replace(vq, family="legacy", legacy_mode=args.vqvae_mode)
     if args.norm is not None:
         vq = replace(vq, norm=args.norm)
     cfg = replace(cfg, vqvae=vq)
@@ -311,6 +317,19 @@ def apply_overrides(cfg, args):
     if getattr(args, "clip_sample_range", None) is not None:
         diff = replace(diff, clip_sample_range=args.clip_sample_range)
     cfg = replace(cfg, diffusion=diff)
+
+    gan = cfg.vqgan
+    if args.disc_threshold is not None:
+        gan = replace(gan, disc_threshold=args.disc_threshold)
+    if getattr(args, "adaptive_gan_weight", None):
+        gan = replace(gan, adaptive_g_weight=True)
+    if getattr(args, "r1_gamma", None) is not None:
+        gan = replace(gan, r1_gamma=args.r1_gamma)
+    if getattr(args, "adaptive_g_max", None) is not None:
+        gan = replace(gan, adaptive_g_max=args.adaptive_g_max)
+    if getattr(args, "g_adv_delay", None) is not None:
+        gan = replace(gan, g_adv_delay=args.g_adv_delay)
+    cfg = replace(cfg, vqgan=gan)
 
     if args.ckpt_dir is not None:
         cfg = replace(cfg, ckpt_dir=args.ckpt_dir)
@@ -380,21 +399,39 @@ def _maybe_resume(ckpt, trainer, resume_ckpt) -> int:
     return epoch
 
 
+def _stage1_trainer(cfg, device):
+    """A `GANTrainer` when the preset's model is "vqgan", else a
+    `VQTrainer` of `cfg.vqvae`."""
+    if cfg.model == "vqgan":
+        from ldm3d_torch.train.gan_trainer import GANTrainer
+        return GANTrainer(cfg.vqgan, cfg.train, device=device,
+                          volume_size=cfg.data.volume_size)
+    from ldm3d_torch.train.vq_trainer import VQTrainer
+    return VQTrainer(cfg.vqvae, cfg.train, device=device)
+
+
 def run_train_vq(cfg, args):
-    """Stage-1 VQ-VAE training; returns the trainer."""
-    from ldm3d_torch.train.callbacks import (CSVLogger, ImageLogger,
-                                             MetricsLogger,
+    """Stage-1 training (a VQ-VAE, or a VQ-GAN when the preset's model is
+    "vqgan"); returns the trainer."""
+    from ldm3d_torch.train.callbacks import (CSVLogger,
+                                             DelayedReduceLROnPlateau,
+                                             ImageLogger, MetricsLogger,
                                              ReduceLROnPlateau)
     from ldm3d_torch.train.checkpoint import CheckpointManager
     from ldm3d_torch.train.loop import fit, fit_with_recovery
-    from ldm3d_torch.train.vq_trainer import VQTrainer
 
     device = _device(args)
     train_loader, val_loader = _loaders(cfg, args, device)
-    trainer = VQTrainer(cfg.vqvae, cfg.train,
-                        device=device).init_random(cfg.train.seed)
-    lr_sched = ReduceLROnPlateau(monitor="val_loss", factor=0.5,
-                                 patience=10)
+    is_gan = cfg.model == "vqgan"
+    trainer = _stage1_trainer(cfg, device).init_random(cfg.train.seed)
+    if is_gan:
+        # the autoencoder's rate, once the critics have started
+        lr_sched = DelayedReduceLROnPlateau(
+            start_epoch=cfg.vqgan.disc_threshold, monitor="val_loss",
+            factor=0.5, patience=10)
+    else:
+        lr_sched = ReduceLROnPlateau(monitor="val_loss", factor=0.5,
+                                     patience=10)
     logdir = _ckpt_dir(cfg, "vq")
     ckpt = CheckpointManager(logdir, keep=cfg.train.keep_checkpoints,
                              save_best_only=args.save_best_only)
@@ -424,9 +461,12 @@ def run_train_vq(cfg, args):
         metrics_logger=MetricsLogger(os.path.join(logdir, "metrics.jsonl"),
                                      run_name=cfg.name),
         lr_schedule=lr_sched,
-        replace_codebook_freq=cfg.train.replace_codebook_freq,
+        # the VQ-GAN's quantizers replace no codes between epochs
+        replace_codebook_freq=0 if is_gan
+        else cfg.train.replace_codebook_freq,
         initial_epoch=initial_epoch, ckpt_freq=args.ckpt_freq,
-        step_fn=lambda batch: trainer.train_step(batch[0], batch[1]))
+        step_fn=lambda batch: trainer.train_step(batch[0], batch[1]),
+        is_gan=is_gan)
     ckpt.wait()
     print("final:", {k: round(float(v), 6) for k, v in metrics.items()})
     return trainer
@@ -439,13 +479,12 @@ def run_test_vq(cfg, args):
     reconstruction MSE. Returns (paths written, mean MSE)."""
     from ldm3d_torch.data.nifti import save_nifti
     from ldm3d_torch.train.checkpoint import CheckpointManager
-    from ldm3d_torch.train.vq_trainer import VQTrainer
 
     device = _device(args)
     _, val_loader = _loaders(cfg, args, device)
     if val_loader is None:
         raise SystemExit("validation split is empty")
-    trainer = VQTrainer(cfg.vqvae, cfg.train, device=device)
+    trainer = _stage1_trainer(cfg, device)
     state, epoch = CheckpointManager(_ckpt_dir(cfg, "vq")).restore(
         args.test_epoch)
     trainer.load_state_dict(state, optimizer=False)
@@ -746,13 +785,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     from ldm3d_torch.core.presets import get_preset
-    from ldm3d_torch.train.vq_trainer import check_family
-    try:
-        cfg = apply_overrides(get_preset(args.preset), args)
-        if args.train_vq or args.test_vq:
-            check_family(cfg.vqvae)
-    except NotImplementedError as e:   # a preset or family of item 7
-        raise SystemExit(f"ldm3d_torch: {e}") from None
+    cfg = apply_overrides(get_preset(args.preset), args)
     _device(args)           # no GPU and no --platform cpu: raise before any work
 
     if args.create_dataset:

@@ -11,8 +11,12 @@ torch key by joining with '.', renaming the leaf, and changing the layout:
   - transposed-conv kernel (kd, kh, kw, OUT, IN) -> weight (IN, OUT, kd, kh, kw)
     (the Keras layout of `conv3d_transpose`; PyTorch's conv_transpose3d
     weight, no flip: both are the adjoint of a cross-correlation)
-    Both are the same axis permutation (4, 3, 0, 1, 2).
-  - Dense kernel (in, out) -> weight (out, in)
+    Both are the same axis permutation (4, 3, 0, 1, 2); a VALID
+    transposed conv (the VQ-GAN's SamePadConvTranspose3D) too.
+  - 2D conv kernel (kh, kw, in, out) -> weight (out, in, kh, kw): the
+    VQ-GAN's frame critic and LPIPS.
+  - Dense kernel (in, out) -> weight (out, in); the dense critic head
+    flattens channels-last, as flax does, so its rows need no reordering.
   - norm scale -> weight; BatchNorm statistics mean / var -> running_mean /
     running_var; Embed embedding -> weight; PReLU alpha -> alpha.
   - the quantizers keep their names and layout: the parameters `codebook`
@@ -22,7 +26,9 @@ torch key by joining with '.', renaming the leaf, and changing the layout:
     `ema_w` and `need_init` (bool).
 Diffusion states (`vqvae/encoder/**`, the quantizer, the decoder, the
 U-Net) and stage-1 states (`encoder/**`, `quantizer/**`, `decoder/**`)
-are both mapped.
+are both mapped. A VQ-GAN state (`params/{ae,disc3d,disc2d,lpips}/**`,
+`batch_stats/{ae,disc3d,disc2d}/**` and the autoencoder's `vq_stats`)
+goes through `convert_gan_state` / `gan_flax_state`.
 
 `flax_state` is the inverse map: a port module's parameters and buffers
 as the flax collections, numpy, for comparing a port state with a JAX one.
@@ -61,6 +67,8 @@ def _leaf(path: str, arr: np.ndarray, stats: bool) -> Tuple[str, np.ndarray]:
         name = "weight"
         if arr.ndim == 5:
             arr = arr.transpose(4, 3, 0, 1, 2)
+        elif arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
         elif arr.ndim == 2:
             arr = arr.T
         else:
@@ -146,6 +154,8 @@ def _flax_leaf(module: nn.Module, name: str, t: torch.Tensor
         return "params", "embedding", arr
     if arr.ndim == 5:
         return "params", "kernel", arr.transpose(2, 3, 4, 1, 0)
+    if arr.ndim == 4:
+        return "params", "kernel", arr.transpose(2, 3, 1, 0)
     if arr.ndim == 2:
         return "params", "kernel", arr.T
     return "params", "scale", arr      # a norm's weight
@@ -166,4 +176,28 @@ def flax_state(module: nn.Module, prefix: str = ""
             path = "/".join(p for p in (prefix, *mod_name.split("."), leaf)
                             if p)
             out.setdefault(coll, {})[path] = arr
+    return out
+
+
+def convert_gan_state(state: Mapping) -> Dict[str, torch.Tensor]:
+    """The state dict of a `gan_trainer.VQGANModules` from a JAX
+    `GANTrainState`'s collections (nested or flat): its `vq_stats` are the
+    autoencoder's, so they move under `ae`."""
+    flat = flatten(state) if any(isinstance(v, Mapping)
+                                 for v in state.values()) else dict(state)
+    moved = {}
+    for key, arr in flat.items():
+        coll, _, path = key.partition("/")
+        moved[f"vq_stats/ae/{path}" if coll == "vq_stats" else key] = arr
+    return convert_state(moved)[0]
+
+
+def gan_flax_state(modules: nn.Module) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of `convert_gan_state`: a `VQGANModules`' parameters and
+    buffers as the JAX GAN state's collections, the autoencoder's
+    `vq_stats` at the collection's root."""
+    out = flax_state(modules)
+    if "vq_stats" in out:
+        out["vq_stats"] = {k[len("ae/"):]: a
+                           for k, a in out["vq_stats"].items()}
     return out

@@ -52,8 +52,18 @@ class VQVAEConfig:
     norm: str = "batch"                # "batch" | "group"
     act: str = "relu"
     output_act: Optional[str] = None
-    # "monai" (ported); "legacy" and "ema_skip" (ROADMAP queue 1 item 7)
+    # the autoencoder inside a VQ-GAN: "attn_cp" (GroupNorm/SiLU, k3 stem
+    # and k4-s2 downs), "monai" (this VQ-VAE's encoder and decoder),
+    # "stride" (residual units before stride-1 convs, average-pool downs,
+    # nearest-upsample decoder), "attn" (SYMMETRIC-pad convs)
+    arch: str = "attn_cp"
+    # model trained standalone: "monai", "legacy" (the functional VQ-VAE
+    # of --vqvae_mode; legacy_mode 2 is the residual variant,
+    # legacy_down 2 or 3 downsamples) or "ema_skip" (the skip-connection
+    # EMA VQ-VAE)
     family: str = "monai"
+    legacy_mode: int = 1
+    legacy_down: int = 3
     # level-0 k4-s2 conv as zero-pad + space-to-depth(2) + k2 VALID conv
     stem_s2d: bool = False
     # recompute each residual unit in the backward pass
@@ -73,6 +83,45 @@ class VQVAEConfig:
         for s in self.downsample_stride:
             f *= s
         return f
+
+
+@dataclass(frozen=True)
+class DiscriminatorConfig:
+    """The PatchGAN critics, 3D over volumes and 2D over frames."""
+
+    num_channels: Tuple[int, ...] = (32, 64, 128)
+    use_sigmoid: bool = False
+    get_interm_feat: bool = True
+    head: str = "conv"                 # "conv" (PatchGAN) | "dense"
+
+
+@dataclass(frozen=True)
+class VQGANConfig:
+    """A VQ-GAN: the autoencoder, both critics, LPIPS and the loss
+    weights of `train.gan_trainer.GANTrainer`."""
+
+    ae: VQVAEConfig = field(default_factory=lambda: VQVAEConfig(
+        norm="group", act="silu",
+        quantizer=QuantizerConfig(kind="ema")))
+    disc: DiscriminatorConfig = field(default_factory=DiscriminatorConfig)
+    disc_threshold: int = 40           # epochs before the critics start
+    disc_loss_fn: str = "vanilla"      # "vanilla" | "hinge"
+    g_adv_style: str = "wgan"          # "wgan": -mean(fake) | "bce"
+    disc_wt: float = 0.8
+    lpips_wt: float = 4.0
+    gan_feat_wt: float = 4.0
+    g_loss_adv_wt: float = 1.0
+    recon_loss: str = "l1"
+    frame_idx_range: Tuple[int, int] = (30, 120)  # the random 2D frame
+    lpips_image_size: int = 128
+    # the adaptive generator weight ||grad_rec|| / (||grad_adv|| + 1e-6),
+    # clipped to [0, adaptive_g_max], at the generator's output
+    adaptive_g_weight: bool = False
+    adaptive_g_max: float = 1e4
+    # epochs after disc_threshold during which only the critics train
+    g_adv_delay: int = 0
+    # R1 penalty gamma / 2 * E||grad_x D(x)||^2 on real inputs; 0 = off
+    r1_gamma: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -129,6 +178,7 @@ class TrainConfig:
 
     batch_size: int = 8                # global batch ("ref" loss divisor)
     learning_rate: float = 1e-4
+    disc_learning_rate: float = 1e-4   # the VQ-GAN critics' Adam
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     seed: int = 0
@@ -167,16 +217,17 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class ExperimentConfig:
-    """One run of the command line: a stage-1 VQ-VAE (`vqvae`, for
-    --train_vq / --test_vq), a diffusion model, their training, the data
-    and where checkpoints go. The JAX package's VQ-GAN subtree (`vqgan`)
-    comes with the VQ-GAN family (ROADMAP queue 1 item 7)."""
+    """One run of the command line: a stage-1 VQ-VAE (`vqvae`) or VQ-GAN
+    (`vqgan`, when `model` is "vqgan") for --train_vq / --test_vq, a
+    diffusion model, their training, the data and where checkpoints go."""
 
     name: str = "default"
-    # the JAX package's model name; the diffusion CLI modes read only
-    # whether it is "conditional_dm" (one sample file per context)
+    # the JAX package's model name: "vqgan" trains `vqgan` in the stage-1
+    # modes; the diffusion modes read whether it is "conditional_dm" (one
+    # sample file per context)
     model: str = "vqvae"
     vqvae: VQVAEConfig = field(default_factory=VQVAEConfig)
+    vqgan: VQGANConfig = field(default_factory=VQGANConfig)
     diffusion: DiffusionConfig = field(default_factory=DiffusionConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)

@@ -11,12 +11,22 @@ presets of `ldm3d.core.presets`, with the same names and values.
   - dm3d / conditional_dm3d  unconditional T=300 and conditional T=500
                              latent diffusion over a frozen 4-level VQ-VAE
                              (K=1024, D=256, 8^3 latents of 128^3 volumes)
+  - emavqvae                 the skip-connection EMA VQ-VAE (8/16/32
+                             filters, K=512, D=128)
+  - vqvae_legacy             the legacy functional VQ-VAE (K=64, D=16)
+  - vqgan_attn               the VQ-GAN: GroupNorm/SiLU "attn_cp"
+                             autoencoder (32/64/128, EMA K=512, D=256,
+                             32^3 latents of 128^3), conv-head critics,
+                             Adam(0.5, 0.9), critics from epoch 40
+  - vqgan_attn_sym           the SYMMETRIC-pad "attn" family (64/128, EMA
+                             K=128, D=64), 64/128/256 critics
+  - vqgan_baseline / vqgan_gnorm  the MONAI autoencoder (BatchNorm +
+                             PReLU, or GroupNorm), dense-head critics,
+                             BCE generator loss
+  - vqgan_stride             residual units before stride-1 convs,
+                             average-pool downs
   - smoke / smoke_cond       CPU-sized versions (T=8, 4^3 x 8 latents of
                              16^3 volumes, float32)
-
-The JAX package's `emavqvae` (the skip-connection EMA model),
-`vqvae_legacy` and VQ-GAN presets are known by name and refused: they
-come with the VQ-GAN family (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -24,16 +34,12 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from ldm3d_torch.core.config import (DataConfig, DiffusionConfig,
-                                     ExperimentConfig, QuantizerConfig,
-                                     TrainConfig, UNetConfig, VQVAEConfig,
+                                     DiscriminatorConfig, ExperimentConfig,
+                                     QuantizerConfig, TrainConfig,
+                                     UNetConfig, VQGANConfig, VQVAEConfig,
                                      replace)
 
 _REGISTRY: Dict[str, Callable[[], ExperimentConfig]] = {}
-
-# presets of the JAX package whose model the port cannot build yet
-UNPORTED_PRESETS = ("emavqvae", "vqvae_legacy", "vqgan_attn",
-                    "vqgan_attn_sym", "vqgan_baseline", "vqgan_gnorm",
-                    "vqgan_stride")
 
 
 def register(name: str):
@@ -44,11 +50,6 @@ def register(name: str):
 
 
 def get_preset(name: str) -> ExperimentConfig:
-    if name in UNPORTED_PRESETS:
-        raise NotImplementedError(
-            f"preset '{name}' is not ported yet; see ROADMAP queue 1 item 7 "
-            f"(the VQ-GAN family, the skip-connection EMA VQ-VAE and the "
-            f"legacy VQ-VAE); the port has {sorted(_REGISTRY)}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown preset '{name}'; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
@@ -124,6 +125,97 @@ def _rnsvqvae() -> ExperimentConfig:
     return ExperimentConfig(name="rnsvqvae", model="rnsvqvae", vqvae=vq)
 
 
+@register("emavqvae")
+def _emavqvae() -> ExperimentConfig:
+    vq = VQVAEConfig(
+        in_channels=1, out_channels=1, family="ema_skip",
+        **_levels((8, 16, 32, 64)),
+        quantizer=QuantizerConfig(kind="ema_sonnet", num_embeddings=512,
+                                  embedding_dim=128, commitment_cost=6.0))
+    return ExperimentConfig(name="emavqvae", model="emavqvae", vqvae=vq)
+
+
+def _gan_train(disc_lr: float = 1e-4, b1: float = 0.9,
+               b2: float = 0.999) -> TrainConfig:
+    return TrainConfig(batch_size=2, learning_rate=1e-4,
+                       disc_learning_rate=disc_lr, adam_b1=b1, adam_b2=b2)
+
+
+@register("vqgan_attn")
+def _vqgan_attn() -> ExperimentConfig:
+    ae = VQVAEConfig(
+        remat=True, in_channels=2, out_channels=2, num_res_layers=1,
+        norm="group", act="silu", **_levels((32, 64, 128)),
+        quantizer=QuantizerConfig(kind="ema", num_embeddings=512,
+                                  embedding_dim=256))
+    gan = VQGANConfig(ae=ae,
+                      disc=DiscriminatorConfig(num_channels=(32, 64, 128)),
+                      disc_threshold=40)
+    return ExperimentConfig(name="vqgan_attn", model="vqgan", vqgan=gan,
+                            train=_gan_train(b1=0.5, b2=0.9))
+
+
+@register("vqgan_attn_sym")
+def _vqgan_attn_sym() -> ExperimentConfig:
+    ae = VQVAEConfig(
+        remat=True, in_channels=2, out_channels=2, num_res_layers=1,
+        norm="group", act="silu", arch="attn",
+        num_channels=(64, 128), num_res_channels=(64, 128),
+        quantizer=QuantizerConfig(kind="ema", num_embeddings=128,
+                                  embedding_dim=64))
+    gan = VQGANConfig(
+        ae=ae, disc=DiscriminatorConfig(num_channels=(64, 128, 256)),
+        disc_threshold=40, disc_loss_fn="vanilla")
+    return ExperimentConfig(name="vqgan_attn_sym", model="vqgan", vqgan=gan,
+                            train=_gan_train(b1=0.5, b2=0.9))
+
+
+@register("vqgan_baseline")
+def _vqgan_baseline() -> ExperimentConfig:
+    ae = VQVAEConfig(
+        remat=True, in_channels=2, out_channels=2, num_res_layers=3,
+        norm="batch", act="prelu", arch="monai",
+        **_levels((32, 64, 128)),
+        quantizer=QuantizerConfig(kind="ste", num_embeddings=512,
+                                  embedding_dim=256))
+    gan = VQGANConfig(
+        ae=ae, disc=DiscriminatorConfig(num_channels=(32, 64, 128),
+                                        head="dense"),
+        disc_threshold=40, g_adv_style="bce", disc_loss_fn="vanilla")
+    return ExperimentConfig(name="vqgan_baseline", model="vqgan", vqgan=gan,
+                            train=_gan_train(disc_lr=1e-5))
+
+
+@register("vqgan_gnorm")
+def _vqgan_gnorm() -> ExperimentConfig:
+    ae = VQVAEConfig(
+        remat=True, in_channels=2, out_channels=2, num_res_layers=3,
+        norm="group", arch="monai", **_levels((32, 64, 128)),
+        quantizer=QuantizerConfig(kind="ste", num_embeddings=512,
+                                  embedding_dim=256))
+    gan = VQGANConfig(
+        ae=ae, disc=DiscriminatorConfig(num_channels=(32, 64, 128),
+                                        head="dense"),
+        disc_threshold=40, g_adv_style="bce",
+        disc_wt=0.8, lpips_wt=4.0, gan_feat_wt=4.0, g_loss_adv_wt=1.0)
+    return ExperimentConfig(name="vqgan_gnorm", model="vqgan", vqgan=gan,
+                            train=_gan_train())
+
+
+@register("vqgan_stride")
+def _vqgan_stride() -> ExperimentConfig:
+    ae = VQVAEConfig(
+        remat=True, in_channels=2, out_channels=2, num_res_layers=3,
+        norm="batch", arch="stride", **_levels((32, 64, 128)),
+        quantizer=QuantizerConfig(kind="ste", num_embeddings=512,
+                                  embedding_dim=256))
+    gan = VQGANConfig(
+        ae=ae, disc=DiscriminatorConfig(num_channels=(32, 64, 128)),
+        disc_threshold=40, g_adv_style="bce")
+    return ExperimentConfig(name="vqgan_stride", model="vqgan", vqgan=gan,
+                            train=_gan_train())
+
+
 def _dm(conditional: bool, timesteps: int) -> ExperimentConfig:
     # stem 256 on a 256-channel latent for the conditional model: the
     # reference's 32-channel stem floors the eps-MSE (see the JAX preset)
@@ -157,6 +249,18 @@ def _dm3d() -> ExperimentConfig:
 @register("conditional_dm3d")
 def _conditional_dm3d() -> ExperimentConfig:
     return _dm(conditional=True, timesteps=500)
+
+
+@register("vqvae_legacy")
+def _vqvae_legacy() -> ExperimentConfig:
+    vq = VQVAEConfig(
+        in_channels=1, out_channels=1, family="legacy", legacy_mode=1,
+        legacy_down=3,
+        quantizer=QuantizerConfig(kind="ste", num_embeddings=64,
+                                  embedding_dim=16))
+    return ExperimentConfig(name="vqvae_legacy", model="vqvae", vqvae=vq,
+                            train=TrainConfig(batch_size=8,
+                                              learning_rate=1e-4))
 
 
 @register("smoke")

@@ -59,14 +59,70 @@ class Conv3d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.padding == "VALID":
             return F.conv3d(x, self.weight, self.bias, self.stride)
-        pads = [same_pads(n, k, s) for n, k, s in
-                zip(x.shape[2:], self.kernel, self.stride)]
-        if all(lo == hi for lo, hi in pads):
-            return F.conv3d(x, self.weight, self.bias, self.stride,
-                            padding=tuple(lo for lo, _ in pads))
-        # F.pad lists the last dim first
-        flat = [p for lo_hi in reversed(pads) for p in lo_hi]
-        return F.conv3d(F.pad(x, flat), self.weight, self.bias, self.stride)
+        return _same_conv(F.conv3d, x, self.weight, self.bias, self.kernel,
+                          self.stride)
+
+
+def _same_conv(conv, x, weight, bias, kernel, stride) -> torch.Tensor:
+    """`conv` (F.conv2d / F.conv3d) with TF 'SAME' padding: symmetric pads
+    go to the convolution, uneven ones to an F.pad first."""
+    pads = [same_pads(n, k, s) for n, k, s in zip(x.shape[2:], kernel,
+                                                  stride)]
+    if all(lo == hi for lo, hi in pads):
+        return conv(x, weight, bias, stride,
+                    padding=tuple(lo for lo, _ in pads))
+    # F.pad lists the last dim first
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+    return conv(F.pad(x, flat), weight, bias, stride)
+
+
+class Conv2d(nn.Module):
+    """2D convolution with TF/flax 'SAME' padding (flax `nn.Conv` over
+    NHWC frames; here NCHW): k = 4, s = 1 pads (1, 2), the odd unit after.
+    Weight (out, in, kh, kw)."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3,
+                 stride: int = 1, use_bias: bool = True):
+        super().__init__()
+        self.kernel = (kernel, kernel)
+        self.stride = (stride, stride)
+        self.weight = nn.Parameter(
+            torch.empty(features, in_channels, *self.kernel))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _same_conv(F.conv2d, x, self.weight, self.bias, self.kernel,
+                          self.stride)
+
+
+def symmetric_pad3d(x: torch.Tensor, kernel: Tuple[int, int, int],
+                    stride: Tuple[int, int, int]) -> torch.Tensor:
+    """Edge-inclusive mirror padding of an NCDHW volume for a VALID conv:
+    TF `SYMMETRIC` (`jnp.pad(mode="symmetric")`), which repeats the edge
+    voxel, unlike `F.pad(mode="reflect")`. Per spatial dim the total pad
+    is k - s, split (p // 2, p - p // 2). Built from flipped slices, so a
+    pad wider than the dim is refused rather than wrapped."""
+    for dim, (k, s) in enumerate(zip(kernel, stride), start=2):
+        p = k - s
+        lo, hi = p // 2, p - p // 2
+        if not p:
+            continue
+        n = x.shape[dim]
+        if lo > n or hi > n:
+            raise ValueError(f"symmetric pad ({lo}, {hi}) wider than the "
+                             f"dim ({n})")
+        parts = [x.narrow(dim, 0, lo).flip(dim)] if lo else []
+        parts.append(x)
+        if hi:
+            parts.append(x.narrow(dim, n - hi, hi).flip(dim))
+        x = torch.cat(parts, dim)
+    return x
+
+
+def avgpool3d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """Average pooling of an NCDHW volume, window = stride, VALID (flax
+    `nn.avg_pool`; Keras AveragePooling3D)."""
+    return F.avg_pool3d(x, window, window)
 
 
 class ConvTranspose3d(nn.Module):
@@ -82,20 +138,27 @@ class ConvTranspose3d(nn.Module):
     pad_before = (k - s) // 2 and the odd unit is cut from the end.
 
     `kernel_resize` asks `init_params_` for the ICNR init (`icnr_init`)
-    instead of glorot-uniform, as the JAX layer's `kernel_resize` does."""
+    instead of glorot-uniform, as the JAX layer's `kernel_resize` does.
+    padding="VALID" (flax's, for k >= s) is the full transposed output,
+    (n - 1) * s + k per dim, uncropped."""
 
     def __init__(self, in_channels: int, features: int, kernel: _Int3 = 4,
                  stride: _Int3 = 2, use_bias: bool = True,
-                 kernel_resize: bool = False):
+                 kernel_resize: bool = False, padding: str = "SAME"):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding {padding!r}")
         self.kernel = _triple(kernel)
         self.stride = _triple(stride)
         self.kernel_resize = kernel_resize
+        self.padding = padding
         self.weight = nn.Parameter(
             torch.empty(in_channels, features, *self.kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.padding == "VALID":
+            return F.conv_transpose3d(x, self.weight, self.bias, self.stride)
         before = [max(k - s, 0) // 2 for k, s in zip(self.kernel, self.stride)]
         after = [max(k - s, 0) - b for k, s, b in
                  zip(self.kernel, self.stride, before)]
@@ -195,7 +258,14 @@ class _BatchNorm(nn.Module):
     here: `F.batch_norm(training=True)` would store the unbiased variance
     and reads its momentum as 1 - 0.99. `update_stats = False` (set while
     a checkpointed unit is recomputed in the backward pass) normalises the
-    same way without touching the statistics."""
+    same way without touching the statistics.
+
+    With `live_stats_graph` (the VQ-GAN critics), a training-mode forward
+    also keeps the updated statistics as functions of the batch in
+    `live_stats`, and eval-mode forwards normalise with those until
+    `live_stats` is cleared: in JAX the statistics a flax update returns
+    are traced values, so gradients reach the critic's parameters through
+    the statistics of its real forward."""
 
     momentum = 0.99
     eps = 1e-3
@@ -207,24 +277,34 @@ class _BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.update_stats = True
+        self.live_stats_graph = False
+        self.live_stats = None
+
+    def _normalize(self, x, mean, var):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.view(shape)) * mul.view(shape) \
+            + self.bias.view(shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
+            if self.live_stats is not None:
+                return self._normalize(x, *self.live_stats)
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=False,
                                 eps=self.eps)
         dims = [0, *range(2, x.dim())]
         var, mean = torch.var_mean(x, dim=dims, correction=0)
         if self.update_stats:
+            m = self.momentum
+            new = (self.running_mean * m + mean * (1.0 - m),
+                   self.running_var * m + var * (1.0 - m))
+            if self.live_stats_graph and torch.is_grad_enabled():
+                self.live_stats = new
             with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_(
-                    mean, alpha=1.0 - self.momentum)
-                self.running_var.mul_(self.momentum).add_(
-                    var, alpha=1.0 - self.momentum)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) \
-            + self.bias.view(shape)
+                self.running_mean.copy_(new[0])
+                self.running_var.copy_(new[1])
+        return self._normalize(x, mean, var)
 
 
 class _GroupNorm(nn.Module):
@@ -298,10 +378,10 @@ def init_params_(module: nn.Module, generator: torch.Generator
     init, no layer is zero-initialised: with random weights every layer,
     attention included, reaches the output."""
     for m in module.modules():
-        if isinstance(m, (Conv3d, ConvTranspose3d)):
+        if isinstance(m, (Conv3d, Conv2d, ConvTranspose3d)):
             w = m.weight
             rf = math.prod(w.shape[2:])
-            if isinstance(m, Conv3d):
+            if not isinstance(m, ConvTranspose3d):
                 fan_out, fan_in = w.shape[0] * rf, w.shape[1] * rf
             else:
                 fan_in, fan_out = w.shape[0] * rf, w.shape[1] * rf

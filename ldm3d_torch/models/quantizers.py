@@ -50,7 +50,8 @@ class QuantAux(NamedTuple):
 class Draws:
     """The random draws of a training-mode pass, named after the JAX
     functions that make them: `bernoulli` (dropout keep masks), `normal`,
-    `permutation` and `choice`. Each comes from `generator` (which lives on
+    `permutation`, `choice` and `randint` (the VQ-GAN's frame indices).
+    Each comes from `generator` (which lives on
     the tensors' device), or, for a kind given as a list, from that list
     in call order."""
 
@@ -84,6 +85,11 @@ class Draws:
     def permutation(self, n: int, device) -> torch.Tensor:
         return self._take("permutation", lambda g: torch.randperm(
             n, generator=g, device=device), device).long()
+
+    def randint(self, low: int, high: int, shape, device) -> torch.Tensor:
+        """Integers uniform in [low, high)."""
+        return self._take("randint", lambda g: torch.randint(
+            low, high, shape, generator=g, device=device), device).long()
 
     def choice(self, p: torch.Tensor, num: int) -> torch.Tensor:
         """[num] indices drawn with replacement with probabilities p."""

@@ -7,9 +7,8 @@ threads a state pytree through instead. Steps run one by one (the JAX
 package's fused one-program epoch is ROADMAP queue 1 item 3(c)); each
 step's metrics stay on the device until the epoch ends, when they are
 fetched in one transfer. Between epochs, in the JAX loop's order: the
-validation pass, unused-code replacement, the plateau schedule, the
-epoch callback, logging and the checkpoint. (The JAX loop's GAN epoch
-counter comes with the VQ-GAN family, ROADMAP queue 1 item 7.)
+validation pass, the VQ-GAN's epoch counter, unused-code replacement, the
+plateau schedule, the epoch callback, logging and the checkpoint.
 """
 
 from __future__ import annotations
@@ -27,6 +26,12 @@ from ldm3d_torch.train.checkpoint import CheckpointManager
 # best-metric checkpoint pinning: the first metric of this list that the
 # epoch reports decides; a new best epoch is saved and pinned
 _PIN_RULES = (("latent_fid", "min"), ("val_psnr", "max"))
+
+
+def eval_seed(epoch: int, batch: int) -> int:
+    """The seed of a VQ-GAN validation batch's frames: one per epoch and
+    batch, so that the validation frames move between epochs."""
+    return ((1000 + epoch) << 20) + batch
 
 
 def _mean_metrics(history: List[Dict[str, torch.Tensor]]
@@ -53,6 +58,7 @@ def fit(trainer, train_loader, epochs: int,
         step_fn: Optional[Callable] = None,
         image_logger=None,
         epoch_callback: Optional[Callable] = None,
+        is_gan: bool = False,
         verbose: bool = True) -> Dict[str, float]:
     """Train `trainer` from `initial_epoch` to `epochs`; returns the last
     epoch's metrics.
@@ -60,7 +66,9 @@ def fit(trainer, train_loader, epochs: int,
     - `step_fn(batch) -> metrics` defaults to
       `trainer.train_step(vol, context)` of a (vol, mask, context) batch.
     - With `val_loader`, each epoch ends with `trainer.eval_step(vol,
-      mask)` over it, logged as `val_<name>`.
+      mask)` over it, logged as `val_<name>`; with `is_gan` (a
+      `GANTrainer`) each batch's frames come from a seed of its own per
+      epoch and batch, and `trainer.next_epoch()` follows.
     - `replace_codebook_freq` N > 0 (a `VQTrainer`): every N epochs
       `trainer.replace_unused(num_batches)`, logged as
       `codebooks_replaced`.
@@ -90,11 +98,15 @@ def fit(trainer, train_loader, epochs: int,
         last_metrics = _mean_metrics(history)
 
         if val_loader is not None:
-            vh = [trainer.eval_step(batch[0], batch[1])
-                  for batch in val_loader]
+            vh = [trainer.eval_step(batch[0], batch[1],
+                                    seed=eval_seed(epoch, i))
+                  if is_gan else trainer.eval_step(batch[0], batch[1])
+                  for i, batch in enumerate(val_loader)]
             if vh:
                 last_metrics.update({f"val_{k}": v for k, v in
                                      _mean_metrics(vh).items()})
+        if is_gan:
+            trainer.next_epoch()
         if (replace_codebook_freq
                 and (epoch + 1) % replace_codebook_freq == 0):
             last_metrics["codebooks_replaced"] = float(

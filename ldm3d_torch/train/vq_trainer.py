@@ -31,31 +31,45 @@ from ldm3d_torch.models.layers import _BatchNorm, init_params_
 from ldm3d_torch.models.quantizers import (Draws, QuantAux,
                                            replace_unused_codebooks,
                                            replace_unused_codebooks_staged)
+from ldm3d_torch.models.emavqvae import EMASkipTrainable
 from ldm3d_torch.models.vqvae import VQVAE
+from ldm3d_torch.models.vqvae_legacy import LegacyVQVAE
 from ldm3d_torch.ops.metrics import volume_psnr, volume_ssim
 from ldm3d_torch.ops.quantize import perplexity_from_counts
 
-def check_family(cfg: VQVAEConfig) -> None:
-    """NotImplementedError unless `cfg` is of the one ported family."""
+def make_stage1(cfg: VQVAEConfig) -> nn.Module:
+    """The model of `cfg.family`: "monai" (`VQVAE`), "ema_skip"
+    (`EMASkipTrainable`: num_channels[0] filters, the quantizer's K and D)
+    or "legacy" (`LegacyVQVAE` of legacy_mode and legacy_down). Each
+    maps NDHWC volumes and draws to (reconstruction, QuantAux)."""
+    if cfg.family == "ema_skip":
+        return EMASkipTrainable(
+            num_channels=cfg.out_channels, num_filters=cfg.num_channels[0],
+            embedding_dim=cfg.quantizer.embedding_dim,
+            num_embeddings=cfg.quantizer.num_embeddings,
+            in_channels=cfg.in_channels)
+    if cfg.family == "legacy":
+        return LegacyVQVAE(
+            latent_dim=cfg.quantizer.embedding_dim,
+            num_embeddings=cfg.quantizer.num_embeddings,
+            mode=cfg.legacy_mode, down=cfg.legacy_down,
+            out_channels=cfg.out_channels, in_channels=cfg.in_channels)
     if cfg.family != "monai":
-        raise NotImplementedError(
-            f"VQVAEConfig.family={cfg.family!r} is not ported yet; see "
-            "ROADMAP queue 1 item 7 ('legacy': the functional VQ-VAE of "
-            "--vqvae_mode; 'ema_skip': the skip-connection EMA VQ-VAE); "
-            "the port has 'monai'")
+        raise ValueError(f"unknown VQ-VAE family {cfg.family!r}")
+    return VQVAE(cfg)
 
 
 class VQTrainer:
-    """Trains a `VQVAE` on one device. The model is in training mode only
-    inside `train_step` and `recalibrate_batch_stats`."""
+    """Trains a stage-1 model of `cfg.family` (`make_stage1`) on one
+    device. The model is in training mode only inside `train_step` and
+    `recalibrate_batch_stats`."""
 
     def __init__(self, cfg: VQVAEConfig,
                  train_cfg: Optional[TrainConfig] = None, device=None):
-        check_family(cfg)
         self.cfg = cfg
         self.train_cfg = train_cfg or TrainConfig()
         self.device = resolve_device(device)
-        self.model = VQVAE(cfg).to(self.device).eval()
+        self.model = make_stage1(cfg).to(self.device).eval()
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.train_cfg.seed)
         tc = self.train_cfg

@@ -9,7 +9,9 @@ are exactly the JAX package's: '/'-joined flax paths under their
 collection, `params/unet/down_res_0_0/conv1/kernel`,
 `ema_params/down_res_0_0/...`, `batch_stats/unet/...`,
 `vq_stats/vqvae/quantizer/codebooks_used` (a stage-1:
-`params/encoder/...`, `vq_stats/quantizer/...`), in the flax layout (`convert.flax_state`). So a snapshot written here loads in the
+`params/encoder/...`, `vq_stats/quantizer/...`; a VQ-GAN:
+`params/{ae,disc3d,disc2d,lpips}/...`, `vq_stats/quantizer/...`), in the
+flax layout (`convert.flax_state`). So a snapshot written here loads in the
 JAX package's `load_state_npz`, and one written there loads here. Loading
 is strict, as there: a missing, extra or reshaped array raises.
 
@@ -33,10 +35,13 @@ _COLLECTIONS = ("params", "ema_params", "vq_stats", "batch_stats")
 
 
 def _arrays(module: nn.Module, prefix: str = "") -> Dict[str, np.ndarray]:
-    """{collection/flax path: array} of a module's weights and buffers."""
-    return {f"{coll}/{path}": arr
-            for coll, tree in flax_state(module, prefix).items()
-            for path, arr in tree.items()}
+    """{collection/flax path: array} of a module's weights and buffers
+    (a module with a `flax_state()` of its own, the VQ-GAN's networks,
+    maps itself)."""
+    tree = module.flax_state() if hasattr(module, "flax_state") \
+        else flax_state(module, prefix)
+    return {f"{coll}/{path}": arr for coll, t in tree.items()
+            for path, arr in t.items()}
 
 
 def state_arrays(trainer) -> Dict[str, np.ndarray]:
@@ -112,8 +117,8 @@ def load_state_npz(path: str, trainer):
     U-Net when the snapshot has one); its optimizer, step and generator
     are left as they are (a snapshot is for sampling). Returns the
     trainer."""
-    trainer.load_state_dicts(*convert_state(_match(path,
-                                                 state_arrays(trainer))))
+    convert = getattr(trainer, "convert_snapshot", convert_state)
+    trainer.load_state_dicts(*convert(_match(path, state_arrays(trainer))))
     return trainer
 
 

@@ -14,6 +14,8 @@
   JAX's `encode_latents` of the same batches under the port's weights,
   and the trained state, exported and loaded into JAX, samples as the
   port samples from the same snapshot, with JAX's draws injected.
+- Every preset equals the JAX package's; the VQ-GAN modes run on the
+  CPU from the same argv as JAX's at 16^3.
 - The refusals: each unported mode exits with its ROADMAP item, and
   without `--platform cpu` every entry point raises on a machine with no
   GPU, the samplers' default device included.
@@ -42,7 +44,7 @@ from ldm3d.utils import export as jexport
 from ldm3d_torch.cli import main as cli
 from ldm3d_torch.convert import flax_state
 from ldm3d_torch.core.config import flagship_cfg
-from ldm3d_torch.core.presets import get_preset
+from ldm3d_torch.core.presets import get_preset, list_presets
 from ldm3d_torch.data import pipeline
 from ldm3d_torch.data.synthetic import synthetic_batch
 from ldm3d_torch.diffusion.ddpm import sample_latents
@@ -153,14 +155,13 @@ def test_apply_overrides_matches_jax(argv, monkeypatch):
 
 
 def test_stage1_presets_refused():
-    # the presets that still refuse: the VQ-GAN family, the skip EMA
-    # VQ-VAE and the legacy VQ-VAE (ROADMAP queue 1 item 7)
-    for name in ("emavqvae", "vqvae_legacy", "vqgan_attn", "vqgan_stride"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            get_preset(name)
-    for name in ("vqvae_b8_all", "vqvae_5level_test", "vqvae_dm_stage1",
-                 "nsvqvae", "rnsvqvae"):
-        assert get_preset(name).name == name
+    """Every preset of the JAX package builds in the port and equals the
+    JAX package's (the VQ-GAN presets, emavqvae and vqvae_legacy were
+    refused until the VQ-GAN family was ported); an unknown name is still
+    refused."""
+    assert list_presets() == jpresets.list_presets()
+    for name in jpresets.list_presets():
+        _same_fields(get_preset(name), jpresets.get_preset(name), name)
     with pytest.raises(KeyError):
         get_preset("no_such_preset")
 
@@ -453,18 +454,61 @@ def test_trained_state_samples_as_jax(against_jax):
         <= SAMPLE_REL_TOL
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--train_vq", "--preset", "vqgan_attn"], "item 7"),
-    (["--test_vq", "--preset", "vqgan_gnorm"], "item 7"),
+UNPORTED = [
     (["--fidelity_sweep"], "item 5"), (["--sweep", "s.yaml"], "item 5"),
     (["--train_dm", "--synthetic", "--device_data"], "item 5"),
     (["--profile"], "item 5"), (["--coordinator", "h:1"], "item 9"),
     (["--num_processes", "2"], "item 9"), (["--cpu_devices", "4"], "item 9"),
-])
+]
+
+
+# the ids count from 2: cases 0 and 1, the VQ-GAN modes, run now
+# (test_vqgan_modes_run_on_the_cpu)
+@pytest.mark.parametrize("flags,item", UNPORTED, ids=[
+    f"flags{i}-{item}" for i, (_, item) in enumerate(UNPORTED, start=2)])
 def test_unported_modes_exit_with_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"not ported yet; see ROADMAP "
                                          f"queue 1 {item}"):
         cli.main(["--preset", "smoke_cond", "--platform", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--train_vq", "--preset", "vqgan_attn"],
+    ["--test_vq", "--preset", "vqgan_gnorm"]], ids=["train_vq", "test_vq"])
+def test_vqgan_modes_run_on_the_cpu(flags, tmp_path, monkeypatch, capsys):
+    """The VQ-GAN modes (refused until the family was ported): the argv
+    folds into the config the JAX CLI builds from it, and the mode runs
+    at the preset's widths on 16^3 volumes with --platform cpu (--test_vq
+    after a --train_vq of its own)."""
+    monkeypatch.setattr(jax, "device_count", lambda: 1)
+    ref = jcli.apply_overrides(jpresets.get_preset(flags[2]),
+                               jcli.build_parser().parse_args(flags))
+    port = cli.apply_overrides(get_preset(flags[2]),
+                               cli.build_parser().parse_args(flags))
+    _same_fields(port, ref)
+    assert port.model == "vqgan"
+    base = ["--preset", flags[2], "--platform", "cpu", "--volume_size",
+            "16", "--cache_dir", str(tmp_path / "c"), "--ckpt_dir",
+            str(tmp_path / "k"), "--out_dir", str(tmp_path / "o"),
+            "--val_perc", "0.34", "--synthetic", "--num_synthetic", "6",
+            "--disc_threshold", "1"]
+    with pytest.warns(UserWarning, match="LPIPS"):
+        cli.main(base + ["--train_vq", "--epochs",
+                         "2" if flags[0] == "--train_vq" else "1"])
+    out = capsys.readouterr().out
+    if flags[0] == "--train_vq":
+        # epoch 1 warm, epoch 2 adversarial
+        assert "epoch 2/2" in out and "val_disc_loss" in out
+        log = (tmp_path / "k" / "vqgan_attn_vq" / "training.log")
+        rows = [r.split(",") for r in log.read_text().splitlines()]
+        col = rows[0].index("disc_loss")
+        assert float(rows[1][col]) == 0.0 and float(rows[2][col]) > 0.0
+        return
+    cli.main(base + ["--test_vq"])
+    out = capsys.readouterr().out
+    assert "testing epoch 1" in out and "mean reconst MSE" in out
+    recon = np.load(tmp_path / "o" / "reconst_0.npy")
+    assert recon.shape == (2, 16, 16, 16, 1) and np.isfinite(recon).all()
 
 
 def test_entry_points_need_a_gpu_or_platform_cpu(tmp_path):

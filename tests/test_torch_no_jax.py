@@ -8,7 +8,10 @@ builds a NIfTI response, runs the tiny training slice (encode, latent
 scale, steps on volumes and on latents) and a latent-FID evaluation on the
 CPU, then the command line at `smoke_cond` (--create_dataset, --train_dm
 --cache_latents, --resume_ckpt -1, --test_dm) and serves from its
-checkpoint, and stage-1 at `smoke` (--train_vq, --test_vq). The sources of the port (every module under `ldm3d_torch/`,
+checkpoint, stage-1 at `smoke` (--train_vq, --test_vq) and the VQ-GAN
+at `vqgan_attn` on 16^3 volumes (--train_vq for a warm and an
+adversarial epoch, --test_vq). The sources of the port (every module
+under `ldm3d_torch/`,
 so the CLI, data, checkpoint and export modules too) and of
 `chip_smoke.py` are also searched for such imports.
 """
@@ -92,6 +95,12 @@ with tempfile.TemporaryDirectory() as d:
     cli_main(s1 + ["--train_vq", "--epochs", "1"])
     cli_main(s1 + ["--test_vq"])
     import os
+    assert os.path.exists(d + "/out/reconst_0.npy")
+    os.remove(d + "/out/reconst_0.npy")
+    gan = ["--preset", "vqgan_attn", "--volume_size", "16",
+           "--disc_threshold", "1"] + base[2:]
+    cli_main(gan + ["--train_vq", "--epochs", "2"])
+    cli_main(gan + ["--test_vq"])
     assert os.path.exists(d + "/out/reconst_0.npy")
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)

@@ -11,7 +11,9 @@
   stage-1 that was trained with the diffusion preset's own VQ-VAE, and
   refuses one of another architecture before loading anything;
 - `fit`'s validation pass, plateau schedule and replacement on a stub;
-- the stage-1 modes that still refuse (ROADMAP queue 1 item 7).
+- the stage-1 models that were refused before the VQ-GAN family was
+  ported (emavqvae, vqvae_legacy, --vqvae_mode) build the JAX CLI's
+  config from the same argv and run.
 """
 
 import json
@@ -23,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from ldm3d.cli import main as jcli
 from ldm3d.core import presets as jpresets
 from ldm3d.core.config import TrainConfig as JTrainConfig
 from ldm3d.train.vq_trainer import VQTrainer as JVQTrainer
@@ -35,6 +38,7 @@ from ldm3d_torch.train.checkpoint import CheckpointManager
 from ldm3d_torch.train.loop import fit
 from ldm3d_torch.train.vq_trainer import VQTrainer
 from ldm3d_torch.utils import export
+from test_torch_cli import _same_fields
 from test_torch_samplers import FAST
 
 # Reconstructions from one float16 snapshot: the same float32 VQ-VAE in
@@ -204,14 +208,44 @@ def test_fit_validation_schedule_and_replacement(capsys):
     ["--preset", "emavqvae", "--train_vq"],
     ["--preset", "vqvae_legacy", "--test_vq"],
     ["--preset", "smoke", "--train_vq", "--vqvae_mode", "2"],
-    # an unported preset refuses in every mode, before any work
     ["--preset", "vqgan_stride", "--train_dm"],
     ["--preset", "emavqvae", "--create_dataset", "--synthetic"],
 ])
-def test_unported_stage1_models_exit_with_item_7(argv):
-    with pytest.raises(SystemExit, match="not ported yet; see ROADMAP "
-                                         "queue 1 item 7"):
-        cli.main(argv + ["--platform", "cpu"])
+def test_unported_stage1_models_exit_with_item_7(argv, tmp_path,
+                                                 monkeypatch):
+    """These models exited with ROADMAP queue 1 item 7 until they were
+    ported. Now each argv folds into the config the JAX CLI builds from
+    it, and its mode runs on the CPU at 16^3 (a --test_vq after a
+    --train_vq of its own); --train_dm of a VQ-GAN preset trains the
+    preset's 128^3 diffusion model, so that case checks the config
+    only."""
+    monkeypatch.setattr(jax, "device_count", lambda: 1)
+    ref = jcli.apply_overrides(jpresets.get_preset(argv[1]),
+                               jcli.build_parser().parse_args(argv))
+    cfg, _ = _parse(argv)
+    _same_fields(cfg, ref)
+    if "--train_dm" in argv:
+        return
+    base = _argv(tmp_path, argv[1]) + ["--volume_size", "16", "--lbs", "1",
+                                       "--num_synthetic", "3",
+                                       "--synthetic", "--epochs", "1"]
+    if "--test_vq" in argv:
+        cli.main(base + ["--train_vq"])
+    cli.main(base + argv[2:])
+    if "--create_dataset" in argv:
+        assert (tmp_path / "cache" / "manifest.json").exists()
+        return
+    if "--test_vq" in argv:
+        recon = np.load(tmp_path / "out" / "reconst_0.npy")
+        assert recon.shape == (1, 16, 16, 16, 1)
+        return
+    state, epoch = CheckpointManager(
+        str(tmp_path / "ckpt" / f"{argv[1]}_vq")).restore()
+    assert epoch == 1 and state["step"] == 2
+    family = "ema_skip" if argv[1] == "emavqvae" else "legacy"
+    trainer = VQTrainer(cfg.vqvae, device="cpu")
+    assert cfg.vqvae.family == family
+    trainer.load_state_dict(state)
 
 
 def test_test_vq_needs_a_validation_split(tmp_path):
