@@ -4,6 +4,10 @@
     python3 chip_smoke.py                        # every phase below
     python3 chip_smoke.py --train-compare-check  # device, build, train and
                                                  # train_compare_check only
+    python3 chip_smoke.py --gan-compare-check    # device, build, and the
+                                                 # VQ-GAN steps at 64^3: the
+                                                 # card and a float32 CPU
+                                                 # twin against float64
 
 Phases, one line each (flush=True); any failure raises and the exit code is
 not 0:
@@ -19,6 +23,11 @@ not 0:
                 plain versions, untimed
   4. attention_grad  gradients through the attention kernel's autograd
                 Function against plain autograd, at the train shape
+     init       the trainers' JAX init (init_random, scheme "jax") at full
+                width on the card: flagship stage 2, flagship stage 1 and
+                vqgan_attn with its critics and LPIPS; every zero-init
+                tensor exactly zero, each kind's standard deviation within
+                10 % (the random-weight checks below use scheme "reach")
   5. unet_step  one full-width U-Net step on the card against the CPU, f32
                 with TF32 off
   6. serve      main path 1: GenerationService at full flagship width from a
@@ -26,12 +35,16 @@ not 0:
                 in process; the launch counters are zeroed before the
                 first and read after the last
   7. breakdown  a request's U-Net step and decode times
+     serve_profile  one unguided DDPM step (U-Net + sampler) at batch 16,
+                timed with utils/profiling's StepTimer and profiled with
+                its profile_steps: kernels per step, device ms, the busy
+                share, the kernel groups
      serve_samplers  main path 3: the same service answers DDIM, DPM++ and
                 DPM++ SDE requests, guided ones (the U-Net at 2 x num) and
                 one through a v-prediction twin of the weights, and the
                 trainer samples latents only (decode=False); the counters
                 are zeroed before the first and read after the last; then
-                U-Net step times at batch 16, 32 and 64
+                U-Net step times at batch 16 and 32
      sampler_compare  guided DDIM (eta 0.5) and DPM++ SDE, 3 steps at
                 num 2 with injected noise, on the card (kernel) against
                 the CPU (plain), f32 with TF32 off
@@ -62,8 +75,12 @@ not 0:
                 batches, 12 attention launches per U-Net call); the
                 epoch-1 checkpoint restored into a fresh trainer equals the
                 saving one and takes the same step; --resume_ckpt -1 to
-                epoch 2; --test_dm DDIM 10; from_checkpoint serves DDIM 20
-                at num 16 within 1e-5 of the trainer's own generate
+                epoch 2; --test_dm DDIM 10; --fidelity_sweep over DDIM 10 /
+                DPM++ 10 x unguided / guided 3 at 16 samples with per-class
+                FID (four rows, both kernels); --test_dm --profile (DDIM 2),
+                whose Chrome trace must name the attention kernel;
+                from_checkpoint serves DDIM 20 at num 16 within 1e-5 of the
+                trainer's own generate
      quantizers  (after encode) each of the five quantizer kinds, one
                 training-mode forward and backward at 1,024 rows, K = 64,
                 on the card against the CPU with injected draws
@@ -77,9 +94,13 @@ not 0:
                 PSNR card vs CPU, --train_dm --cache_latents
                 --vqvae_load_ckpt <that stage-1> --test_run one epoch (2
                 codebook, 24 attention launches), one step each of
+                a --sweep over two learning rates (one epoch each, 2 x 3
+                launches); one --train_vq --synthetic --device_data epoch
+                (3), and the DeviceSyntheticLoader's first batch equal to
+                the cache DataLoader's, bit for bit, on the native reader;
                 nsvqvae (1 launch) and rnsvqvae (4); then, uncounted, the
                 stage-1 step's time and peak memory with remat full, conv
-                and off (3 steps each on one trainer)
+                and off (2 steps each on one trainer) and its profile
  14. train_gan  main path 7: the VQ-GAN. A warm and an adversarial step of
                 vqgan_attn at full width (R1 and the adaptive weight on,
                 32^3) on the card, f32 with TF32 off, against a float64
@@ -92,19 +113,23 @@ not 0:
                 and 2) at 128^3 (1 each); attention launches 0
                 throughout; then, uncounted, the 128^3 warm, adversarial
                 and R1 + adaptive step times, the eval time and the peak
-                memory
+                memory, and the R1 + adaptive step's profile and split (R1
+                and the adaptive weight each on and off, VGG16 alone)
  15. kernels    one JSON line with the whole run's kernel numbers
  16. last line  {"ok": true, "device": {...}}
-No socket, no profiler trace; the only threads are the CLI's data loader
-prefetchers, joined when their epoch ends. Nothing is written but the
-kernel build under ldm3d_torch/_build/ and the cli and train_vq phases'
-temporary directories. Imports nothing of JAX.
+No socket; one profiler trace, written in the cli phase's temporary
+directory; the threads are the CLI's data loader prefetchers, joined when
+their epoch ends, and the native reader's pool. Nothing is written but
+the builds under ldm3d_torch/_build/ (the kernels and the native reader)
+and the cli, train_vq and train_gan phases' temporary directories.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
 import io
 import json
 import os
@@ -129,9 +154,10 @@ from ldm3d_torch.cli import main as cli  # noqa: E402
 from ldm3d_torch.core.config import (QuantizerConfig,  # noqa: E402
                                      TrainConfig, flagship_cfg, replace)
 from ldm3d_torch.core.presets import get_preset  # noqa: E402
-from ldm3d_torch.data.pipeline import train_val_split  # noqa: E402
+from ldm3d_torch.data.pipeline import (  # noqa: E402
+    DeviceSyntheticLoader, train_val_split)
 from ldm3d_torch.models import unet3d  # noqa: E402
-from ldm3d_torch.models.layers import init_params_  # noqa: E402
+from ldm3d_torch.models.layers import _fans, init_params_  # noqa: E402
 from ldm3d_torch.models.quantizers import Draws, make_quantizer  # noqa: E402
 from ldm3d_torch.models.unet3d import (AttentionBlock,  # noqa: E402
                                        CrossAttentionBlock, TimeEmbedding,
@@ -145,6 +171,7 @@ from ldm3d_torch.train.dm_trainer import (DiffusionTrainer,  # noqa: E402
                                           LatentDiffusion, auto_latent_scale)
 from ldm3d_torch.train.gan_trainer import GANTrainer  # noqa: E402
 from ldm3d_torch.train.vq_trainer import VQTrainer  # noqa: E402
+from ldm3d_torch.utils import profiling  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense), at a 700 W limit:
 # the tensor cores' rate for each input type (float32 at the TF32 rate,
@@ -226,7 +253,12 @@ TRAIN_STEPS = 3        # steps on volumes, then as many on cached latents
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 TRAIN_DELTA_ATOL = 1e-2 * TrainConfig().learning_rate
-PROFILE_TOP = 15       # kernels listed by the train step's profile
+PROFILE_STEPS = 3      # steps under the profiler, per profiled step
+PROFILE_TIMED = 10     # steps timed by StepTimer, after 2 untimed
+# The init phase: the standard deviation of each tensor of at least
+# INIT_MIN_N elements against its kind's (two draws of n >= 4,096
+# elements differ by about sqrt(2 / n) < 2.3 %), and exact zeros.
+INIT_MIN_N, INIT_STD_RTOL = 4096, 0.10
 # Main path 5 (`cli`): the port's command line, in process. These flags
 # make the conditional_dm3d preset the flagship (the phase checks that the
 # DiffusionConfig equals flagship_cfg()).
@@ -240,6 +272,14 @@ CLI_KEEP = 2                   # checkpoints kept: at most two saves
 CLI_TEST_STEPS = 10            # --test_dm --sampler ddim --sample_steps
 CLI_REQUEST = dict(num=16, context=1, sampler="ddim", sample_steps=20,
                    seed=21)
+# --fidelity_sweep on the checkpoint: 2 samplers x 2 guidance scales at
+# 16 samples (4 per class, one batch of 16 per class); --test_dm
+# --profile with few steps, so that the trace stays small
+CLI_FIDELITY_STEPS = 10
+CLI_FIDELITY_SWEEP = ["--sweep_samplers", "ddim:10,dpmpp:10",
+                      "--guidance_grid", "none,3", "--fidelity_samples",
+                      "16", "--fidelity_by_class"]
+CLI_PROFILE_STEPS = 2
 # Resume: a restored trainer and the one that saved it take one latent
 # step from the same state with the same injected draws, cuDNN
 # deterministic: 0 is expected (the same kernels on the same inputs);
@@ -268,7 +308,12 @@ TRAIN_VQ_VOLUMES, TRAIN_VQ_LBS = 24, 8
 TRAIN_VQ_VAL = 0.34        # 8 held-out volumes: one validation batch
 TRAIN_VQ_SIZE = 128        # the volume of the direct steps (nsvq, rnsvq,
                            # remat on / off)
-REMAT_STEPS = 3            # timed stage-1 steps per remat setting
+REMAT_STEPS = 2            # timed stage-1 steps per remat setting
+# --sweep inside train_vq: a grid of two learning rates, one epoch each
+TRAIN_VQ_SWEEP = ("method: grid\nmetric:\n  name: val_loss\n"
+                  "  goal: minimize\nparameters:\n  lr:\n"
+                  "    values: [0.0001, 0.0003]\n  epochs:\n"
+                  "    value: 1\n")
 # SSIM and PSNR of the card against the CPU on the same volumes: the
 # window's sums in float32 in other orders; SSIM 1e-5 absolute, PSNR
 # 1e-5 relative.
@@ -292,13 +337,15 @@ SSIM_ATOL, PSNR_RTOL = 1e-5, 1e-5
 #    1e-4 of each tensor's largest value.
 GAN_FLAGS = ["--preset", "vqgan_attn"]
 GAN_COMPARE_SIZE, GAN_BATCH = 32, 2
+GAN_CHECK_SIZE = 64          # --gan-compare-check: the card at 64^3
 GAN_METRIC_RTOL, GAN_GRAD_RTOL, GAN_STATS_RTOL = 1e-4, 1e-3, 1e-4
 # the command line at 128^3: 6 volumes, --val_perc 0.34 -> 4 training
 # volumes (2 steps at the preset's batch 2) and one validation batch;
 # --disc_threshold 1: epoch 1 warm, epoch 2 adversarial
 GAN_VOLUMES, GAN_VAL = 6, 0.34
 GAN_CLI = ["--disc_threshold", "1", "--epochs", "2"]
-GAN_TIMED_STEPS = 3          # timed steps per program at 128^3
+GAN_TIMED_STEPS = 2          # timed steps per program at 128^3
+GAN_SPLIT_STEPS = 2          # timed steps per variant of the R1 split
 # one step each at 128^3: (preset, extra flags, adversarial)
 GAN_OTHERS = [("vqgan_attn_sym", [], True), ("vqgan_baseline", [], True),
               ("vqgan_gnorm", [], True), ("vqgan_stride", [], True),
@@ -675,6 +722,112 @@ def phase_unet_step(trainer: DiffusionTrainer) -> None:
                            f"{step_launches}")
 
 
+def _init_report(module: torch.nn.Module) -> dict:
+    """Per kernel init kind of `module` (`init_jax_`): the tensors, the
+    zero-initialised ones that are not exactly zero, and the worst ratio
+    of measured to expected standard deviation over the tensors of at
+    least INIT_MIN_N elements (glorot-uniform limit / sqrt 3, lecun-normal
+    1 / sqrt(fan_in), embeddings 1 / sqrt(features))."""
+    out: Dict[str, dict] = {}
+    for name, m in module.named_modules():
+        if isinstance(m, torch.nn.Embedding):
+            kind, expect = "embed", m.embedding_dim ** -0.5
+        else:
+            kind = getattr(m, "kernel_init", None)
+            if kind is None and isinstance(m, torch.nn.Linear):
+                kind = "glorot_uniform"
+            if kind is None:
+                continue
+            fan_in, fan_out = _fans(m.weight)
+            expect = {"glorot_uniform": (2.0 / (fan_in + fan_out)) ** 0.5,
+                      "lecun_normal": fan_in ** -0.5}.get(kind)
+        w = m.weight.detach()
+        e = out.setdefault(kind, dict(tensors=0, nonzero=[],
+                                      worst_std_ratio=1.0, checked=0))
+        e["tensors"] += 1
+        if kind == "zeros":
+            if w.any():
+                e["nonzero"].append(name)
+            continue
+        if expect is None or w.numel() < INIT_MIN_N:
+            continue
+        ratio = float(w.float().std()) / expect
+        e["checked"] += 1
+        if abs(ratio - 1.0) > abs(e["worst_std_ratio"] - 1.0):
+            e["worst_std_ratio"] = ratio
+    return out
+
+
+def phase_init(card: str) -> None:
+    """The trainers' JAX init (`init_random`, scheme "jax") at full width
+    on the card: the flagship stage 2, the flagship stage 1 and vqgan_attn
+    with its critics and LPIPS (calibrated after init). Every
+    zero-initialised tensor must be exactly zero and every checked
+    standard deviation within INIT_STD_RTOL of its kind's."""
+    cfg = flagship_cfg()
+    s1 = get_preset("vqvae_dm_stage1")
+    gan = get_preset("vqgan_attn")
+    builds = (
+        ("stage2", lambda: DiffusionTrainer(cfg, device="cuda")
+         .init_random(SEED), lambda tr: tr.model),
+        ("stage1", lambda: VQTrainer(replace(cfg.vqvae, remat=True),
+                                     s1.train, device="cuda")
+         .init_random(SEED), lambda tr: tr.model),
+        ("vqgan_attn", lambda: GANTrainer(gan.vqgan, gan.train,
+                                          device="cuda",
+                                          volume_size=gan.data.volume_size)
+         .init_random(SEED), lambda tr: tr.model))
+    bad = []
+    for name, build, model in builds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")       # the LPIPS surrogate
+            tr = build()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        report = _init_report(model(tr))
+        params = sum(p.numel() for p in model(tr).parameters())
+        say("init", trainer=name, scheme="jax", init_s=init_s,
+            parameters=params, kinds=report, tol=INIT_STD_RTOL, card=card)
+        for kind, e in report.items():
+            if e["nonzero"] or abs(e["worst_std_ratio"] - 1) > INIT_STD_RTOL:
+                bad.append((name, kind, e["nonzero"][:3],
+                            e["worst_std_ratio"]))
+        if "zeros" not in report and name == "stage2":
+            bad.append((name, "no zero-initialised layer"))
+        del tr
+        torch.cuda.empty_cache()
+    if bad:
+        raise RuntimeError(f"init: {bad}")
+
+
+def phase_serve_profile(trainer: DiffusionTrainer, card: str) -> None:
+    """Where the served step's time goes, after the counted path: one
+    unguided DDPM step of the U-Net and the sampler at the served batch
+    (`generate` down to T - 1, no decode), timed with `StepTimer` and
+    profiled over PROFILE_STEPS steps (kernels by kind, the device's busy
+    share). Launches here are not counted."""
+    cfg = trainer.cfg
+    num = REQUESTS[0]["num"]
+    shape = _latent_shape(cfg, num)
+    ctx = torch.full((num,), REQUESTS[0]["context"], dtype=torch.long,
+                     device=trainer.device)
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 50)
+
+    def step():
+        return trainer.generate(shape, ctx, generator=gen, sampler="ddpm",
+                                last_step=cfg.timesteps - 1, decode=False)
+    timer = profiling.StepTimer(warmup=2)
+    for _ in range(PROFILE_TIMED + 2):
+        timer.time_step(step)
+    timed = timer.summary()
+    prof = profiling.profile_steps(step, PROFILE_STEPS,
+                                   1e3 * timed["p50_s"])
+    say("serve_profile", batch=num, sampler="ddpm", guided=False,
+        step_timer=timed, **prof, card=card)
+
+
 def phase_serve(svc: GenerationService, card: str) -> dict:
     cfg = svc.cfg
     calls_per_request = attention_calls_per_step(svc.trainer.model.unet) \
@@ -820,7 +973,7 @@ def phase_serve_samplers(svc: GenerationService, card: str) -> dict:
     torch.cuda.empty_cache()
     step_ms = {}
     with torch.no_grad():
-        for b in (16, 32, 64):
+        for b in (16, 32):
             x = torch.randn(_latent_shape(cfg, b), generator=gen,
                             device="cuda")
             t = torch.full((b,), 250, device="cuda")
@@ -964,7 +1117,7 @@ def phase_train(card: str) -> dict:
     cfg = flagship_cfg()
     tc = TrainConfig(batch_size=TRAIN_BATCH, ema_decay=0.999, seed=SEED)
     trainer = DiffusionTrainer(cfg, device="cuda",
-                               train_cfg=tc).init_random(SEED)
+                               train_cfg=tc).init_random(SEED, "reach")
     rng = np.random.default_rng(SEED + 3)
     size = cfg.volume_size
     vols = [_seeded_volumes(rng, TRAIN_BATCH, size).cuda() for _ in range(2)]
@@ -1183,53 +1336,6 @@ def phase_train_compare_check(trainer: DiffusionTrainer, lat: torch.Tensor
         **report)
 
 
-_KERNEL_GROUPS = (  # first match wins, by substring of the kernel name
-    ("voxel_attention kernel", ("voxel_attention",)),
-    ("codebook kernel", ("codebook_nearest",)),
-    ("adam + ema (foreach)", ("multi_tensor_apply",)),
-    ("conv (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad")),
-    ("gemm (cuBLAS)", ("gemm", "gemv", "kernel2")),
-)
-
-
-def _profile_step(trainer: DiffusionTrainer, lat: torch.Tensor,
-                  ctx: torch.Tensor, step_ms: float, steps: int = 2) -> dict:
-    """Device time by kernel over `steps` latent steps (torch.profiler),
-    grouped by kind; the device's busy share against the unprofiled step
-    time `step_ms` (the profiler's own host work slows the step)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            trainer.train_step_latents(lat, ctx)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
-         for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA
-         and not getattr(e, "is_user_annotation", False)
-         and e.self_device_time_total > 0), key=lambda k: -k[1])
-    groups: Dict[str, float] = {name: 0.0 for name, _ in _KERNEL_GROUPS}
-    groups["other"] = 0.0
-    for name, ms, _ in kernels:
-        group = next((g for g, words in _KERNEL_GROUPS
-                      if any(w in name.lower() for w in words)), "other")
-        groups[group] += ms
-    device_ms = sum(ms for _, ms, _ in kernels)
-    return dict(steps=steps, step_ms=step_ms,
-                profiled_wall_ms_per_step=wall_ms / steps,
-                device_ms_per_step=device_ms,
-                busy_share=device_ms / step_ms,
-                kernels_per_step=sum(n for _, _, n in kernels),
-                groups_ms_per_step=groups,
-                top=[[name[:90], ms, n] for name, ms, n in
-                     kernels[:PROFILE_TOP]])
-
-
 def phase_train_breakdown(train: dict, attn_case: dict) -> None:
     """Where a train step's time goes, after the counted path: steady-state
     encode and step times, the attention calls' forward (kernel) and
@@ -1261,7 +1367,8 @@ def phase_train_breakdown(train: dict, attn_case: dict) -> None:
         attention_fwd_bwd_eager_ms_per_step=calls * fwd_bwd_ms,
         attention_share_of_latent_step=calls * fwd_bwd_ms / lat_ms,
         max_memory_allocated=train["peak"])
-    say("train_profile", **_profile_step(trainer, batch, ctx, lat_ms))
+    say("train_profile", **profiling.profile_steps(
+        lambda: trainer.train_step_latents(batch, ctx), 2, lat_ms))
 
 
 def _checkpoint_bytes(cfg) -> int:
@@ -1356,13 +1463,15 @@ def phase_cli(card: str) -> dict:
     counts = {attn.KERNEL: 0, cbq.KERNEL: 0}
     counted = partial(_counted, counts)
 
-    def parse(*extra):
-        argv = CLI_FLAGSHIP + ["--cache_dir", os.path.join(tmp, "cache"),
+    def argv(*extra):
+        return CLI_FLAGSHIP + ["--cache_dir", os.path.join(tmp, "cache"),
                                "--ckpt_dir", os.path.join(tmp, "ckpt"),
                                "--out_dir", os.path.join(tmp, "out"),
                                "--platform", "gpu" if dev == "cuda"
                                else "cpu", *extra]
-        args = cli.build_parser().parse_args(argv)
+
+    def parse(*extra):
+        args = cli.build_parser().parse_args(argv(*extra))
         return cli.apply_overrides(get_preset(args.preset), args), args
 
     real_encode, real_save = cli._encode_corpus, CheckpointManager.save
@@ -1523,6 +1632,54 @@ def phase_cli(card: str) -> dict:
             raise RuntimeError(f"cli test_dm: shapes {shapes_ok}, finite "
                                f"{finite}, launches {got3}")
         del vols
+
+        cfg, args = parse("--fidelity_sweep", "--lbs", str(CLI_LBS),
+                          *CLI_FIDELITY_SWEEP)
+        rows, sweep_s, got5 = counted(cli.run_fidelity_sweep, cfg, args)
+        tr_idx, va_idx = train_val_split(CLI_VOLUMES, cfg.train.val_fraction,
+                                         cfg.train.seed)
+        real = va_idx if len(va_idx) >= CLI_LBS else tr_idx
+        n_ctx = cfg.diffusion.unet.context_dim + 1
+        samples = int(CLI_FIDELITY_SWEEP[
+            CLI_FIDELITY_SWEEP.index("--fidelity_samples") + 1])
+        gens = n_ctx * -(-(samples // n_ctx) // min(samples, 16))
+        expect5 = {attn.KERNEL: calls * CLI_FIDELITY_STEPS * gens
+                   * len(rows), cbq.KERNEL: len(real) // CLI_LBS}
+        names = [os.path.basename(p) for p in glob.glob(
+            os.path.join(tmp, "out", "fidelity_sweep_*"))]
+        rows_ok = len(rows) == 4 and all(
+            np.isfinite(r["latent_fid"]) and "fid_class_sep" in r
+            for r in rows)
+        say("cli", step="fidelity_sweep", flags=CLI_FIDELITY_SWEEP,
+            rows=rows, files=sorted(names), wall_s=sweep_s, launches=got5,
+            expected=expect5, card=card)
+        if not rows_ok or got5 != expect5 or len(names) != 2:
+            raise RuntimeError(f"cli fidelity_sweep: rows {rows}, launches "
+                               f"{got5}, files {names}")
+
+        profiled = ("--test_dm", "--sampler", "ddim", "--sample_steps",
+                    str(CLI_PROFILE_STEPS), "--profile")
+        cfg, _ = parse(*profiled)
+        _, prof_s, got6 = counted(cli.main, argv(*profiled))
+        expect6 = {attn.KERNEL: calls * CLI_PROFILE_STEPS * n_ctx,
+                   cbq.KERNEL: 0}
+        traces = glob.glob(os.path.join(cfg.ckpt_dir, "trace",
+                                        "*.pt.trace.json"))
+        kernels = set()
+        for path in traces:
+            with open(path) as f:
+                kernels |= {e.get("name", "") for e in
+                            json.load(f).get("traceEvents", [])
+                            if e.get("cat") == "kernel"}
+        named = sorted(k for k in kernels if attn.KERNEL in k)
+        say("cli", step="test_dm_profile", wall_s=prof_s,
+            traces=[os.path.basename(t) for t in traces],
+            trace_bytes=[os.path.getsize(t) for t in traces],
+            device_kernel_names=len(kernels), attention_kernels=named,
+            launches=got6, expected=expect6, card=card)
+        if len(traces) != 1 or not named or got6 != expect6:
+            raise RuntimeError(f"cli --profile: traces {traces}, attention "
+                               f"kernels {named}, launches {got6}")
 
         meta_cfg = cli._adopt_dm_meta(*parse())
         svc = GenerationService.from_checkpoint(meta_cfg, ckpt_dir, ema=True,
@@ -1844,13 +2001,65 @@ def phase_train_vq(card: str) -> dict:
         del dm
         torch.cuda.empty_cache()
 
+        # --sweep over two learning rates, one epoch each, on the corpus
+        spec = os.path.join(tmp, "sweep.yaml")
+        with open(spec, "w") as f:
+            f.write(TRAIN_VQ_SWEEP)
+        cfg, args = parse(TRAIN_VQ_FLAGS, "--sweep", spec, "--lbs",
+                          str(TRAIN_VQ_LBS), "--val_perc", str(TRAIN_VQ_VAL),
+                          "--ckpt_dir", os.path.join(tmp, "sweep"))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            recs, sweep_s, got4 = _counted(counts, cli.run_sweep, cfg, args)
+        print(out.getvalue(), end="", flush=True)
+        expect4 = {attn.KERNEL: 0,
+                   cbq.KERNEL: len(recs) * (steps + val_batches)}
+        recs_ok = len(recs) == 2 and all(
+            "error" not in r and np.isfinite(r["metrics"].get("val_loss",
+                                                              np.nan))
+            for r in recs)
+        say("train_vq", step="sweep", records=recs, wall_s=sweep_s,
+            launches=got4, expected=expect4, card=card)
+        if not recs_ok or got4 != expect4:
+            raise RuntimeError(f"train_vq sweep: records {recs}, launches "
+                               f"{got4}")
+
+        # --device_data: the same corpus computed on the card, one epoch
+        dd = (TRAIN_VQ_FLAGS, "--synthetic", "--device_data", "--lbs",
+              str(TRAIN_VQ_LBS), "--val_perc", str(TRAIN_VQ_VAL),
+              "--num_synthetic", str(TRAIN_VQ_VOLUMES))
+        cfg, args = parse(*dd, "--train_vq", "--epochs", "1", "--ckpt_dir",
+                          os.path.join(tmp, "device_data"))
+        m_dd, dd_s, got5 = _counted(counts, cli.run_train_vq, cfg, args)
+        expect5 = {attn.KERNEL: 0, cbq.KERNEL: steps + val_batches}
+        dev_train, _ = cli._loaders(cfg, args, torch.device(dev))
+        cfg_c, args_c = parse(TRAIN_VQ_FLAGS, "--lbs", str(TRAIN_VQ_LBS),
+                              "--val_perc", str(TRAIN_VQ_VAL))
+        cache_train, _ = cli._loaders(cfg_c, args_c, torch.device(dev))
+        a, b = (next(iter(ld)) for ld in (cache_train, dev_train))
+        same = all(x.dtype == y.dtype and torch.equal(x, y)
+                   for x, y in zip(a, b))
+        say("train_vq", step="device_data", loader=type(dev_train).__name__,
+            cache_loader_reader=cache_train.reader,
+            first_batch_bitwise=same, run_s=dd_s, steps=m_dd.step,
+            launches=got5, expected=expect5, card=card)
+        if (got5 != expect5 or not same or m_dd.step != steps
+                or cache_train.reader != "native"
+                or not isinstance(dev_train, DeviceSyntheticLoader)):
+            raise RuntimeError(f"train_vq device_data: launches {got5}, "
+                               f"first batch equal {same}, reader "
+                               f"{cache_train.reader}")
+        del m_dd, a, b
+        torch.cuda.empty_cache()
+
         rng = np.random.default_rng(SEED + 13)
         vol, mask = _vq_batch(rng, TRAIN_VQ_LBS, TRAIN_VQ_SIZE, dev)
         others = {}
         for preset, per_step in (("nsvqvae", 1), ("rnsvqvae", 4)):
             pcfg = get_preset(preset)
             tc = replace(pcfg.train, batch_size=TRAIN_VQ_LBS)
-            tr = VQTrainer(pcfg.vqvae, tc, device=dev).init_random(SEED)
+            tr = VQTrainer(pcfg.vqvae, tc, device=dev).init_random(
+                SEED, "reach")
             m, wall, got = _counted(counts, tr.train_step, vol, mask)
             finite = all(np.isfinite(float(v)) for v in m.values())
             others[preset] = dict(step_ms=1e3 * wall, launches=got,
@@ -1871,17 +2080,24 @@ def phase_train_vq(card: str) -> dict:
         # set-up) is not timed; REMAT_STEPS timed steps each
         cfg, _ = parse(TRAIN_VQ_FLAGS)
         tc = replace(cfg.train, batch_size=TRAIN_VQ_LBS)
-        tr = VQTrainer(cfg.vqvae, tc, device=dev).init_random(SEED)
+        tr = VQTrainer(cfg.vqvae, tc, device=dev).init_random(SEED, "reach")
         tr.train_step(vol, mask)
         memory = {name: _remat_steps(tr, vol, mask, REMAT_STEPS, **kw)
                   for name, kw in (
                       ("full", dict(remat=True, remat_policy="full")),
                       ("conv", dict(remat=True, remat_policy="conv")),
                       ("off", dict(remat=False)))}
-        del tr
-        torch.cuda.empty_cache()
         say("train_vq", step="remat_memory", batch=TRAIN_VQ_LBS,
             volume=TRAIN_VQ_SIZE, **memory, card=card)
+        # the step as the CLI trains it (remat full), profiled
+        _remat_steps(tr, vol, mask, 1, remat=True, remat_policy="full")
+        say("train_vq", step="profile", batch=TRAIN_VQ_LBS,
+            volume=TRAIN_VQ_SIZE, remat="full", **profiling.profile_steps(
+                lambda: tr.train_step(vol, mask), 2,
+                memory["full"]["median_step_ms"]),
+            card=card)
+        del tr
+        torch.cuda.empty_cache()
         say("train_vq", launches=counts, card=card)
         return counts
     finally:
@@ -1925,21 +2141,25 @@ def _gan_step_errors(card: GANTrainer, ref: GANTrainer, mc: dict,
     return errs
 
 
-def _gan_compare(card_name: str) -> dict:
+def _gan_compare(card_name: str, size: int = GAN_COMPARE_SIZE,
+                 check: bool = False) -> dict:
     """A warm and an adversarial step of vqgan_attn (R1, adaptive weight)
-    at GAN_COMPARE_SIZE on the card (the codebook kernel, f32 without
-    TF32) against a float64 twin on the CPU (the plain version), each
-    from one state with the same injected draws."""
+    at `size` on the card (the codebook kernel, f32 without TF32) against
+    a float64 twin on the CPU (the plain version), each from one state
+    with the same injected draws. With `check`, a float32 CPU twin takes
+    the same steps, both are reported against float64, and nothing is
+    held to the tolerances."""
     cfg = get_preset("vqgan_attn")
     gan = replace(cfg.vqgan, disc_threshold=1, r1_gamma=1.0,
                   adaptive_g_weight=True)
     tc = replace(cfg.train, batch_size=GAN_BATCH)
-    size = GAN_COMPARE_SIZE
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")       # the LPIPS surrogate
         ref = GANTrainer(gan, tc, device="cpu", volume_size=size) \
-            .init_random(SEED)
+            .init_random(SEED, "reach")
     card = GANTrainer(gan, tc, device="cuda", volume_size=size)
+    cpu32 = GANTrainer(gan, tc, device="cpu", volume_size=size) \
+        if check else None
     # the quantizer computes in float32 in both (its restart threshold,
     # usage >= 1, is met exactly by 0.99 + 0.01 in float32)
     ref.model.double()
@@ -1959,8 +2179,31 @@ def _gan_compare(card_name: str) -> dict:
             mc = card.train_step(vol.cuda(), mask.cuda(), Draws(**{
                 k: list(v) for k, v in draws.items()}))
             torch.cuda.synchronize()
+        if check:
+            _gan_copy(ref, cpu32)
+            m32 = cpu32.train_step(vol, mask, Draws(**{
+                k: list(v) for k, v in draws.items()}))
         mr = ref.train_step(vol, mask, Draws(**draws))
         errs = _gan_step_errors(card, ref, mc, mr)
+        if check:
+            errs32 = _gan_step_errors(cpu32, ref, m32, mr)
+            worst = {f"{side}_{g[:-1]}_max": max(
+                (e for k, e in es.items() if k.startswith(g)), default=0.0)
+                for side, es in (("card", errs), ("cpu_float32", errs32))
+                for g in ("metric.", "grad.", "state.")}
+            say("gan_compare_check", program=program, volume=size,
+                batch=GAN_BATCH, reference="cpu float64", **worst,
+                card_grad_rel_err={k: e for k, e in errs.items()
+                                   if k.startswith("grad.")},
+                cpu_float32_grad_rel_err={k: e for k, e in errs32.items()
+                                          if k.startswith("grad.")},
+                tol=dict(metric=GAN_METRIC_RTOL, grad=GAN_GRAD_RTOL,
+                         state=GAN_STATS_RTOL), card=card_name)
+            if program == "warm":
+                ref.next_epoch()
+                cpu32.next_epoch()
+            out[program] = worst
+            continue
         tol = {k: GAN_METRIC_RTOL if k.startswith("metric.") else
                GAN_GRAD_RTOL if k.startswith("grad.") else GAN_STATS_RTOL
                for k in errs}
@@ -1992,6 +2235,47 @@ def _gan_compare(card_name: str) -> dict:
     return out
 
 
+def _gan_split(tr: GANTrainer, vol, mask) -> dict:
+    """Where the R1 + adaptive step's extra time goes, on one warmed
+    trainer (the adversarial program): its profile (kernels by kind, busy
+    share); the step timed with R1 and the adaptive weight each on and
+    off (R1 adds the critics' second-order pass, the adaptive weight two
+    more backward passes, one through LPIPS's VGG16 and the decoder's
+    output, one through both critics); and VGG16 alone on the step's
+    frames, forward and forward + backward to its input."""
+    full = tr.cfg
+    step_ms = {}
+    for name, over in (("r1_adaptive", {}),
+                       ("r1_only", dict(adaptive_g_weight=False)),
+                       ("adaptive_only", dict(r1_gamma=0.0)),
+                       ("neither", dict(adaptive_g_weight=False,
+                                        r1_gamma=0.0))):
+        tr.cfg = replace(full, **over)
+        timer = profiling.StepTimer(warmup=1)
+        for _ in range(GAN_SPLIT_STEPS + 1):
+            timer.time_step(tr.train_step, vol, mask, warm=False)
+        step_ms[name] = 1e3 * timer.summary()["p50_s"]
+    tr.cfg = full
+    prof = profiling.profile_steps(
+        lambda: tr.train_step(vol, mask, warm=False), 2,
+        step_ms["r1_adaptive"])
+    frames = vol[:, vol.shape[1] // 2].permute(0, 3, 1, 2).expand(
+        -1, 3, -1, -1).contiguous()
+    recon = (frames + 0.01).requires_grad_(True)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: tr.lpips(frames, recon), 3, warmup=1)
+    fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        tr.lpips(frames, recon).mean(), recon), 3, warmup=1)
+    base = step_ms["neither"]
+    return dict(step_ms=step_ms, profile=prof,
+                r1_ms=step_ms["r1_only"] - base,
+                adaptive_ms=step_ms["adaptive_only"] - base,
+                both_ms=step_ms["r1_adaptive"] - base,
+                vgg16_frames=list(frames.shape),
+                vgg16_forward_ms=fwd_ms, vgg16_forward_backward_ms=fwd_bwd_ms,
+                vgg16_backward_ms=fwd_bwd_ms - fwd_ms)
+
+
 def _gan_timings(cfg, size: int) -> dict:
     """Wall ms of GAN_TIMED_STEPS steps of each program at `size` (the
     warm one, the adversarial one, and with R1 and the adaptive weight),
@@ -2010,7 +2294,7 @@ def _gan_timings(cfg, size: int) -> dict:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             tr = GANTrainer(gan, cfg.train, device="cuda",
-                            volume_size=size).init_random(SEED)
+                            volume_size=size).init_random(SEED, "reach")
         tr.epoch = 0 if warm else gan.disc_threshold   # the critics on
         tr.train_step(vol, mask, warm=warm)
         walls = []
@@ -2030,10 +2314,12 @@ def _gan_timings(cfg, size: int) -> dict:
             tr.eval_step(vol, mask)
             torch.cuda.synchronize()
             out["eval_ms_per_batch"] = 1e3 * (time.perf_counter() - t0)
+            out["r1_adaptive_split"] = _gan_split(tr, vol, mask)
         del tr
         torch.cuda.empty_cache()
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    if not all(v["finite"] for v in out.values() if isinstance(v, dict)):
+    if not all(v["finite"] for k, v in out.items()
+               if isinstance(v, dict) and k != "r1_adaptive_split"):
         raise RuntimeError(f"train_gan timings: non-finite metrics {out}")
     return out
 
@@ -2164,11 +2450,11 @@ def phase_train_gan(card: str) -> dict:
                     warnings.simplefilter("ignore")
                     tr = GANTrainer(pcfg.vqgan, pcfg.train, device=dev,
                                     volume_size=cfg.data.volume_size) \
-                        .init_random(SEED)
+                        .init_random(SEED, "reach")
                 tr.epoch = pcfg.vqgan.disc_threshold
             else:
                 tr = VQTrainer(pcfg.vqvae, replace(pcfg.train, batch_size=b),
-                               device=dev).init_random(SEED)
+                               device=dev).init_random(SEED, "reach")
             torch.cuda.reset_peak_memory_stats()
             m, wall, got = _counted(counts, tr.train_step, vol, mask)
             finite = all(np.isfinite(float(v)) for v in m.values())
@@ -2219,6 +2505,10 @@ def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()
+    if "--gan-compare-check" in sys.argv[1:]:
+        _gan_compare(card, GAN_CHECK_SIZE, check=True)
+        say("done", wall_s=time.perf_counter() - t_start, card=card)
+        return
     if "--train-compare-check" in sys.argv[1:]:
         train = phase_train(card)
         phase_train_compare_check(train["trainer"], train["latents"])
@@ -2228,11 +2518,14 @@ def main() -> None:
     cb_cases = phase_codebook(card)
     phase_kernel_shapes()
     phase_attention_grad()
-    trainer = DiffusionTrainer(flagship_cfg(), device="cuda").init_random(SEED)
+    phase_init(card)
+    trainer = DiffusionTrainer(flagship_cfg(), device="cuda").init_random(
+        SEED, "reach")
     phase_unet_step(trainer)
     svc = GenerationService(trainer.cfg, trainer, name="flagship")
     counts = {"serve": phase_serve(svc, card)}
     phase_breakdown(trainer, attn_cases["self_f32"])
+    phase_serve_profile(trainer, card)
     counts["serve_samplers"] = phase_serve_samplers(svc, card)
     phase_sampler_compare(trainer)
     counts["fidelity"] = phase_fidelity(trainer, card)

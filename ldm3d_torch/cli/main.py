@@ -20,10 +20,19 @@ the VQ-VAE family (every quantizer kind; `emavqvae`; `vqvae_legacy` and
 latents encoded once and cached on disk beside the corpus when a stage-1
 is loaded), with the AUTO latent scale, train_meta.json, --resume_ckpt,
 --auto_resume, --ckpt_freq, --fidelity_freq and --image_log_freq;
---test_dm. The run goes on the GPU unless `--platform cpu` is given; with
-no GPU visible it raises. Checkpoints are `ldm3d_torch.train.checkpoint`
-files (one `torch.save` of the trainer's whole state per epoch) under
-`{ckpt_dir}/{name}_vq/` and `{ckpt_dir}/{name}_dm/`. `--vqvae_load_ckpt`
+--test_dm; --fidelity_sweep (latent-FID and kernel-MMD of a restored
+stage-2 checkpoint over a grid of samplers x guidance scales, written as
+`fidelity_sweep_<name>.json` and `.md` under --out_dir); --sweep (a
+hyper-parameter sweep of --train_vq runs over a W&B-style YAML, grid,
+random or bayes, `ldm3d_torch.core.sweep`, recorded in
+`{ckpt_dir}/sweep_results.jsonl`); --device_data (with --synthetic: the
+corpus's batches computed on the device instead of read from the cache);
+--profile (the whole run under a `torch.profiler` trace, written under
+`{ckpt_dir}/trace/`). The run goes on the GPU unless `--platform cpu` is
+given; with no GPU visible it raises. Checkpoints are
+`ldm3d_torch.train.checkpoint` files (one `torch.save` of the trainer's
+whole state per epoch) under `{ckpt_dir}/{name}_vq/` and
+`{ckpt_dir}/{name}_dm/`. `--vqvae_load_ckpt`
 reads a stage-1 VQ-VAE from a `--train_vq` checkpoint directory (its
 latest epoch) or from a snapshot in the JAX package's `.npz` export
 layout (`ldm3d_torch.utils.export`); the stage-1 must have the
@@ -39,19 +48,26 @@ architecture of the preset's `diffusion.vqvae`, or it is refused.
 
 Without `LDM3D_LPIPS_WEIGHTS` (a converted VGG16 + LPIPS `.npz`) the
 VQ-GAN's perceptual loss is a self-calibrated random-feature surrogate.
-Modes and flags not ported yet are parsed and then refused with the
-ROADMAP item that brings them: --fidelity_sweep, --sweep, --device_data
-and --profile (item 5), and the multi-host and mesh flags (item 9).
+    python -m ldm3d_torch.cli.main --preset conditional_dm3d --norm group \
+        --fidelity_sweep --sweep_samplers ddim:10,dpmpp:10 \
+        --guidance_grid none,3 --fidelity_by_class
+    python -m ldm3d_torch.cli.main --preset vqvae_dm_stage1 --norm group \
+        --sweep sweep.yaml --sweep_count 4 --synthetic --device_data
+
+The multi-host and mesh flags are parsed and then refused with the
+ROADMAP item that brings them (queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -80,7 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", action="store_true",
                    help="use generated volumes (no NIfTI data needed)")
     p.add_argument("--device_data", action="store_true",
-                   help="not ported (ROADMAP queue 1 item 5)")
+                   help="with --synthetic: compute the corpus's batches on "
+                        "the device instead of reading the cache")
     p.add_argument("--num_synthetic", type=int, default=24)
     p.add_argument("--num_classes", type=int, default=None,
                    help="synthetic-corpus class count; also sizes the "
@@ -118,7 +135,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "epoch is always saved)")
     p.add_argument("--out_dir", default="./generated_images_dm3d")
     p.add_argument("--profile", action="store_true",
-                   help="not ported (ROADMAP queue 1 item 5)")
+                   help="trace the run with torch.profiler into "
+                        "{ckpt_dir}/trace")
     p.add_argument("--disc_threshold", type=int, default=None)
     p.add_argument("--adaptive_gan_weight", action="store_true",
                    default=None)
@@ -173,9 +191,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fidelity_by_class", action="store_true",
                    help="conditional models: also report per-class FID")
     p.add_argument("--fidelity_sweep", action="store_true",
-                   help="not ported (ROADMAP queue 1 item 5)")
-    p.add_argument("--sweep_samplers", default="ddpm,ddim:50,dpmpp:25")
-    p.add_argument("--guidance_grid", default="none")
+                   help="latent-FID / kernel-MMD of a trained DM checkpoint "
+                        "over --sweep_samplers x --guidance_grid")
+    p.add_argument("--sweep_samplers", default="ddpm,ddim:50,dpmpp:25",
+                   help="comma list of sampler[:steps[:eta]]")
+    p.add_argument("--guidance_grid", default="none",
+                   help="comma list of guidance scales (none = unguided)")
     p.add_argument("--cache_latents", action="store_true",
                    help="with --train_dm: encode the corpus once through "
                         "the frozen stage-1 and train from device-resident "
@@ -184,7 +205,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="save generated-sample slice montages every N "
                         "epochs; 0 disables")
     p.add_argument("--sweep", type=str, default=None,
-                   help="not ported (ROADMAP queue 1 item 5)")
+                   help="sweep YAML (W&B schema): train one --train_vq run "
+                        "per point")
     p.add_argument("--sweep_count", type=int, default=None)
     p.add_argument("--coordinator", default=None,
                    help="not ported (ROADMAP queue 1 item 9)")
@@ -201,11 +223,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     """SystemExit for a mode or flag the port does not have yet."""
     refusals = [
-        (args.fidelity_sweep, "--fidelity_sweep", "queue 1 item 5"),
-        (args.sweep, "--sweep", "queue 1 item 5 (core/sweep.py)"),
-        (args.device_data, "--device_data", "queue 1 item 5 "
-         "(DeviceSyntheticLoader)"),
-        (args.profile, "--profile", "queue 1 item 5"),
         (args.coordinator or args.num_processes or args.process_id
          is not None or os.environ.get("LDM3D_COORDINATOR"),
          "multi-host training (--coordinator, --num_processes, "
@@ -340,12 +357,24 @@ def apply_overrides(cfg, args):
 
 def _loaders(cfg, args, device):
     """Train and val loaders over the cache (written first from the
-    synthetic corpus with --synthetic when there is none); the val loader
-    is None when the split is smaller than a batch."""
-    from ldm3d_torch.data.pipeline import (DataLoader, VolumeCache,
-                                           train_val_split,
+    synthetic corpus with --synthetic when there is none), or with
+    --synthetic --device_data over the corpus computed on the device; the
+    val loader is None when the split is smaller than a batch."""
+    from ldm3d_torch.data.pipeline import (DataLoader,
+                                           DeviceSyntheticLoader,
+                                           VolumeCache, train_val_split,
                                            write_synthetic_cache)
 
+    if args.synthetic and args.device_data:
+        n = args.num_synthetic
+        tr, va = train_val_split(n, cfg.train.val_fraction, cfg.train.seed)
+
+        def make(idx, train):
+            return DeviceSyntheticLoader(
+                n, cfg.train.batch_size, cfg.data, corpus_seed=cfg.train.seed,
+                seed=cfg.train.seed, train=train, indices=idx, device=device)
+        val = make(va, False) if len(va) >= cfg.train.batch_size else None
+        return make(tr, True), val
     cache_dir = cfg.data.cache_dir
     manifest = os.path.join(cache_dir, "manifest.json")
     if args.synthetic and not os.path.exists(manifest):
@@ -765,6 +794,208 @@ def run_test_dm(cfg, args):
     return paths
 
 
+def _parse_samplers(spec: str):
+    """[(sampler, steps or None, eta)] of --sweep_samplers entries
+    `sampler[:steps[:eta]]`."""
+    samplers = []
+    for entry in spec.split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        parts = entry.split(":")
+        steps = int(parts[1]) if len(parts) > 1 and parts[1] else None
+        eta = float(parts[2]) if len(parts) > 2 and parts[2] else 0.0
+        samplers.append((parts[0], steps, eta))
+    return samplers
+
+
+def _parse_guidances(spec: str):
+    """The --guidance_grid scales; "", "none" and "0" are unguided (None)."""
+    out = []
+    for g in spec.split(","):
+        g = g.strip().lower()
+        out.append(None if g in ("", "none", "0") else float(g))
+    return out
+
+
+def run_fidelity_sweep(cfg, args):
+    """Latent-FID and kernel-MMD of a trained stage-2 checkpoint (against
+    the held-out split's frozen-encoder features) over --sweep_samplers x
+    --guidance_grid; a guided cell of a model trained without cfg_dropout
+    is skipped. Writes `fidelity_sweep_<name>.json` and `.md` under
+    --out_dir, in the JAX package's format; returns the rows."""
+    from ldm3d_torch.train.checkpoint import CheckpointManager
+    from ldm3d_torch.train.dm_trainer import DiffusionTrainer
+
+    cfg = _adopt_dm_meta(cfg, args)
+    device = _device(args)
+    trainer = DiffusionTrainer(cfg.diffusion, device=device,
+                               train_cfg=cfg.train)
+    state, epoch = CheckpointManager(_ckpt_dir(cfg, "dm")).restore(
+        args.test_epoch)
+    trainer.load_state_dict(state, optimizer=False)
+    del state
+    print(f"fidelity sweep from epoch {epoch} "
+          f"(T={cfg.diffusion.timesteps}, "
+          f"prediction={cfg.diffusion.prediction_type})")
+
+    train_loader, val_loader = _loaders(cfg, args, device)
+    feats, ctx_rows = [], []
+    for batch in (val_loader or train_loader):
+        feats.append(trainer.latent_features(batch[0]))
+        ctx_rows.append(batch[2].cpu().numpy().reshape(-1))
+    real_feats = np.concatenate(feats, axis=0)
+    real_ctx = (np.concatenate(ctx_rows, axis=0)
+                if args.fidelity_by_class and trainer.conditional else None)
+    print(f"cached {real_feats.shape[0]} real-volume feature rows"
+          + (f" (per-class: {np.bincount(real_ctx.astype(int)).tolist()})"
+             if real_ctx is not None else ""))
+
+    rows = []
+    for sampler, steps, eta in _parse_samplers(args.sweep_samplers):
+        for g in _parse_guidances(args.guidance_grid):
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=device).manual_seed(
+                cfg.train.seed + 9000)
+            try:
+                scores = trainer.fidelity_eval(
+                    real_feats, gen, num_samples=args.fidelity_samples,
+                    batch=min(args.fidelity_samples, 16), sampler=sampler,
+                    sample_steps=steps, eta=eta, guidance_scale=g,
+                    real_ctx=real_ctx)
+            except ValueError as e:  # e.g. guidance without cfg_dropout
+                print(f"skip {sampler}:{steps} g={g}: {e}")
+                continue
+            dt = time.perf_counter() - t0
+            name = sampler if not eta else f"{sampler}(eta={eta:g})"
+            row = {"sampler": name, "steps": steps, "guidance": g,
+                   "latent_fid": round(float(scores["latent_fid"]), 3),
+                   "latent_mmd": round(float(scores["latent_mmd"]), 4),
+                   "eval_seconds": round(dt, 1)}
+            for k, v in scores.items():
+                if k.startswith("fid_"):
+                    row[k] = round(float(v), 3)
+            rows.append(row)
+            print(row, flush=True)
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    base = os.path.join(args.out_dir, f"fidelity_sweep_{cfg.name}")
+    with open(base + ".json", "w") as f:
+        json.dump({"epoch": epoch, "timesteps": cfg.diffusion.timesteps,
+                   "prediction_type": cfg.diffusion.prediction_type,
+                   "num_samples": args.fidelity_samples, "rows": rows},
+                  f, indent=1)
+    by_class = any("fid_class_sep" in r for r in rows)
+    extra_hdr = (" FID same(c0/c1) | FID cross(c0/c1) | class sep |"
+                 if by_class else "")
+    lines = [f"# Fidelity sweep — {cfg.name} (epoch {epoch}, "
+             f"T={cfg.diffusion.timesteps}, "
+             f"{cfg.diffusion.prediction_type}-prediction, "
+             f"{args.fidelity_samples} samples/cell)", "",
+             "| sampler | steps | guidance | latent-FID | kernel-MMD |"
+             + extra_hdr + " eval s |",
+             "|---|---|---|---|---|" + ("---|---|---|" if by_class else "")
+             + "---|"]
+    for r in rows:
+        extra = ""
+        if by_class:
+            extra = (f" {r.get('fid_same_c0', '—')}/"
+                     f"{r.get('fid_same_c1', '—')} "
+                     f"| {r.get('fid_cross_c0', '—')}/"
+                     f"{r.get('fid_cross_c1', '—')} "
+                     f"| {r.get('fid_class_sep', '—')} |")
+        lines.append(
+            f"| {r['sampler']} | {r['steps'] or 'T'} "
+            f"| {r['guidance'] if r['guidance'] is not None else '—'} "
+            f"| {r['latent_fid']} | {r['latent_mmd']} |"
+            + extra + f" {r['eval_seconds']} |")
+    with open(base + ".md", "w") as f:
+        f.write("\n".join(lines) + "\n")
+    print("wrote", base + ".md")
+    return rows
+
+
+def _sweep_trial(cfg, args, point, metric):
+    """Train one sweep point (`run_train_vq`); returns (record, the final
+    value of `metric` in its training.log, or None)."""
+    import csv
+
+    from ldm3d_torch.core.sweep import apply_sweep_point
+
+    run_cfg = apply_sweep_point(cfg, point)
+    print(f"--- sweep point: {run_cfg.name}")
+    try:
+        run_train_vq(run_cfg, args)
+        log = os.path.join(_ckpt_dir(run_cfg, "vq"), "training.log")
+        last = {}
+        if os.path.exists(log):
+            with open(log) as lf:
+                rows = list(csv.DictReader(lf))
+            if rows:
+                last = {k: float(v) for k, v in rows[-1].items()}
+        rec = {"name": run_cfg.name, "point": {
+            k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in point.items()}, "metrics": last}
+        return rec, last.get(metric)
+    except Exception as e:  # a failed point is recorded; the sweep goes on
+        traceback.print_exc()
+        return {"name": run_cfg.name, "error": str(e)}, None
+
+
+def run_sweep(cfg, args):
+    """Train each point of the --sweep YAML (`run_train_vq`) and append
+    one record per point to `{ckpt_dir}/sweep_results.jsonl`. `grid` and
+    `random` expand up front (--sweep_count points at most); `bayes` runs
+    `core.sweep.BayesSearch`, observing each point's final metric before
+    proposing the next (a failed point counts as the worst value).
+    Returns the records."""
+    from ldm3d_torch.core.sweep import (BayesSearch, expand_sweep,
+                                        parse_sweep_yaml)
+
+    with open(args.sweep) as f:
+        spec = parse_sweep_yaml(f.read())
+    metric = spec.get("metric", {}).get("name", "val_loss")
+    goal = spec.get("metric", {}).get("goal", "minimize")
+    method = spec.get("method", "grid")
+    results = []
+    results_path = os.path.join(cfg.ckpt_dir, "sweep_results.jsonl")
+    os.makedirs(cfg.ckpt_dir, exist_ok=True)
+
+    def record(rec):
+        results.append(rec)
+        with open(results_path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    if method == "bayes":
+        search = BayesSearch(spec, seed=cfg.train.seed, goal=goal)
+        count = args.sweep_count or min(len(search.candidates), 20)
+        print(f"sweep (bayes/TPE): up to {count} of "
+              f"{len(search.candidates)} grid cells, optimizing {metric}")
+        bad_value = float("inf") if not str(goal).startswith("max") \
+            else float("-inf")
+        for _ in range(count):
+            point = search.suggest()
+            if point is None:
+                break
+            rec, value = _sweep_trial(cfg, args, point, metric)
+            search.observe(point, value if value is not None else bad_value)
+            record(rec)
+    else:
+        points = expand_sweep(spec, count=args.sweep_count,
+                              seed=cfg.train.seed)
+        print(f"sweep ({method}): {len(points)} points, optimizing {metric}")
+        for point in points:
+            record(_sweep_trial(cfg, args, point, metric)[0])
+
+    scored = [r for r in results
+              if r.get("metrics", {}).get(metric) is not None]
+    if scored:
+        pick = max if str(goal).startswith("max") else min
+        best = pick(scored, key=lambda r: r["metrics"][metric])
+        print(f"best: {best['name']} {metric}={best['metrics'][metric]:.6f}")
+    return results
+
+
 def run_create_dataset(cfg, args):
     from ldm3d_torch.data.pipeline import build_cache, write_synthetic_cache
     if args.synthetic:
@@ -788,6 +1019,17 @@ def main(argv=None):
     cfg = apply_overrides(get_preset(args.preset), args)
     _device(args)           # no GPU and no --platform cpu: raise before any work
 
+    with contextlib.ExitStack() as stack:
+        if args.profile:
+            from ldm3d_torch.utils.profiling import trace
+            stack.enter_context(trace(os.path.join(cfg.ckpt_dir, "trace")))
+        _run_modes(cfg, args)
+
+
+def _run_modes(cfg, args) -> None:
+    if args.sweep:
+        run_sweep(cfg, args)
+        return
     if args.create_dataset:
         run_create_dataset(cfg, args)
     if args.train_vq:
@@ -798,10 +1040,12 @@ def main(argv=None):
         run_train_dm(cfg, args)
     if args.test_dm:
         run_test_dm(cfg, args)
+    if args.fidelity_sweep:
+        run_fidelity_sweep(cfg, args)
     if not any([args.create_dataset, args.train_vq, args.test_vq,
-                args.train_dm, args.test_dm]):
+                args.train_dm, args.test_dm, args.fidelity_sweep]):
         print("nothing to do: pass --train_vq/--test_vq/--train_dm/"
-              "--test_dm/--create_dataset")
+              "--test_dm/--create_dataset/--fidelity_sweep/--sweep")
 
 
 if __name__ == "__main__":

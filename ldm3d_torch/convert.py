@@ -17,8 +17,10 @@ torch key by joining with '.', renaming the leaf, and changing the layout:
     VQ-GAN's frame critic and LPIPS.
   - Dense kernel (in, out) -> weight (out, in); the dense critic head
     flattens channels-last, as flax does, so its rows need no reordering.
-  - norm scale -> weight; BatchNorm statistics mean / var -> running_mean /
-    running_var; Embed embedding -> weight; PReLU alpha -> alpha.
+  - norm scale -> weight (BatchNorm_0, GroupNorm_0 and LayerNorm_0 of a
+    `Norm`, the cross-attention's LayerNorms); BatchNorm statistics mean /
+    var -> running_mean / running_var; Embed embedding -> weight; PReLU
+    alpha -> alpha.
   - the quantizers keep their names and layout: the parameters `codebook`
     [K, D] (ste, nsvq) and `codebooks` [S, K, D] (rnsvq), and the
     `vq_stats` collection, which is buffers here: `codebooks_used` ([K],

@@ -7,15 +7,17 @@ and a `manifest.json` of entries {stem, context, source} and the volume
 size. `DataLoader` visits a cache in the JAX loader's order: the epoch's
 shuffle is `np.random.default_rng(seed + epoch)`, and the augmentation
 generator is seeded from that generator's next `integers(2**31)` draw.
-Batches are read on a thread (a bounded queue of `prefetch` batches), moved
-to the device at the cache's float16 and widened there. `LatentLoader`
+Batches are read on a thread (a bounded queue of `prefetch` batches), by
+the native reader's thread pool (`data/native.py`) where it builds and by
+numpy otherwise, moved to the device at the cache's float16 and widened
+there. `DeviceSyntheticLoader` (`--device_data`) computes the synthetic
+corpus's batches on the device instead, equal to `DataLoader`'s over the
+cache `write_synthetic_cache` writes for the same seed. `LatentLoader`
 serves the latents of `--cache_latents` from the device, in one
 `np.random.default_rng(seed).permutation` per epoch, dropping the ragged
 tail as the JAX loader does.
 
-Not ported: `DeviceSyntheticLoader` (`--device_data`), the optional ctypes
-reader (`ldm3d/data/native.py`; numpy reads the cache here) and mesh
-sharding.
+Not ported: mesh sharding (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -103,29 +105,51 @@ def write_synthetic_cache(cache_dir: str, num_volumes: int, size: int = 64,
 
 
 class VolumeCache:
-    """Random-access view over a cache directory."""
+    """Random-access view over a cache directory. `reader` is the native
+    reader (`data/native.py`), or None where it does not build."""
 
     def __init__(self, cache_dir: str):
+        from ldm3d_torch.data.native import NativeReader
+
         with open(os.path.join(cache_dir, MANIFEST)) as f:
             manifest = json.load(f)
         self.cache_dir = cache_dir
         self.entries = manifest["entries"]
         self.volume_size = manifest["volume_size"]
+        self.reader = NativeReader.maybe_create()
+
+    def paths(self, idx: int) -> Tuple[str, str]:
+        stem = os.path.join(self.cache_dir, self.entries[idx]["stem"])
+        return stem + "_img.npy", stem + "_mask.npy"
 
     def __len__(self) -> int:
         return len(self.entries)
 
     def read(self, idx: int) -> Tuple[np.ndarray, np.ndarray, int]:
-        stem = os.path.join(self.cache_dir, self.entries[idx]["stem"])
-        return (np.load(stem + "_img.npy"), np.load(stem + "_mask.npy"),
-                self.entries[idx]["context"])
+        """(img, mask) as cached, float16, and the context."""
+        img, mask = self.paths(idx)
+        return np.load(img), np.load(mask), self.entries[idx]["context"]
+
+
+def _epoch_plan(loader) -> Tuple[np.ndarray, torch.Generator]:
+    """The next epoch of a volume loader: its visiting order (shuffled
+    with `np.random.default_rng(seed + epoch)` when training) and its
+    augmentation generator, seeded from that generator's next draw."""
+    rng = np.random.default_rng(loader.seed + loader._epoch)
+    loader._epoch += 1
+    order = np.array(loader.indices)
+    if loader.train:
+        rng.shuffle(order)
+    return order, torch.Generator(device=loader.device).manual_seed(
+        int(rng.integers(2 ** 31)))
 
 
 class DataLoader:
     """Shuffled, batched loader with host prefetch on a thread and
     augmentation on the device. Yields (vol [B, S, S, S, 1] float32,
     mask float32, context [B] int32), all on `device` (the GPU unless
-    "cpu" is given); drops the ragged tail."""
+    "cpu" is given); drops the ragged tail. `reader` says what reads the
+    files: "native" (the cache's `NativeReader`) or "numpy"."""
 
     def __init__(self, cache: VolumeCache, batch_size: int, cfg: DataConfig,
                  seed: int = 0, train: bool = True,
@@ -140,6 +164,7 @@ class DataLoader:
                             else range(len(cache)))
         self.prefetch = prefetch
         self.device = resolve_device(device)
+        self.reader = "native" if cache.reader is not None else "numpy"
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -148,22 +173,26 @@ class DataLoader:
     def _host_batches(self, order: np.ndarray) -> Iterator:
         """(img, mask, ctx) numpy batches, float16 as cached; they are
         widened on the device."""
-        bs = self.batch_size
+        bs, reader = self.batch_size, self.cache.reader
+        s = self.cache.volume_size
         for i in range(len(order) // bs):
             idxs = [int(j) for j in order[i * bs:(i + 1) * bs]]
-            rows = [self.cache.read(j) for j in idxs]
-            yield (np.stack([r[0] for r in rows]),
-                   np.stack([r[1] for r in rows]),
-                   np.asarray([r[2] for r in rows], np.int32))
+            ctx = np.asarray([self.cache.entries[j]["context"]
+                              for j in idxs], np.int32)
+            if reader is None:
+                rows = [self.cache.read(j) for j in idxs]
+                yield (np.stack([r[0] for r in rows]),
+                       np.stack([r[1] for r in rows]), ctx)
+                continue
+            imgs, masks = (np.empty((bs, s, s, s, 1), np.float16)
+                           for _ in range(2))
+            paths = [self.cache.paths(j) for j in idxs]
+            reader.read_batch_f16([p[0] for p in paths], imgs)
+            reader.read_batch_f16([p[1] for p in paths], masks)
+            yield imgs, masks, ctx
 
     def __iter__(self) -> Iterator:
-        rng = np.random.default_rng(self.seed + self._epoch)
-        self._epoch += 1
-        order = np.array(self.indices)
-        if self.train:
-            rng.shuffle(order)
-        aug_gen = torch.Generator(device=self.device).manual_seed(
-            int(rng.integers(2 ** 31)))
+        order, aug_gen = _epoch_plan(self)
 
         q: queue_mod.Queue = queue_mod.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -206,6 +235,48 @@ class DataLoader:
         finally:
             stop.set()
             t.join(timeout=10)
+
+
+class DeviceSyntheticLoader:
+    """The synthetic corpus of `write_synthetic_cache(seed=corpus_seed)`
+    without the cache: each batch's volumes are computed on `device` from
+    the corpus's draws (`synthetic.corpus_draws`, replayed once on the
+    host), rounded to float16 and widened. Same order, split, per-epoch
+    shuffle and augmentation as `DataLoader`, so the batches are equal to
+    a `DataLoader`'s over that cache, bit for bit, on one device."""
+
+    def __init__(self, num_volumes: int, batch_size: int, cfg: DataConfig,
+                 corpus_seed: int = 0, seed: int = 0, train: bool = True,
+                 indices: Optional[Sequence[int]] = None, device=None):
+        from ldm3d_torch.data.synthetic import corpus_draws
+
+        self.batch_size = batch_size
+        self.cfg = cfg
+        self.seed = seed
+        self.train = train
+        self.indices = list(indices if indices is not None
+                            else range(num_volumes))
+        self.device = resolve_device(device)
+        self.corpus = corpus_draws(corpus_seed, num_volumes,
+                                   num_classes=cfg.num_classes)
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return len(self.indices) // self.batch_size
+
+    def __iter__(self) -> Iterator:
+        from ldm3d_torch.data.synthetic import synthetic_volumes_at
+
+        order, aug_gen = _epoch_plan(self)
+        bs = self.batch_size
+        for i in range(len(order) // bs):
+            vol, mask, ctx = synthetic_volumes_at(
+                self.corpus, order[i * bs:(i + 1) * bs],
+                self.cfg.volume_size, self.device)
+            if self.train and self.cfg.augment:
+                vol, mask = augment_batch(vol, mask, self.cfg,
+                                          generator=aug_gen)
+            yield vol, mask, ctx
 
 
 class LatentLoader:

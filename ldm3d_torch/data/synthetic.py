@@ -15,11 +15,16 @@ is computed on. The same seed gives a different corpus from the JAX
 package's, because the two random number generators differ; the on-disk
 cache format is shared (`pipeline.write_synthetic_cache`), so a corpus
 written by either package trains both.
+
+`corpus_draws` replays the generator of `write_synthetic_cache` for a
+whole corpus (a few scalars per volume), and `synthetic_volumes_at`
+computes any of its volumes from those draws on the device, rounded to
+float16 and widened as the cache delivers them (`--device_data`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -121,3 +126,50 @@ def synthetic_batch(generator: Optional[torch.Generator], batch: int,
     vols, masks = zip(*(_one_volume(int(c), size, dr, device)
                         for c, dr in zip(cls.tolist(), draws)))
     return torch.stack(vols), torch.stack(masks), cls
+
+
+def corpus_draws(seed: int, num_volumes: int, gen_batch: int = 8,
+                 tumor_fraction: float = 0.5, num_classes: int = 2
+                 ) -> List[Tuple[int, Dict[str, torch.Tensor]]]:
+    """(class, `volume_draws`) of every volume of the corpus
+    `pipeline.write_synthetic_cache(seed=seed)` writes: one CPU generator
+    seeded with `seed`, drawn in groups of `gen_batch` volumes, each group
+    its class draws and then each volume's, as `synthetic_batch` draws."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for start in range(0, num_volumes, gen_batch):
+        b = min(gen_batch, num_volumes - start)
+        cls = _batch_classes(torch.rand(b, generator=gen), tumor_fraction,
+                             num_classes)
+        out += [(c, volume_draws(gen)) for c in cls.tolist()]
+    return out
+
+
+def one_at(corpus: Sequence, idx: int, size: int, device=None):
+    """Volume `idx` of a corpus (`corpus_draws`): (vol [S, S, S, 1], mask
+    [S, S, S, 1], class), float32 on `device`."""
+    cls, draws = corpus[idx]
+    return (*_one_volume(cls, size, draws, device), cls)
+
+
+def synthetic_volumes_at(corpus: Sequence, idxs: Sequence[int], size: int,
+                         device=None):
+    """The corpus's volumes `idxs`, computed on `device` (the GPU unless
+    "cpu" is given): (vol [B, S, S, S, 1], mask, context [B] int32),
+    rounded to float16 and widened, so equal to what a loader over the
+    cache delivers."""
+    device = resolve_device(device)
+    vols, masks, cls = zip(*(one_at(corpus, int(i), size, device)
+                             for i in idxs))
+    return (torch.stack(vols).half().float(),
+            torch.stack(masks).half().float(),
+            torch.tensor(cls, dtype=torch.int32, device=device))
+
+
+def synthetic_dataset(seed: int, num_batches: int, batch: int,
+                      size: int = 128, device=None) -> Iterator:
+    """`num_batches` synthetic (vol, mask, context) batches
+    (`synthetic_batch`) from one CPU generator seeded with `seed`."""
+    gen = torch.Generator().manual_seed(seed)
+    for _ in range(num_batches):
+        yield synthetic_batch(gen, batch, size, device=device)

@@ -24,6 +24,30 @@ from ldm3d_torch.models.quantizers import Quantizer
 _Int3 = Union[int, Tuple[int, int, int]]
 
 
+# The kernel inits of the JAX package's layers, as `init_jax_` draws them:
+# "zeros" (`variance_scaling_init(0.0)`), "glorot_uniform" (`conv3d`'s
+# default and `variance_scaling_init(1.0)`), "glorot_normal_icnr"
+# (`conv3d_transpose(kernel_resize=True)`), "lecun_normal" (flax's default
+# for `nn.Dense` and `nn.Conv`) and "constant:<value>".
+KERNEL_INITS = ("zeros", "glorot_uniform", "glorot_normal_icnr",
+                "lecun_normal")
+
+
+def _check_init(kind: str) -> str:
+    if kind.startswith("constant:"):
+        float(kind.partition(":")[2])       # a malformed value raises
+    elif kind not in KERNEL_INITS:
+        raise ValueError(f"unknown kernel init {kind!r}")
+    return kind
+
+
+def with_init(module: nn.Module, kernel_init: str) -> nn.Module:
+    """`module` (an `nn.Linear`, whose default under `init_jax_` is
+    glorot-uniform) with the kernel init `kernel_init`."""
+    module.kernel_init = _check_init(kernel_init)
+    return module
+
+
 def _triple(v: _Int3) -> Tuple[int, int, int]:
     return (v,) * 3 if isinstance(v, int) else tuple(v)
 
@@ -41,17 +65,19 @@ class Conv3d(nn.Module):
     """3D convolution with TF/flax 'SAME' padding: the counterpart of
     `ldm3d.models.layers.conv3d` (flax `nn.Conv`, padding="SAME"), or with
     no padding for padding="VALID". Weight (out, in, kd, kh, kw); dense
-    layers are `nn.Linear`, weight (out, in)."""
+    layers are `nn.Linear`, weight (out, in). `kernel_init` names the
+    weight's init under `init_jax_` (`KERNEL_INITS`)."""
 
     def __init__(self, in_channels: int, features: int, kernel: _Int3 = 3,
                  stride: _Int3 = 1, use_bias: bool = True,
-                 padding: str = "SAME"):
+                 padding: str = "SAME", kernel_init: str = "glorot_uniform"):
         super().__init__()
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding {padding!r}")
         self.kernel = _triple(kernel)
         self.stride = _triple(stride)
         self.padding = padding
+        self.kernel_init = _check_init(kernel_init)
         self.weight = nn.Parameter(
             torch.empty(features, in_channels, *self.kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
@@ -79,13 +105,16 @@ def _same_conv(conv, x, weight, bias, kernel, stride) -> torch.Tensor:
 class Conv2d(nn.Module):
     """2D convolution with TF/flax 'SAME' padding (flax `nn.Conv` over
     NHWC frames; here NCHW): k = 4, s = 1 pads (1, 2), the odd unit after.
-    Weight (out, in, kh, kw)."""
+    Weight (out, in, kh, kw). flax's `nn.Conv` draws lecun-normal
+    kernels unless told otherwise."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
-                 stride: int = 1, use_bias: bool = True):
+                 stride: int = 1, use_bias: bool = True,
+                 kernel_init: str = "lecun_normal"):
         super().__init__()
         self.kernel = (kernel, kernel)
         self.stride = (stride, stride)
+        self.kernel_init = _check_init(kernel_init)
         self.weight = nn.Parameter(
             torch.empty(features, in_channels, *self.kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
@@ -137,8 +166,9 @@ class ConvTranspose3d(nn.Module):
     transposed output is cropped to TF's SAME window: it starts at
     pad_before = (k - s) // 2 and the odd unit is cut from the end.
 
-    `kernel_resize` asks `init_params_` for the ICNR init (`icnr_init`)
-    instead of glorot-uniform, as the JAX layer's `kernel_resize` does.
+    `kernel_resize` asks for the ICNR init (`icnr_init`, kernel_init
+    "glorot_normal_icnr") instead of glorot-uniform, as the JAX layer's
+    `kernel_resize` does.
     padding="VALID" (flax's, for k >= s) is the full transposed output,
     (n - 1) * s + k per dim, uncropped."""
 
@@ -152,6 +182,8 @@ class ConvTranspose3d(nn.Module):
         self.stride = _triple(stride)
         self.kernel_resize = kernel_resize
         self.padding = padding
+        self.kernel_init = "glorot_normal_icnr" if kernel_resize \
+            else "glorot_uniform"
         self.weight = nn.Parameter(
             torch.empty(in_channels, features, *self.kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
@@ -322,23 +354,27 @@ class _GroupNorm(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax LayerNorm over the last dim, eps 1e-6 (torch's default is
-    1e-5)."""
+    1e-5); with `channels_first`, over dim 1 of an NCDHW volume (the
+    channels-last LayerNorm of the JAX package's `Norm("layer")`)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, channels_first: bool = False):
         super().__init__()
+        self.channels_first = channels_first
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias,
-                            eps=1e-6)
+        if self.channels_first:
+            x = x.movedim(1, -1)
+        y = F.layer_norm(x, (x.shape[-1],), self.weight, self.bias, eps=1e-6)
+        return y.movedim(-1, 1) if self.channels_first else y
 
 
 class Norm(nn.Module):
     """Norm selector over the channels of an NCDHW volume ("batch",
-    "group" or "none"; the JAX package's "layer" is not ported). The inner
-    module's name follows the flax tree (`BatchNorm_0`, `GroupNorm_0`).
-    BatchNorm follows the module's train/eval mode."""
+    "group", "layer" or "none"). The inner module's name follows the flax
+    tree (`BatchNorm_0`, `GroupNorm_0`, `LayerNorm_0`). BatchNorm follows
+    the module's train/eval mode."""
 
     def __init__(self, kind: str, channels: int, num_groups: int = 32):
         super().__init__()
@@ -347,6 +383,8 @@ class Norm(nn.Module):
             self.BatchNorm_0 = _BatchNorm(channels)
         elif kind == "group":
             self.GroupNorm_0 = _GroupNorm(channels, num_groups)
+        elif kind == "layer":
+            self.LayerNorm_0 = LayerNorm(channels, channels_first=True)
         elif kind != "none":
             raise ValueError(f"unknown norm kind {kind}")
 
@@ -355,6 +393,8 @@ class Norm(nn.Module):
             return self.BatchNorm_0(x)
         if self.kind == "group":
             return self.GroupNorm_0(x)
+        if self.kind == "layer":
+            return self.LayerNorm_0(x)
         return x
 
 
@@ -365,47 +405,98 @@ def upsample3d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
             .repeat_interleave(factor, dim=4))
 
 
+def _fans(w: torch.Tensor) -> Tuple[int, int]:
+    """flax's (fan_in, fan_out) of a port weight: (out, in, *k) for convs
+    and dense layers, (in, out, *k) for a transposed conv, whose flax
+    kernel (*k, out, in) swaps the two as well."""
+    rf = math.prod(w.shape[2:])
+    return w.shape[1] * rf, w.shape[0] * rf
+
+
+def _init_common_(m: nn.Module, generator: torch.Generator) -> None:
+    """Norms identity, BatchNorm statistics (0, 1), PReLU slopes 0.25 and
+    each quantizer's JAX init (`Quantizer.reset_parameters`)."""
+    if isinstance(m, (_BatchNorm, _GroupNorm, LayerNorm)):
+        m.weight.fill_(1.0)
+        m.bias.zero_()
+        if isinstance(m, _BatchNorm):
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+    elif isinstance(m, PReLU):
+        m.alpha.fill_(0.25)
+    elif isinstance(m, Quantizer):
+        m.reset_parameters(generator)
+
+
+_WEIGHTED = (Conv3d, Conv2d, ConvTranspose3d, nn.Linear)
+
+
 @torch.no_grad()
 def init_params_(module: nn.Module, generator: torch.Generator
                  ) -> nn.Module:
-    """Seeded random weights, in place, drawn on the module's device.
+    """Seeded random weights that reach the output, in place, drawn on the
+    module's device: the draw of the random-weight checks and of
+    `GenerationService.from_random_init`. Trainers start from `init_jax_`.
 
-    Every conv, transposed-conv and dense weight is glorot-uniform (the
-    scale of the JAX package's own init; ICNR for a transposed conv with
-    `kernel_resize`), embeddings are N(0, 1), biases zero, norms identity,
-    BatchNorm statistics (0, 1), PReLU slopes 0.25, and each quantizer
-    takes its JAX init (`Quantizer.reset_parameters`). Unlike the JAX
-    init, no layer is zero-initialised: with random weights every layer,
-    attention included, reaches the output."""
+    Every conv, transposed-conv and dense weight is glorot-uniform (ICNR
+    for a transposed conv with `kernel_resize`), embeddings are N(0, 1),
+    biases zero, and norms, PReLU and quantizers as in `init_jax_`.
+    Unlike the JAX init, no layer is zero-initialised: with random
+    weights every layer, attention included, reaches the output."""
     for m in module.modules():
-        if isinstance(m, (Conv3d, Conv2d, ConvTranspose3d)):
+        if isinstance(m, _WEIGHTED):
             w = m.weight
-            rf = math.prod(w.shape[2:])
-            if not isinstance(m, ConvTranspose3d):
-                fan_out, fan_in = w.shape[0] * rf, w.shape[1] * rf
-            else:
-                fan_in, fan_out = w.shape[0] * rf, w.shape[1] * rf
+            fan_in, fan_out = _fans(w)
             a = math.sqrt(6.0 / (fan_in + fan_out))
             w.uniform_(-a, a, generator=generator)
             if isinstance(m, ConvTranspose3d) and m.kernel_resize:
                 _icnr_(m, generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.Linear):
-            a = math.sqrt(6.0 / (m.in_features + m.out_features))
-            m.weight.uniform_(-a, a, generator=generator)
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0, generator=generator)
+        else:
+            _init_common_(m, generator)
+    return module
+
+
+@torch.no_grad()
+def init_jax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX package's init, in place, drawn on the module's device:
+    each conv, transposed-conv and dense weight by its `kernel_init`
+    (glorot-uniform for an `nn.Linear` without one), every bias zero,
+    embeddings flax's `nn.Embed` default (normal, std 1 / sqrt(features)),
+    norms, PReLU and quantizers as flax sets them. The draws are the same
+    distributions as flax's, not the same numbers."""
+    for m in module.modules():
+        if isinstance(m, _WEIGHTED):
+            w = m.weight
+            kind = getattr(m, "kernel_init", "glorot_uniform")
+            fan_in, fan_out = _fans(w)
+            if kind == "zeros":
+                w.zero_()
+            elif kind == "glorot_uniform":
+                a = math.sqrt(6.0 / (fan_in + fan_out))
+                w.uniform_(-a, a, generator=generator)
+            elif kind == "glorot_normal_icnr":
+                _icnr_(m, generator)
+            elif kind == "lecun_normal":
+                # a normal truncated at 2 std, rescaled to variance 1/fan_in
+                std = math.sqrt(1.0 / fan_in) / .87962566103423978
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+            else:
+                w.fill_(float(kind.partition(":")[2]))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
-            m.weight.normal_(0.0, 1.0, generator=generator)
-        elif isinstance(m, (_BatchNorm, _GroupNorm, LayerNorm)):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
-            if isinstance(m, _BatchNorm):
-                m.running_mean.zero_()
-                m.running_var.fill_(1.0)
-        elif isinstance(m, PReLU):
-            m.alpha.fill_(0.25)
-        elif isinstance(m, Quantizer):
-            m.reset_parameters(generator)
+            m.weight.normal_(0.0, m.embedding_dim ** -0.5,
+                             generator=generator)
+        else:
+            _init_common_(m, generator)
     return module
+
+
+# `init_random(seed, scheme)` of the trainers: "jax" starts training where
+# the JAX package does; "reach" is the random-weight checks' draw
+INIT_SCHEMES = {"jax": init_jax_, "reach": init_params_}

@@ -72,7 +72,8 @@ class LPIPS(nn.Module):
         super().__init__()
         self.vgg = VGG16Features()
         for i, (ch, _) in enumerate(_VGG_BLOCKS):
-            self.add_module(f"lin{i}", Conv2d(ch, 1, 1, use_bias=False))
+            self.add_module(f"lin{i}", Conv2d(ch, 1, 1, use_bias=False,
+                                              kernel_init="constant:0.1"))
         self.requires_grad_(False)
 
     def taps(self, img: torch.Tensor) -> List[torch.Tensor]:

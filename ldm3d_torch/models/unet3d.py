@@ -21,7 +21,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ldm3d_torch.core.config import UNetConfig
-from ldm3d_torch.models.layers import Conv3d, LayerNorm, Norm, upsample3d
+from ldm3d_torch.models.layers import (Conv3d, LayerNorm, Norm, upsample3d,
+                                       with_init)
 from ldm3d_torch.ops.attention import voxel_attention
 
 
@@ -78,7 +79,7 @@ class ResidualBlock(nn.Module):
         self.norm1 = Norm(norm, in_channels)
         self.conv1 = Conv3d(in_channels, width, 3)
         self.norm2 = Norm(norm, width)
-        self.conv2 = Conv3d(width, width, 3)
+        self.conv2 = Conv3d(width, width, 3, kernel_init="zeros")
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         residual = x if self.skip_proj is None else self.skip_proj(x)
@@ -100,7 +101,7 @@ class AttentionBlock(nn.Module):
         self.query = nn.Linear(units, units)
         self.key = nn.Linear(units, units)
         self.value = nn.Linear(units, units)
-        self.proj = nn.Linear(units, units)
+        self.proj = with_init(nn.Linear(units, units), "zeros")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xn = self.norm(x)
@@ -123,14 +124,15 @@ class CrossAttentionBlock(nn.Module):
         self.num_heads = num_heads
         self.norm = Norm(norm, units)
         self.proj_in = Conv3d(units, units, 1)
-        self.query = nn.Linear(units, units)
-        self.key = nn.Linear(units, units)
-        self.value = nn.Linear(units, units)
+        # flax's default Dense init: lecun normal
+        self.query = with_init(nn.Linear(units, units), "lecun_normal")
+        self.key = with_init(nn.Linear(units, units), "lecun_normal")
+        self.value = with_init(nn.Linear(units, units), "lecun_normal")
         self.norm1 = LayerNorm(units)
         self.norm2 = LayerNorm(units)
         self.norm3 = LayerNorm(units)
-        self.mlp1 = nn.Linear(units, units * 4)
-        self.mlp2 = nn.Linear(units * 4, units)
+        self.mlp1 = with_init(nn.Linear(units, units * 4), "lecun_normal")
+        self.mlp2 = with_init(nn.Linear(units * 4, units), "lecun_normal")
         self.proj_out = Conv3d(units, units, 1)
 
     def _attend(self, x_seq: torch.Tensor,
@@ -175,7 +177,9 @@ class ContextMLP(nn.Module):
         super().__init__()
         self.spatial = tuple(spatial)
         self.channels = channels
-        self.Dense_0 = nn.Linear(in_features, math.prod(spatial) * channels)
+        self.Dense_0 = with_init(
+            nn.Linear(in_features, math.prod(spatial) * channels),
+            "lecun_normal")
 
     def forward(self, cemb: torch.Tensor) -> torch.Tensor:
         out = F.silu(self.Dense_0(cemb))
@@ -251,7 +255,7 @@ class UNet3D(nn.Module):
                 size *= 2
 
         self.head_norm = Norm(cfg.norm, ch)
-        self.head = Conv3d(ch, out_channels, 3)
+        self.head = Conv3d(ch, out_channels, 3, kernel_init="zeros")
 
     def _attend(self, h, name, cemb):
         if self.conditional:

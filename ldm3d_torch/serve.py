@@ -80,7 +80,8 @@ class GenerationService:
     def from_random_init(cls, cfg: DiffusionConfig, seed: int = 0,
                          device=None, name: str = "ldm3d"):
         """A service over seeded random weights (no trained checkpoint)."""
-        trainer = DiffusionTrainer(cfg, device=device).init_random(seed)
+        trainer = DiffusionTrainer(cfg, device=device).init_random(
+            seed, scheme="reach")
         return cls(cfg, trainer, name=name)
 
     @classmethod

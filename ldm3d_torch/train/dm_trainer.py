@@ -27,7 +27,7 @@ from ldm3d_torch.diffusion.ddpm import (sample_latents, sample_latents_ddim,
 from ldm3d_torch.diffusion.schedule import (make_schedule, min_snr_weight,
                                             model_out_to_eps, q_sample,
                                             v_target)
-from ldm3d_torch.models.layers import init_params_
+from ldm3d_torch.models.layers import INIT_SCHEMES
 from ldm3d_torch.models.unet3d import UNet3D
 from ldm3d_torch.models.vqvae import VQVAE
 from ldm3d_torch.ops.fid import (frechet_distance, latent_fidelity,
@@ -107,10 +107,12 @@ class DiffusionTrainer:
         self.optimizer: Optional[torch.optim.Adam] = None
         self.step = 0
 
-    def init_random(self, seed: int) -> "DiffusionTrainer":
-        """Seeded random weights (see `layers.init_params_`)."""
+    def init_random(self, seed: int, scheme: str = "jax"
+                    ) -> "DiffusionTrainer":
+        """Seeded random weights: the JAX package's init (`layers.init_jax_`)
+        or, with scheme "reach", `layers.init_params_`."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        init_params_(self.model, gen)
+        INIT_SCHEMES[scheme](self.model, gen)
         return self
 
     def snapshot_modules(self) -> Tuple[nn.Module, Optional[nn.Module]]:

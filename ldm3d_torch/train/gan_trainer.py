@@ -41,7 +41,7 @@ from ldm3d_torch.convert import (convert_gan_state, gan_flax_state,
                                  module_state)
 from ldm3d_torch.core.config import TrainConfig, VQGANConfig
 from ldm3d_torch.core.device import resolve_device
-from ldm3d_torch.models.layers import _BatchNorm, init_params_
+from ldm3d_torch.models.layers import INIT_SCHEMES, _BatchNorm
 from ldm3d_torch.models.lpips import (LPIPS, calibrate_lpips_,
                                       calibration_frames, load_lpips_params)
 from ldm3d_torch.models.quantizers import Draws, QuantAux
@@ -131,11 +131,13 @@ class GANTrainer:
         self.epoch = 0
         self.lpips_pretrained = False
 
-    def init_random(self, seed: int) -> "GANTrainer":
-        """Seeded random weights; LPIPS from $LDM3D_LPIPS_WEIGHTS, or else
-        the self-calibrated random-feature surrogate (with a warning)."""
+    def init_random(self, seed: int, scheme: str = "jax") -> "GANTrainer":
+        """Seeded random weights, the JAX package's init (`layers.init_jax_`)
+        or, with scheme "reach", `layers.init_params_`; LPIPS from
+        $LDM3D_LPIPS_WEIGHTS, or else the self-calibrated random-feature
+        surrogate over the random trunk (with a warning)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        init_params_(self.model, gen)
+        INIT_SCHEMES[scheme](self.model, gen)
         flat = load_lpips_params()
         self.lpips_pretrained = flat is not None
         if flat is not None:

@@ -27,7 +27,7 @@ import torch.nn as nn
 
 from ldm3d_torch.core.config import TrainConfig, VQVAEConfig
 from ldm3d_torch.core.device import resolve_device
-from ldm3d_torch.models.layers import _BatchNorm, init_params_
+from ldm3d_torch.models.layers import INIT_SCHEMES, _BatchNorm
 from ldm3d_torch.models.quantizers import (Draws, QuantAux,
                                            replace_unused_codebooks,
                                            replace_unused_codebooks_staged)
@@ -80,10 +80,11 @@ class VQTrainer:
             betas=(tc.adam_b1, tc.adam_b2), eps=1e-8)
         self.step = 0
 
-    def init_random(self, seed: int) -> "VQTrainer":
-        """Seeded random weights (see `layers.init_params_`)."""
+    def init_random(self, seed: int, scheme: str = "jax") -> "VQTrainer":
+        """Seeded random weights: the JAX package's init (`layers.init_jax_`)
+        or, with scheme "reach", `layers.init_params_`."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        init_params_(self.model, gen)
+        INIT_SCHEMES[scheme](self.model, gen)
         return self
 
     # -- state ------------------------------------------------------------

@@ -121,7 +121,7 @@ def _trainer(seed=0):
     tc = TrainConfig(batch_size=2, learning_rate=1e-3, ema_decay=EMA_DECAY,
                      seed=11)
     return DiffusionTrainer(_tiny_cfg(), device="cpu",
-                            train_cfg=tc).init_random(seed)
+                            train_cfg=tc).init_random(seed, "reach")
 
 
 def _batch(path):

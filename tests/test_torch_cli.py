@@ -455,17 +455,16 @@ def test_trained_state_samples_as_jax(against_jax):
 
 
 UNPORTED = [
-    (["--fidelity_sweep"], "item 5"), (["--sweep", "s.yaml"], "item 5"),
-    (["--train_dm", "--synthetic", "--device_data"], "item 5"),
-    (["--profile"], "item 5"), (["--coordinator", "h:1"], "item 9"),
+    (["--coordinator", "h:1"], "item 9"),
     (["--num_processes", "2"], "item 9"), (["--cpu_devices", "4"], "item 9"),
 ]
 
 
-# the ids count from 2: cases 0 and 1, the VQ-GAN modes, run now
-# (test_vqgan_modes_run_on_the_cpu)
+# the ids count from 6: cases 0 and 1, the VQ-GAN modes, run now
+# (test_vqgan_modes_run_on_the_cpu); cases 2-5, --fidelity_sweep, --sweep,
+# --device_data and --profile, too (tests/test_torch_cli_modes.py)
 @pytest.mark.parametrize("flags,item", UNPORTED, ids=[
-    f"flags{i}-{item}" for i, (_, item) in enumerate(UNPORTED, start=2)])
+    f"flags{i}-{item}" for i, (_, item) in enumerate(UNPORTED, start=6)])
 def test_unported_modes_exit_with_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"not ported yet; see ROADMAP "
                                          f"queue 1 {item}"):

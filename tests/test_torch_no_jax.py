@@ -10,8 +10,10 @@ CPU, then the command line at `smoke_cond` (--create_dataset, --train_dm
 --cache_latents, --resume_ckpt -1, --test_dm) and serves from its
 checkpoint, stage-1 at `smoke` (--train_vq, --test_vq) and the VQ-GAN
 at `vqgan_attn` on 16^3 volumes (--train_vq for a warm and an
-adversarial epoch, --test_vq). The sources of the port (every module
-under `ldm3d_torch/`,
+adversarial epoch, --test_vq), a --fidelity_sweep under --profile, a
+bayes --sweep of one --train_vq point on --device_data, the native
+reader, the profiling helpers and the offline plots. The sources of the
+port (every module under `ldm3d_torch/`,
 so the CLI, data, checkpoint and export modules too) and of
 `chip_smoke.py` are also searched for such imports.
 """
@@ -102,6 +104,35 @@ with tempfile.TemporaryDirectory() as d:
     cli_main(gan + ["--train_vq", "--epochs", "2"])
     cli_main(gan + ["--test_vq"])
     assert os.path.exists(d + "/out/reconst_0.npy")
+    cli_main(base + ["--fidelity_sweep", "--fidelity_samples", "2",
+                     "--sweep_samplers", "ddim:2", "--guidance_grid",
+                     "none,3", "--fidelity_by_class", "--profile"])
+    assert os.path.exists(d + "/out/fidelity_sweep_smoke_cond.md")
+    assert os.listdir(d + "/ckpt/trace")
+    with open(d + "/sweep.yaml", "w") as f:
+        f.write("method: bayes\\nparameters:\\n  lr:\\n"
+                "    values: [0.001]\\n  epochs:\\n    value: 1\\n")
+    cli_main(s1 + ["--sweep", d + "/sweep.yaml", "--synthetic",
+                   "--device_data", "--ckpt_dir", d + "/sweep"])
+    with open(d + "/sweep/sweep_results.jsonl") as f:
+        assert len(f.read().splitlines()) == 1
+    from ldm3d_torch.data.native import NativeReader
+    from ldm3d_torch.data.pipeline import DataLoader, VolumeCache
+    from ldm3d_torch.core.config import DataConfig
+    loader = DataLoader(VolumeCache(d + "/cache"), 2,
+                        DataConfig(volume_size=16), device="cpu")
+    assert loader.reader == "native" and len(list(loader)) == 3
+    from ldm3d_torch.utils import profiling, visualize
+    timer = profiling.StepTimer()
+    for _ in range(2):
+        timer.time_step(torch.matmul, torch.ones(8, 8), torch.ones(8, 8))
+    assert timer.summary()["steps"] == 1.0
+    assert profiling.cost_estimate(torch.matmul, torch.ones(4, 4),
+                                   torch.ones(4, 4))["flops"] == 128.0
+    log = d + "/ckpt/smoke_vq/training.log"
+    assert "loss" in visualize.read_training_log(log)
+    visualize.main(["loss", log, "--out", d + "/loss.png"])
+    assert os.path.exists(d + "/loss.png")
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
 assert not loaded, loaded
