@@ -8,6 +8,14 @@
                                                  # VQ-GAN steps at 64^3: the
                                                  # card and a float32 CPU
                                                  # twin against float64
+    python3 chip_smoke.py --ddp-check            # device, build, and the
+                                                 # ddp phase's two steps,
+                                                 # cuDNN default and
+                                                 # deterministic, each
+                                                 # one-process step against
+                                                 # itself and (stage 2,
+                                                 # deterministic) float64,
+                                                 # printed
 
 Phases, one line each (flush=True); any failure raises and the exit code is
 not 0:
@@ -101,6 +109,22 @@ not 0:
                 nsvqvae (1 launch) and rnsvqvae (4); then, uncounted, the
                 stage-1 step's time and peak memory with remat full, conv
                 and off (2 steps each on one trainer) and its profile
+     ddp        main path 8: data parallelism. Two processes of this script
+                (--ddp-worker) on the one card, joined by gloo over
+                localhost ports: the flagship's latent step at global batch
+                8 (4 rows each, global draws injected; 12 attention
+                launches each) and its stage-1 at 128^3, global batch 4
+                (remat full; one codebook launch each), each against the
+                one-process step of a twin on process 0 (TF32 off and
+                cuDNN deterministic on both sides: loss, every gradient
+                to its group's bound, BatchNorm statistics) and
+                bitwise equal across the processes; the step's time, the
+                gradients' all-reduce alone, the peak memory of each
+                process; then --train_dm --cache_latents from the command
+                line with --num_processes 2 at --lbs 4 (the cli phase's
+                global batch 8), one epoch and --resume_ckpt -1 to a
+                second: one checkpoint directory, process 0's epoch-1 loss
+                against the cli phase's one-process epoch
  14. train_gan  main path 7: the VQ-GAN. A warm and an adversarial step of
                 vqgan_attn at full width (R1 and the adaptive weight on,
                 32^3) on the card, f32 with TF32 off, against a float64
@@ -117,11 +141,13 @@ not 0:
                 and the adaptive weight each on and off, VGG16 alone)
  15. kernels    one JSON line with the whole run's kernel numbers
  16. last line  {"ok": true, "device": {...}}
-No socket; one profiler trace, written in the cli phase's temporary
-directory; the threads are the CLI's data loader prefetchers, joined when
-their epoch ends, and the native reader's pool. Nothing is written but
-the builds under ldm3d_torch/_build/ (the kernels and the native reader)
-and the cli, train_vq and train_gan phases' temporary directories.
+Sockets only on localhost, between the ddp phase's two processes, which
+end (or are killed at DDP_TIMEOUT) before the phase does; one profiler
+trace, written in the cli phase's temporary directory; the threads are
+the CLI's data loader prefetchers, joined when their epoch ends, and the
+native reader's pool. Nothing is written but the builds under
+ldm3d_torch/_build/ (the kernels and the native reader) and the cli,
+train_vq, ddp and train_gan phases' temporary directories.
 Imports nothing of JAX.
 """
 
@@ -165,6 +191,7 @@ from ldm3d_torch.models.unet3d import (AttentionBlock,  # noqa: E402
 from ldm3d_torch.models.vqvae import VQVAE  # noqa: E402
 from ldm3d_torch.ops import _build  # noqa: E402
 from ldm3d_torch.ops.metrics import volume_psnr, volume_ssim  # noqa: E402
+from ldm3d_torch.parallel import distributed as pdist  # noqa: E402
 from ldm3d_torch.serve import GenerationService  # noqa: E402
 from ldm3d_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from ldm3d_torch.train.dm_trainer import (DiffusionTrainer,  # noqa: E402
@@ -351,6 +378,40 @@ GAN_OTHERS = [("vqgan_attn_sym", [], True), ("vqgan_baseline", [], True),
               ("vqgan_gnorm", [], True), ("vqgan_stride", [], True),
               ("emavqvae", [], False), ("vqvae_legacy", [], False),
               ("vqvae_legacy", ["--vqvae_mode", "2"], False)]
+# Main path 8 (`ddp`): data parallelism over DDP_PROCESSES processes of
+# this script on the one card (gloo, through the host: NCCL needs a card
+# per process). Stage 2 at global batch DDP_BATCH, stage 1 at
+# DDP_VQ_BATCH volumes of TRAIN_VQ_SIZE^3, the CLI at --lbs DDP_CLI_LBS
+# per process (the cli phase's global batch).
+DDP_PROCESSES, DDP_BATCH, DDP_VQ_BATCH, DDP_CLI_LBS = 2, 8, 4, 4
+DDP_DEVICE, DDP_TINY = "cuda", False
+DDP_TIMEOUT = 480                 # seconds for the workers, all of them
+# The compared steps run with TF32 off and cuDNN deterministic on both
+# sides (the one-process step then repeats bit for bit); --ddp-check
+# measured the gaps (PERF.md, §6). The loss: 0 (stage 2) and 2.2e-7
+# (stage 1) measured, held to TRAIN_LOSS_RTOL. Each gradient against its
+# tensor's largest value, or DDP_GRAD_FLOOR of the model's largest where
+# that is smaller (a conv bias before BatchNorm has an exact gradient of
+# 0), a tensor taking the bound of the first name pattern it matches:
+# stage 1 measured 5.8e-5, held to 1e-3. Stage 2, each group held to
+# about 3x its largest measured gap: the cross-attention MLPs
+# (xattn_*.mlp1/mlp2) are ill-conditioned in float32 (the one-process
+# card step lies up to 9.2e-2 of such a tensor from a float64 CPU step,
+# the data-parallel step, another summation order, 7.0e-2 from the
+# one-process one), held to 0.1; the other cross-attention tensors
+# measured 6.5e-3 (xattn_down_1_0.proj_out.weight), held to 2e-2; the
+# rest of the U-Net measured 2.9e-3 (down_res_1_0.conv2.weight), held
+# to 1e-2. All together, DDP_MODEL_GRAD_RTOL of the model's largest
+# gradient (measured 1.44e-3; one process against float64 1.0e-3).
+DDP_LOSS_RTOL = TRAIN_LOSS_RTOL
+DDP_GRAD_FLOOR = 1e-3
+DDP_S1_GRAD_RTOL = ((None, 1e-3),)
+DDP_S2_GRAD_RTOL = ((r"^xattn_[^.]*\.mlp\d\.", 0.1), (r"^xattn_", 2e-2),
+                    (None, 1e-2))
+DDP_MODEL_GRAD_RTOL = 2e-3
+# the CLI's epoch-1 loss against the cli phase's (TF32 convolutions at
+# batch 4 and at batch 8; measured 5.1e-7)
+DDP_CLI_LOSS_RTOL = 1e-4
 
 
 _T0 = time.perf_counter()
@@ -495,6 +556,8 @@ def phase_kernel(card: str) -> Dict[str, dict]:
         ("self_f32", 16, 64, 64, 512, torch.float32),     # served path
         ("guided_f32", 32, 64, 64, 512, torch.float32),   # guided, num 16
         ("train_f32", 8, 64, 64, 512, torch.float32),     # train path
+        # the ddp path: 4 rows per process (stage-2 step, CLI at --lbs 4)
+        ("ddp_f32", 4, 64, 64, 512, torch.float32),
         ("self_bf16", 16, 64, 64, 512, torch.bfloat16),
         ("cross_ragged_f32", 16, 64, 37, 512, torch.float32),
         ("cross_ragged_bf16", 16, 64, 37, 512, torch.bfloat16),
@@ -550,8 +613,9 @@ def _codebook_case(gen, n, k, d, dtype, dup: bool):
 def phase_codebook(card: str) -> Dict[str, dict]:
     """Codebook kernel against `_nearest_indices_reference` at the train
     shape [4096, 256] x [1024, 256], in f32 and bf16, with a ragged N and
-    with duplicated codes (which must give the first index exactly), and at
-    the nsvqvae, rnsvqvae and vqgan_attn stage-1 shapes."""
+    with duplicated codes (which must give the first index exactly), at
+    the nsvqvae, rnsvqvae and vqgan_attn stage-1 shapes and at the ddp
+    path's per-process shapes."""
     cases = [  # name, N, K, D, dtype, duplicated codes
         ("train_f32", 4096, 1024, 256, torch.float32, False),  # train path
         ("train_bf16", 4096, 1024, 256, torch.bfloat16, False),
@@ -564,6 +628,10 @@ def phase_codebook(card: str) -> Dict[str, dict]:
         ("nsvq_f32", 4096, 512, 256, torch.float32, False),
         # the VQ-GAN: vqgan_attn's 32^3 x 256 latents at batch 2, 128^3
         ("vqgan_attn_f32", 65536, 512, 256, torch.float32, False),
+        # the ddp path, per process: the stage-1 step (2 volumes of 8^3
+        # latents) and the CLI's encode at --lbs 4
+        ("ddp_stage1_f32", 1024, 1024, 256, torch.float32, False),
+        ("ddp_cli_f32", 2048, 1024, 256, torch.float32, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
@@ -1179,8 +1247,10 @@ def phase_train(card: str) -> dict:
                 encode_ms=encode_ms, step_ms=step_ms, peak=peak)
 
 
-def _twin(trainer: DiffusionTrainer, device: str) -> DiffusionTrainer:
-    tc = TrainConfig(batch_size=2, ema_decay=trainer.train_cfg.ema_decay)
+def _twin(trainer: DiffusionTrainer, device: str,
+          batch: int = 2) -> DiffusionTrainer:
+    tc = TrainConfig(batch_size=batch,
+                     ema_decay=trainer.train_cfg.ema_decay)
     twin = DiffusionTrainer(trainer.cfg, device=device, train_cfg=tc)
     twin.model.load_state_dict(trainer.model.state_dict())
     return twin
@@ -1198,13 +1268,14 @@ def _compare_inputs(trainer: DiffusionTrainer, lat: torch.Tensor):
     return x, torch.tensor([1, 0]), draws
 
 
-def _float64_twin(trainer: DiffusionTrainer) -> DiffusionTrainer:
+def _float64_twin(trainer: DiffusionTrainer,
+                  batch: int = 2) -> DiffusionTrainer:
     """A CPU twin whose U-Net, Adam state and gradients are float64. The
     step's inputs stay as the float32 runs make them (the noised latents,
     the sinusoidal time embedding) and are widened where they enter; the
     loss is formed in float32 (`pred.float()`), which rounds only the
     upstream gradient's first factor, to 1e-7."""
-    twin = _twin(trainer, "cpu")
+    twin = _twin(trainer, "cpu", batch)
     unet = twin.model.unet.double()
     unet.register_forward_pre_hook(
         lambda m, args: (args[0].double(),) + tuple(args[1:]))
@@ -1448,6 +1519,14 @@ def _resume_step_error(saver: DiffusionTrainer, restored: DiffusionTrainer,
                 tensors=len(pairs))
 
 
+def _log_rows(path: str) -> list:
+    """training.log's rows, values as floats."""
+    import csv
+    with open(path) as f:
+        return [{k: float(v) for k, v in row.items()}
+                for row in csv.DictReader(f)]
+
+
 def phase_cli(card: str) -> dict:
     """Main path 5: the port's command line at full flagship width, in
     process, in a temporary directory removed at the end: the flagship
@@ -1457,7 +1536,8 @@ def phase_cli(card: str) -> dict:
     DDIM, and GenerationService.from_checkpoint serving one request. The
     counters are zeroed before each of those user-facing steps and read
     after it; the checks between them (the resume step, the trainer's own
-    generate) are not counted."""
+    generate) are not counted. Returns the launch counts and the first
+    epoch's training.log row (the ddp phase's one-process reference)."""
     tmp = tempfile.mkdtemp(prefix="ldm3d_cli_")
     dev = CLI_DEVICE
     counts = {attn.KERNEL: 0, cbq.KERNEL: 0}
@@ -1564,6 +1644,7 @@ def phase_cli(card: str) -> dict:
         if got1 != expect or saver.step != steps:
             raise RuntimeError(f"cli train_dm: launches {got1}, expected "
                                f"{expect}, step {saver.step}")
+        train_log = _log_rows(os.path.join(ckpt_dir, "training.log"))[0]
 
         # resume is exact: restore epoch 1 into a fresh trainer
         fresh = DiffusionTrainer(cfg.diffusion, device=dev,
@@ -1710,7 +1791,7 @@ def phase_cli(card: str) -> dict:
             raise RuntimeError(f"cli serve: rel_err {rel}, launches {got4}")
         say("cli", launches=counts, peak_train=peak_train,
             peak_serve=peak_serve, card=card)
-        return counts
+        return dict(counts=counts, train_log=train_log)
     finally:
         cli._encode_corpus = real_encode
         CheckpointManager.save = real_save
@@ -2485,6 +2566,550 @@ def phase_train_gan(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order: equal digests on two
+    processes mean bitwise equal tensors."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _sync(dev: str) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _launches() -> Dict[str, int]:
+    return {attn.KERNEL: attn.launches, cbq.KERNEL: cbq.launches}
+
+
+def _reset_launches() -> None:
+    attn.reset_launches()
+    cbq.reset_launches()
+
+
+def _grad_errors(model, ref_model, tols) -> dict:
+    """Each parameter's gradient against the one-process reference's:
+    max |a - b| over the larger of the reference tensor's largest |b| and
+    DDP_GRAD_FLOOR of the model's largest (a conv bias before BatchNorm
+    has an exact gradient of 0 and float32 noise on both sides). `tols`
+    is a sequence of (name pattern, bound): a tensor takes the bound of
+    the first pattern its name matches (None matches every name), and
+    each group's worst tensor is reported beside its bound."""
+    ref = dict(ref_model.named_parameters())
+    top = max(float(p.grad.abs().max()) for p in ref.values()
+              if p.grad is not None)
+    groups = [dict(tensors=pat or "rest", tol=tol, rel_err=0.0, worst=None,
+                   count=0) for pat, tol in tols]
+    errs, rows = {}, []
+    for n, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        b = ref[n].grad.double()
+        own = float(b.abs().max())
+        err = float((p.grad.double().to(b.device) - b).abs().max())
+        errs[n] = err / max(own, DDP_GRAD_FLOOR * top)
+        rows.append((errs[n], n, err, own))
+        g = next(g for g, (pat, _) in zip(groups, tols)
+                 if pat is None or re.search(pat, n))
+        g["count"] += 1
+        if g["worst"] is None or errs[n] > g["rel_err"]:
+            g["rel_err"], g["worst"] = errs[n], n
+    worst = max(errs, key=errs.get)
+    return dict(grad_rel_err=errs[worst], grad_worst=worst,
+                grad_groups=groups,
+                grad_ok=all(g["rel_err"] <= g["tol"] for g in groups),
+                grads_compared=len(errs), grad_top=top,
+                grad_model_rel_err=max(r[2] for r in rows) / top,
+                grad_worst5=[dict(name=n, rel=r, abs_err=e, tensor_max=o)
+                             for r, n, e, o in sorted(rows)[-5:]],
+                grad_rel_errs=errs)
+
+
+def _stats_error(model, ref_model) -> float:
+    """The BatchNorm running statistics against the reference's, relative
+    to each tensor's largest value."""
+    ref = dict(ref_model.named_buffers())
+    return max([float((b.double() - ref[n].double()).abs().max())
+                / max(float(ref[n].abs().max()), 1e-30)
+                for n, b in model.named_buffers() if "running" in n],
+               default=0.0)
+
+
+def _ddp_s2_inputs(spec: dict) -> dict:
+    """The stage-2 step's config, global batch and injected draws (made
+    alike on every process from SEED)."""
+    cfg, b = flagship_cfg(tiny=spec["tiny"]), DDP_BATCH
+    rng = np.random.default_rng(SEED + 7)
+    shape = (b,) + (cfg.latent_size,) * 3 + (cfg.latent_channels,)
+    lat = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    ctx = torch.from_numpy(rng.integers(0, cfg.unet.context_dim + 1, b))
+    draws = dict(t=torch.from_numpy(rng.integers(0, cfg.timesteps, b)),
+                 noise=torch.from_numpy(
+                     rng.standard_normal(shape).astype(np.float32)),
+                 drop=torch.from_numpy(rng.random(b)
+                                       < cfg.unet.cfg_dropout))
+    return dict(cfg=cfg, lat=lat, ctx=ctx, draws=draws,
+                on={k: v.to(spec["device"]) for k, v in draws.items()},
+                tc=TrainConfig(batch_size=b, ema_decay=0.999, seed=SEED))
+
+
+def _ddp_s2_one_process(spec: dict, inp: dict) -> DiffusionTrainer:
+    """A one-process twin of the stage-2 trainer, from the same init."""
+    return DiffusionTrainer(inp["cfg"], device=spec["device"],
+                            train_cfg=inp["tc"]).init_random(SEED, "reach")
+
+
+def _ddp_s2_step(tr: DiffusionTrainer, inp: dict, dev: str) -> dict:
+    """The one-process step on the whole global batch (TF32 off)."""
+    with _NoTF32():
+        m = tr.train_step_latents(inp["lat"].to(dev), inp["ctx"].to(dev),
+                                  **inp["on"])
+        _sync(dev)
+    return m
+
+
+def _ddp_stage2(spec: dict, rank: int) -> tuple:
+    """The flagship's latent step at global batch DDP_BATCH over the
+    mesh, each rank its rows, the draws the global batch's (injected);
+    rank 0 then takes the one-process step on a twin. TF32 off for both
+    (the comparison measures the data-parallel step, not TF32), cuDNN
+    deterministic as the worker sets it. Returns this process's numbers,
+    its trainer (the counted step's gradients) and the inputs."""
+    from ldm3d_torch.parallel.mesh import make_mesh, shard_batch
+
+    dev, inp = spec["device"], _ddp_s2_inputs(spec)
+    mesh = make_mesh(cfg=None, batch_size=DDP_BATCH)
+    tr = DiffusionTrainer(inp["cfg"], device=dev, train_cfg=inp["tc"],
+                          mesh=mesh).init_random(SEED, "reach")
+    inp["mesh"] = mesh
+    inp["x"], inp["c"] = (t.to(dev) for t in shard_batch(
+        mesh, (inp["lat"], inp["ctx"])))
+    with _NoTF32():
+        _sync(dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _reset_launches()        # the main path's step starts here
+        t0 = time.perf_counter()
+        m = tr.train_step_latents(inp["x"], inp["c"], **inp["on"])
+        _sync(dev)
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        got = _launches()
+    out = dict(loss=float(m["loss"]), noise_mse=float(m["noise_mse"]),
+               launches=got, first_step_ms=first_ms,
+               attention_calls=attention_calls_per_step(tr.model.unet),
+               params=_digest(tr.model.unet.parameters()),
+               buffers=_digest(tr.model.unet.buffers()),
+               ema=_digest(tr.ema_unet.parameters()))
+    if rank == 0:
+        twin = _ddp_s2_one_process(spec, inp)
+        m1 = _ddp_s2_step(twin, inp, dev)
+        out.update(_grad_errors(tr.model.unet, twin.model.unet,
+                                DDP_S2_GRAD_RTOL),
+                   loss_1p=float(m1["loss"]),
+                   loss_rel_err=abs(float(m["loss"]) - float(m1["loss"]))
+                   / abs(float(m1["loss"])),
+                   stats_rel_err=_stats_error(tr.model.unet,
+                                              twin.model.unet))
+        del twin
+    pdist.barrier()
+    return out, tr, inp
+
+
+def _ddp_stage2_timing(spec: dict, tr: DiffusionTrainer, inp: dict,
+                       out: dict) -> None:
+    """Uncounted: a second step with the defaults (TF32 convolutions,
+    cuDNN's own choice of algorithms), and the gradients' all-reduce."""
+    from ldm3d_torch.parallel.mesh import data_group
+
+    dev = spec["device"]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    _sync(dev)
+    t0 = time.perf_counter()
+    tr.train_step_latents(inp["x"], inp["c"], **inp["on"])
+    _sync(dev)
+    out["step_ms"] = 1e3 * (time.perf_counter() - t0)
+    torch.backends.cudnn.deterministic = det
+    t0 = time.perf_counter()
+    pdist.reduce_gradients(tr.model.unet.parameters(),
+                           data_group(inp["mesh"]))
+    _sync(dev)
+    out["grad_allreduce_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["grad_bytes"] = sum(p.numel() * p.element_size()
+                            for p in tr.model.unet.parameters())
+    if dev == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+
+def _ddp_s1_inputs(spec: dict) -> dict:
+    """The stage-1 step's config and global batch (made alike on every
+    process from SEED)."""
+    args = cli.build_parser().parse_args(spec["vq_flags"])
+    rng = np.random.default_rng(SEED + 8)
+    vol = _seeded_volumes(rng, DDP_VQ_BATCH, spec["vq_size"])
+    return dict(vcfg=cli.apply_overrides(get_preset(args.preset),
+                                         args).vqvae,
+                tc=TrainConfig(batch_size=DDP_VQ_BATCH, seed=SEED),
+                vol=vol, mask=(vol > 0.5).float())
+
+
+def _ddp_s1_one_process(spec: dict, inp: dict) -> VQTrainer:
+    """A one-process twin of the stage-1 trainer, from the same init."""
+    return VQTrainer(inp["vcfg"], inp["tc"],
+                     device=spec["device"]).init_random(SEED)
+
+
+def _ddp_s1_step(tr: VQTrainer, inp: dict, dev: str) -> dict:
+    """The one-process step on the whole global batch (TF32 off)."""
+    with _NoTF32():
+        m = tr.train_step(inp["vol"].to(dev), inp["mask"].to(dev))
+        _sync(dev)
+    return m
+
+
+def _ddp_stage1(spec: dict, rank: int) -> tuple:
+    """The flagship's stage-1 (remat full) at global batch DDP_VQ_BATCH of
+    TRAIN_VQ_SIZE^3 volumes over the mesh; rank 0 then takes the
+    one-process step on a twin (TF32 off for both, cuDNN deterministic
+    as the worker sets it). Returns this process's numbers, its trainer
+    and the inputs."""
+    from ldm3d_torch.parallel.mesh import make_mesh, shard_batch
+
+    dev, inp = spec["device"], _ddp_s1_inputs(spec)
+    mesh = make_mesh(cfg=None, batch_size=DDP_VQ_BATCH)
+    tr = VQTrainer(inp["vcfg"], inp["tc"], device=dev,
+                   mesh=mesh).init_random(SEED)
+    lv, lm = (t.to(dev) for t in shard_batch(mesh, (inp["vol"],
+                                                    inp["mask"])))
+    with _NoTF32():
+        _sync(dev)
+        _reset_launches()        # the main path's step starts here
+        t0 = time.perf_counter()
+        m = tr.train_step(lv, lm)
+        _sync(dev)
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        got = _launches()
+    q = tr.model.quantizer
+    out = dict(loss=float(m["loss"]), perplexity=float(m["perplexity"]),
+               launches=got, step_ms=step_ms, remat=inp["vcfg"].remat,
+               remat_policy=inp["vcfg"].remat_policy,
+               usage=_digest([q.codebooks_used]),
+               codebook=_digest([q.codebook]),
+               params=_digest(tr.model.parameters()))
+    if rank == 0:
+        twin = _ddp_s1_one_process(spec, inp)
+        m1 = _ddp_s1_step(twin, inp, dev)
+        out.update(_grad_errors(tr.model, twin.model, DDP_S1_GRAD_RTOL),
+                   loss_1p=float(m1["loss"]),
+                   loss_rel_err=abs(float(m["loss"]) - float(m1["loss"]))
+                   / abs(float(m1["loss"])),
+                   usage_equal_1p=bool(torch.equal(
+                       q.codebooks_used, twin.model.quantizer.codebooks_used)))
+        del twin
+    pdist.barrier()
+    return out, tr, inp
+
+
+def _ddp_check_extras(spec: dict, rank: int, stage: str, tr,
+                      inp: dict) -> dict:
+    """--ddp-check only, on process 0: the one-process step twice (the
+    second against the first), and in stage 2 with cuDNN deterministic
+    the data-parallel and the one-process steps against a float64 CPU
+    step."""
+    dev, out = spec["device"], {}
+    if rank == 0:
+        if stage == "stage2":
+            one = partial(_ddp_s2_one_process, spec, inp)
+            step, tols = _ddp_s2_step, DDP_S2_GRAD_RTOL
+
+            def model(t):
+                return t.model.unet
+        else:
+            one = partial(_ddp_s1_one_process, spec, inp)
+            step, tols = _ddp_s1_step, DDP_S1_GRAD_RTOL
+
+            def model(t):
+                return t.model
+        first = one()
+        f64 = _float64_twin(first, DDP_BATCH) if stage == "stage2" \
+            and torch.backends.cudnn.deterministic else None
+        step(first, inp, dev)
+        again = one()
+        step(again, inp, dev)
+        out["one_process_again"] = _grad_errors(model(again), model(first),
+                                                tols)
+        del again
+        if f64 is not None:
+            f64.train_step_latents(inp["lat"], inp["ctx"], **inp["draws"])
+            out["dp_vs_float64"] = _grad_errors(model(tr), model(f64), tols)
+            out["one_process_vs_float64"] = _grad_errors(
+                model(first), model(f64), tols)
+    pdist.barrier()
+    return out
+
+
+def _ddp_cli(spec: dict, rank: int) -> dict:
+    """--train_dm --cache_latents over the processes from the command line
+    (each process calls the CLI's main with --coordinator): one epoch,
+    then --resume_ckpt -1 to a second; counted per run."""
+    tmp, dev = spec["tmp"], spec["device"]
+    argv = spec["cli_flags"] + [
+        "--cache_dir", os.path.join(tmp, "cache"), "--ckpt_dir",
+        os.path.join(tmp, "ckpt"), "--out_dir", os.path.join(tmp, "out"),
+        "--platform", "gpu" if dev == "cuda" else "cpu", "--train_dm",
+        "--cache_latents", "--synthetic", "--num_synthetic",
+        str(spec["cli_volumes"]), "--lbs", str(DDP_CLI_LBS),
+        "--num_processes", str(DDP_PROCESSES), "--process_id", str(rank)]
+    out = {}
+    for run, (port, extra) in enumerate(zip(
+            spec["cli_ports"], (["--epochs", "1"],
+                                ["--epochs", "2", "--resume_ckpt", "-1"]))):
+        _sync(dev)
+        _reset_launches()        # a run of the main path starts here
+        t0 = time.perf_counter()
+        cli.main(argv + ["--coordinator", f"127.0.0.1:{port}"] + extra)
+        _sync(dev)
+        out[f"run{run + 1}"] = dict(wall_s=time.perf_counter() - t0,
+                                    launches=_launches())
+    return out
+
+
+def _ddp_main_path(spec: dict, rank: int) -> dict:
+    """The ddp phase's steps (cuDNN deterministic), then stage 2's
+    timing."""
+    torch.backends.cudnn.deterministic = True
+    s2, tr, inp = _ddp_stage2(spec, rank)
+    _ddp_stage2_timing(spec, tr, inp, s2)
+    del tr, inp
+    torch.cuda.empty_cache()
+    s1 = _ddp_stage1(spec, rank)[0]
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return dict(stage2=s2, stage1=s1)
+
+
+def _ddp_check(spec: dict, rank: int) -> dict:
+    """--ddp-check's steps: with cuDNN's default algorithms, then
+    deterministic, each step followed by its extras; nothing judged."""
+    out = {}
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        key = "_deterministic" if det else ""
+        for stage, run in (("stage2", _ddp_stage2), ("stage1", _ddp_stage1)):
+            res, tr, inp = run(spec, rank)
+            res.update(_ddp_check_extras(spec, rank, stage, tr, inp))
+            out[stage + key] = res
+            del tr, inp
+            torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def ddp_worker(spec_path: str, rank: str) -> None:
+    """One process of the ddp phase: joins the others, runs stage 2,
+    stage 1 and the command line (with --ddp-check: the check's steps
+    alone), and writes its numbers as JSON."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(rank)
+    if spec["device"] == "cuda":
+        _build.load_all([attn.KERNEL, cbq.KERNEL])   # built by the parent
+    out = {}
+    pdist.initialize(f"127.0.0.1:{spec['ports'][0]}", DDP_PROCESSES, rank,
+                     platform="gpu" if spec["device"] == "cuda" else "cpu")
+    try:
+        out["backend"] = pdist.collective_backend()
+        out["device"] = str(pdist.process_device())
+        steps = _ddp_check if spec["check"] else _ddp_main_path
+        out.update(steps(spec, rank))
+    finally:
+        pdist.shutdown()
+    if not spec["check"]:
+        out["cli"] = _ddp_cli(spec, rank)
+        if spec["device"] == "cuda":   # since the stage-2 step, CLI included
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    with open(os.path.join(spec["tmp"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_ddp(card: str, cli_row: dict, check: bool = False) -> dict:
+    """Main path 8: data parallelism. Two processes of this script on the
+    one card, joined over gloo on localhost ports: the flagship's latent
+    step at global batch 8 (4 rows each) and its stage-1 at 128^3, global
+    batch 4, each against the one-process step of a twin on process 0;
+    then --train_dm --cache_latents from the command line in both, one
+    epoch and a resume to a second, against the cli phase's one-process
+    epoch. Each process zeroes its launch counters before each run of the
+    main path and reads them after; the phase adds both processes'. With
+    `check` (--ddp-check) only the two steps run, with cuDNN's default
+    algorithms and then deterministic, each one-process step also
+    against itself, and the numbers are printed, not judged."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ldm3d_ddp_")
+    torch.cuda.empty_cache()
+    ports = []
+    while len(ports) < 3:    # three distinct ports
+        port = pdist.free_port()
+        ports += [] if port in ports else [port]
+    cli_cfg = cli.apply_overrides(get_preset(CLI_FLAGSHIP[1]),
+                                  cli.build_parser().parse_args(CLI_FLAGSHIP))
+    spec = dict(device=DDP_DEVICE, tiny=DDP_TINY, check=check, tmp=tmp,
+                ports=ports[:1],
+                cli_ports=ports[1:], cli_flags=CLI_FLAGSHIP,
+                cli_volumes=CLI_VOLUMES, vq_flags=TRAIN_VQ_FLAGS,
+                vq_size=TRAIN_VQ_SIZE)
+    path = os.path.join(tmp, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    try:
+        free = shutil.disk_usage(tmp).free
+        need = 2 * _checkpoint_bytes(cli_cfg) + 2 * 2 ** 30
+        if DDP_DEVICE == "cuda" and free < need:
+            raise RuntimeError(f"ddp: {free} bytes free in {tmp}, {need} "
+                               "needed")
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
+                for r in range(DDP_PROCESSES)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ddp-worker",
+             path, str(r)], stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(DDP_PROCESSES)]
+        deadline = time.monotonic() + DDP_TIMEOUT
+        try:
+            for p in procs:   # past the deadline: killed, exit code < 0
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            print(f"ddp: the workers outlived {DDP_TIMEOUT} s", flush=True)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        if any(p.returncode != 0 for p in procs):
+            for r in range(DDP_PROCESSES):
+                with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                    print(f"--- ddp rank {r} (exit {procs[r].returncode})\n"
+                          + f.read()[-6000:], flush=True)
+            raise RuntimeError(f"ddp: workers exited "
+                               f"{[p.returncode for p in procs]}")
+        ranks = []
+        for r in range(DDP_PROCESSES):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        if check:
+            for key, res in ranks[0].items():
+                say("ddp_check", part=key, result=res, card=card)
+            return {}
+        with open(os.path.join(tmp, "rank0.log")) as f:
+            rank0_text = f.read()
+        return _ddp_report(card, ranks, rank0_text, cli_row, cli_cfg, tmp,
+                           time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _ddp_report(card, ranks, rank0_text, cli_row, cli_cfg, tmp,
+                wall_s) -> dict:
+    """The ddp phase's checks and lines; returns both processes' launch
+    counts."""
+    s2 = [r["stage2"] for r in ranks]
+    s1 = [r["stage1"] for r in ranks]
+    calls = s2[0]["attention_calls"]
+    on_card = DDP_DEVICE == "cuda"
+    # per process: stage 2 one step, stage 1 one step; the CLI encodes its
+    # rows of the split's global batches and takes one step per batch, in
+    # each of its two runs
+    tr_idx, _ = train_val_split(CLI_VOLUMES, cli_cfg.train.val_fraction,
+                                cli_cfg.train.seed)
+    batches = len(tr_idx) // (DDP_CLI_LBS * DDP_PROCESSES)
+    want = {"stage2": {attn.KERNEL: calls, cbq.KERNEL: 0},
+            "stage1": {attn.KERNEL: 0, cbq.KERNEL: 1},
+            "cli": {attn.KERNEL: calls * batches, cbq.KERNEL: batches}}
+    if not on_card:   # the plain versions run on the CPU: no launches
+        want = {k: {attn.KERNEL: 0, cbq.KERNEL: 0} for k in want}
+    got = {"stage2": [r["stage2"]["launches"] for r in ranks],
+           "stage1": [r["stage1"]["launches"] for r in ranks],
+           "cli": [r["cli"][run]["launches"] for r in ranks
+                   for run in ("run1", "run2")]}
+    launches_ok = all(g == want[k] for k, gs in got.items() for g in gs)
+    backend = sorted({r["backend"] for r in ranks})
+    s2_equal = all(s2[0][k] == s2[1][k] for k in ("params", "buffers", "ema",
+                                                  "loss", "noise_mse"))
+    s2_ok = (s2_equal and s2[0]["loss_rel_err"] <= DDP_LOSS_RTOL
+             and s2[0]["grad_ok"]
+             and s2[0]["grad_model_rel_err"] <= DDP_MODEL_GRAD_RTOL
+             and s2[0]["stats_rel_err"] <= DDP_LOSS_RTOL)
+    step_ms = max(r["step_ms"] for r in s2)
+    ar_ms = max(r["grad_allreduce_ms"] for r in s2)
+    say("ddp", step="stage2", processes=DDP_PROCESSES, backend=backend,
+        devices=[r["device"] for r in ranks], batch=DDP_BATCH,
+        rows_per_process=DDP_BATCH // DDP_PROCESSES,
+        loss=s2[0]["loss"], loss_1p=s2[0]["loss_1p"],
+        loss_rel_err=s2[0]["loss_rel_err"], loss_tol=DDP_LOSS_RTOL,
+        grad_rel_err=s2[0]["grad_rel_err"], grad_worst=s2[0]["grad_worst"],
+        grads_compared=s2[0]["grads_compared"],
+        grad_groups=s2[0]["grad_groups"], grad_floor=DDP_GRAD_FLOOR,
+        grad_model_rel_err=s2[0]["grad_model_rel_err"],
+        grad_model_tol=DDP_MODEL_GRAD_RTOL,
+        grad_worst5=s2[0]["grad_worst5"],
+        stats_rel_err=s2[0]["stats_rel_err"], stats_tol=DDP_LOSS_RTOL,
+        ranks_bitwise_equal=s2_equal, first_step_ms=s2[0]["first_step_ms"],
+        step_ms=step_ms, grad_allreduce_ms=ar_ms,
+        grad_allreduce_share=ar_ms / step_ms,
+        grad_bytes=s2[0]["grad_bytes"],
+        max_memory_allocated=[r.get("max_memory_allocated") for r in s2],
+        max_memory_allocated_with_cli=[r.get("max_memory_allocated")
+                                       for r in ranks],
+        launches=got["stage2"], expected=want["stage2"], card=card)
+    s1_equal = all(s1[0][k] == s1[1][k] for k in ("usage", "codebook",
+                                                  "params", "loss"))
+    s1_ok = (s1_equal and s1[0]["loss_rel_err"] <= DDP_LOSS_RTOL
+             and s1[0]["grad_ok"]
+             and s1[0]["grad_model_rel_err"] <= DDP_MODEL_GRAD_RTOL)
+    say("ddp", step="stage1", batch=DDP_VQ_BATCH, volume=TRAIN_VQ_SIZE,
+        remat=s1[0]["remat"], remat_policy=s1[0]["remat_policy"],
+        loss=s1[0]["loss"], loss_1p=s1[0]["loss_1p"],
+        loss_rel_err=s1[0]["loss_rel_err"], loss_tol=DDP_LOSS_RTOL,
+        grad_rel_err=s1[0]["grad_rel_err"], grad_worst=s1[0]["grad_worst"],
+        grad_groups=s1[0]["grad_groups"],
+        grad_model_rel_err=s1[0]["grad_model_rel_err"],
+        usage_equal_to_one_process=s1[0]["usage_equal_1p"],
+        ranks_bitwise_equal=s1_equal, step_ms=[r["step_ms"] for r in s1],
+        launches=got["stage1"], expected=want["stage1"], card=card)
+    ckpt = os.path.join(tmp, "ckpt")
+    dirs = sorted(os.listdir(ckpt))
+    log = _log_rows(os.path.join(ckpt, dirs[0], "training.log"))
+    kept = CheckpointManager(os.path.join(ckpt, dirs[0])).all_epochs()
+    cli_rel = abs(log[0]["loss"] - cli_row["loss"]) / abs(cli_row["loss"])
+    cli_ok = (len(dirs) == 1 and kept == [1, 2] and len(log) == 2
+              and rank0_text.count("resumed from epoch 1") == 1
+              and cli_rel <= DDP_CLI_LOSS_RTOL
+              and all(np.isfinite(list(row.values())).all() for row in log))
+    say("ddp", step="cli", flags=CLI_FLAGSHIP, lbs=DDP_CLI_LBS,
+        global_batch=DDP_CLI_LBS * DDP_PROCESSES, checkpoint_dirs=dirs,
+        checkpoints=kept, log_rows=len(log), loss=log[0]["loss"],
+        loss_one_process=cli_row["loss"], loss_rel_err=cli_rel,
+        tol=DDP_CLI_LOSS_RTOL, epoch2_loss=log[1]["loss"],
+        wall_s={run: [r["cli"][run]["wall_s"] for r in ranks]
+                for run in ("run1", "run2")},
+        launches=got["cli"], expected=want["cli"], card=card)
+    counts = {attn.KERNEL: 0, cbq.KERNEL: 0}
+    for gs in got.values():
+        for g in gs:
+            for k in counts:
+                counts[k] += g[k]
+    say("ddp", backend=backend, launches=counts, wall_s=wall_s,
+        ok=s2_ok and s1_ok and cli_ok and launches_ok, card=card)
+    if not (s2_ok and s1_ok and cli_ok and launches_ok):
+        raise RuntimeError(f"ddp: stage2 {s2_ok}, stage1 {s1_ok}, cli "
+                           f"{cli_ok}, launches {got} against {want}")
+    return counts
+
+
 def _kernel_line(name, source, replaces, counts, case, library):
     return {
         "name": name, "route": "cuda", "source": source,
@@ -2507,6 +3132,10 @@ def main() -> None:
     phase_build()
     if "--gan-compare-check" in sys.argv[1:]:
         _gan_compare(card, GAN_CHECK_SIZE, check=True)
+        say("done", wall_s=time.perf_counter() - t_start, card=card)
+        return
+    if "--ddp-check" in sys.argv[1:]:
+        phase_ddp(card, {}, check=True)
         say("done", wall_s=time.perf_counter() - t_start, card=card)
         return
     if "--train-compare-check" in sys.argv[1:]:
@@ -2539,9 +3168,12 @@ def main() -> None:
     phase_train_breakdown(train, attn_cases["train_f32"])
     del train
     torch.cuda.empty_cache()
-    counts["cli"] = phase_cli(card)
+    cli_run = phase_cli(card)
+    counts["cli"] = cli_run["counts"]
     torch.cuda.empty_cache()
     counts["train_vq"] = phase_train_vq(card)
+    torch.cuda.empty_cache()
+    counts["ddp"] = phase_ddp(card, cli_run["train_log"])
     torch.cuda.empty_cache()
     counts["train_gan"] = phase_train_gan(card)
     kernels = [
@@ -2563,4 +3195,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        ddp_worker(*sys.argv[2:])
+    else:
+        main()

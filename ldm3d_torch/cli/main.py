@@ -54,8 +54,25 @@ VQ-GAN's perceptual loss is a self-calibrated random-feature surrogate.
     python -m ldm3d_torch.cli.main --preset vqvae_dm_stage1 --norm group \
         --sweep sweep.yaml --sweep_count 4 --synthetic --device_data
 
-The multi-host and mesh flags are parsed and then refused with the
-ROADMAP item that brings them (queue 1 item 9).
+Data-parallel training over N processes (`ldm3d_torch.parallel`):
+--coordinator host:port, --num_processes N and --process_id i (or the
+LDM3D_COORDINATOR / LDM3D_NUM_PROCESSES / LDM3D_PROCESS_ID variables)
+join one process per device, process i on `cuda:(i % cards)`; with
+--platform cpu, --cpu_devices N starts N such processes of the command
+on a free localhost port and returns when all have ended. --lbs is then
+the batch of each process (global batch = lbs x processes); each process
+reads its rows of every global batch, process 0 alone writes logs,
+images, train_meta.json and checkpoints, and the modes that do not train
+(--create_dataset, --test_vq, --test_dm, --fidelity_sweep) and the
+--fidelity_freq evaluation run on process 0 while the others wait. A
+mesh with a 'space' or 'model' axis, and --auto_resume, are refused with
+the ROADMAP item that brings them (queue 1 items 9(b), 9(c) and 9(d)).
+
+    python -m ldm3d_torch.cli.main --preset smoke --platform cpu \
+        --cpu_devices 2 --train_vq --synthetic --lbs 1
+    python -m ldm3d_torch.cli.main --preset conditional_dm3d --norm group \
+        --train_dm --cache_latents --lbs 4 --coordinator host0:29500 \
+        --num_processes 8 --process_id 0
 """
 
 from __future__ import annotations
@@ -74,6 +91,7 @@ import torch
 
 from ldm3d_torch.core.config import replace
 from ldm3d_torch.core.device import resolve_device
+from ldm3d_torch.parallel import distributed as pdist
 from ldm3d_torch.train.meta import adopt_meta, train_meta
 
 
@@ -106,7 +124,7 @@ def build_parser() -> argparse.ArgumentParser:
     # training
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--lbs", type=int, default=None,
-                   help="batch size per device (one device here)")
+                   help="batch size per process (global = lbs * processes)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--val_perc", type=float, default=None)
     p.add_argument("--kernel_resize", action="store_true")
@@ -209,41 +227,47 @@ def build_parser() -> argparse.ArgumentParser:
                         "per point")
     p.add_argument("--sweep_count", type=int, default=None)
     p.add_argument("--coordinator", default=None,
-                   help="not ported (ROADMAP queue 1 item 9)")
+                   help="host:port of process 0 for multi-process training "
+                        "(or set LDM3D_COORDINATOR)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--platform", default=None, choices=["cpu", "gpu"],
                    help="the device: the GPU by default; cpu runs the "
                         "plain PyTorch path on the CPU")
     p.add_argument("--cpu_devices", type=int, default=0,
-                   help="not ported (ROADMAP queue 1 item 9)")
+                   help="with --platform cpu: run the command in this many "
+                        "local processes, one mesh device each")
     return p
 
 
-def _refuse_unported(args) -> None:
-    """SystemExit for a mode or flag the port does not have yet."""
+def _mesh(cfg):
+    """The training mesh (`make_mesh` over the run's processes at the
+    global batch); SystemExit for the axes the port does not have yet."""
+    from ldm3d_torch.parallel.mesh import make_mesh
     refusals = [
-        (args.coordinator or args.num_processes or args.process_id
-         is not None or os.environ.get("LDM3D_COORDINATOR"),
-         "multi-host training (--coordinator, --num_processes, "
-         "--process_id, LDM3D_COORDINATOR)", "queue 1 item 9"),
-        (args.cpu_devices, "--cpu_devices (a mesh of virtual devices)",
-         "queue 1 item 9"),
+        (cfg.train.mesh.space > 1, "spatial sharding (a mesh 'space' axis)",
+         "queue 1 item 9(b)"),
+        (cfg.train.mesh.model > 1, "tensor parallelism (a mesh 'model' "
+         "axis)", "queue 1 item 9(c)"),
     ]
     for given, what, item in refusals:
         if given:
             raise SystemExit(f"ldm3d_torch: {what} is not ported yet; "
                              f"see ROADMAP {item}")
+    return make_mesh(cfg.train.mesh, batch_size=cfg.train.batch_size)
 
 
 def _device(args) -> torch.device:
-    """The GPU unless --platform cpu; raises when no GPU is visible."""
+    """This process's device in a multi-process run, else the GPU unless
+    --platform cpu; raises when no GPU is visible."""
+    if pdist.process_device() is not None:
+        return pdist.process_device()
     return resolve_device("cpu" if args.platform == "cpu" else None)
 
 
 def apply_overrides(cfg, args):
-    """Fold CLI flags into the preset's config tree (one device: the
-    global batch is --lbs)."""
+    """Fold CLI flags into the preset's config tree (the global batch is
+    --lbs times the number of processes)."""
     train = cfg.train
     if args.lr is not None:
         train = replace(train, learning_rate=args.lr)
@@ -252,7 +276,7 @@ def apply_overrides(cfg, args):
     if args.epochs is not None:
         train = replace(train, epochs=args.epochs)
     if args.lbs is not None:
-        train = replace(train, batch_size=args.lbs)
+        train = replace(train, batch_size=args.lbs * pdist.process_count())
     if args.val_perc is not None:
         train = replace(train, val_fraction=args.val_perc)
     if args.dtype is not None:
@@ -355,11 +379,12 @@ def apply_overrides(cfg, args):
     return cfg
 
 
-def _loaders(cfg, args, device):
-    """Train and val loaders over the cache (written first from the
-    synthetic corpus with --synthetic when there is none), or with
-    --synthetic --device_data over the corpus computed on the device; the
-    val loader is None when the split is smaller than a batch."""
+def _loaders(cfg, args, device, mesh=None):
+    """Train and val loaders over the cache (written first, by process 0,
+    from the synthetic corpus with --synthetic when there is none), or
+    with --synthetic --device_data over the corpus computed on the device;
+    the val loader is None when the split is smaller than a batch. With a
+    `mesh` each yields this process's rows of every global batch."""
     from ldm3d_torch.data.pipeline import (DataLoader,
                                            DeviceSyntheticLoader,
                                            VolumeCache, train_val_split,
@@ -372,16 +397,20 @@ def _loaders(cfg, args, device):
         def make(idx, train):
             return DeviceSyntheticLoader(
                 n, cfg.train.batch_size, cfg.data, corpus_seed=cfg.train.seed,
-                seed=cfg.train.seed, train=train, indices=idx, device=device)
+                seed=cfg.train.seed, train=train, indices=idx, device=device,
+                mesh=mesh)
         val = make(va, False) if len(va) >= cfg.train.batch_size else None
         return make(tr, True), val
     cache_dir = cfg.data.cache_dir
     manifest = os.path.join(cache_dir, "manifest.json")
-    if args.synthetic and not os.path.exists(manifest):
+    if (args.synthetic and not os.path.exists(manifest)
+            and pdist.is_primary()):
         write_synthetic_cache(cache_dir, args.num_synthetic,
                               cfg.data.volume_size, seed=cfg.train.seed,
                               num_classes=cfg.data.num_classes,
                               device=device)
+    if args.synthetic:
+        pdist.barrier()
     if not os.path.exists(manifest):
         raise SystemExit(
             f"no cache at {cache_dir}: run --create_dataset first "
@@ -390,10 +419,10 @@ def _loaders(cfg, args, device):
     tr, va = train_val_split(cache, cfg.train.val_fraction, cfg.train.seed)
     train = DataLoader(cache, cfg.train.batch_size, cfg.data,
                        seed=cfg.train.seed, train=True, indices=tr,
-                       device=device)
+                       device=device, mesh=mesh)
     val = DataLoader(cache, cfg.train.batch_size, cfg.data,
                      seed=cfg.train.seed, train=False, indices=va,
-                     device=device) \
+                     device=device, mesh=mesh) \
         if len(va) >= cfg.train.batch_size else None
     return train, val
 
@@ -428,15 +457,15 @@ def _maybe_resume(ckpt, trainer, resume_ckpt) -> int:
     return epoch
 
 
-def _stage1_trainer(cfg, device):
+def _stage1_trainer(cfg, device, mesh=None):
     """A `GANTrainer` when the preset's model is "vqgan", else a
     `VQTrainer` of `cfg.vqvae`."""
     if cfg.model == "vqgan":
         from ldm3d_torch.train.gan_trainer import GANTrainer
         return GANTrainer(cfg.vqgan, cfg.train, device=device,
-                          volume_size=cfg.data.volume_size)
+                          volume_size=cfg.data.volume_size, mesh=mesh)
     from ldm3d_torch.train.vq_trainer import VQTrainer
-    return VQTrainer(cfg.vqvae, cfg.train, device=device)
+    return VQTrainer(cfg.vqvae, cfg.train, device=device, mesh=mesh)
 
 
 def run_train_vq(cfg, args):
@@ -449,10 +478,12 @@ def run_train_vq(cfg, args):
     from ldm3d_torch.train.checkpoint import CheckpointManager
     from ldm3d_torch.train.loop import fit, fit_with_recovery
 
+    mesh = _mesh(cfg)
     device = _device(args)
-    train_loader, val_loader = _loaders(cfg, args, device)
+    train_loader, val_loader = _loaders(cfg, args, device, mesh)
     is_gan = cfg.model == "vqgan"
-    trainer = _stage1_trainer(cfg, device).init_random(cfg.train.seed)
+    trainer = _stage1_trainer(cfg, device, mesh).init_random(cfg.train.seed)
+    primary = pdist.is_primary()
     if is_gan:
         # the autoencoder's rate, once the critics have started
         lr_sched = DelayedReduceLROnPlateau(
@@ -479,16 +510,19 @@ def run_train_vq(cfg, args):
                     .numpy()}
 
         image_logger = ImageLogger(os.path.join(logdir, "images"), render,
-                                   log_freq=args.image_log_freq)
+                                   log_freq=args.image_log_freq,
+                                   write=primary)
     fit_fn = fit if not args.auto_resume else functools.partial(
         fit_with_recovery, max_restarts=args.auto_resume)
     metrics = fit_fn(
         trainer, train_loader, cfg.train.epochs, val_loader=val_loader,
-        ckpt=None if args.test_run else ckpt, image_logger=image_logger,
+        ckpt=None if args.test_run or not primary else ckpt,
+        image_logger=image_logger,
         csv_logger=CSVLogger(os.path.join(logdir, "training.log"),
-                             append=args.resume_ckpt is not None),
+                             append=args.resume_ckpt is not None)
+        if primary else None,
         metrics_logger=MetricsLogger(os.path.join(logdir, "metrics.jsonl"),
-                                     run_name=cfg.name),
+                                     run_name=cfg.name) if primary else None,
         lr_schedule=lr_sched,
         # the VQ-GAN's quantizers replace no codes between epochs
         replace_codebook_freq=0 if is_gan
@@ -542,10 +576,10 @@ def run_test_vq(cfg, args):
     return paths, mean
 
 
-def _dm_trainer(cfg, device):
+def _dm_trainer(cfg, device, mesh=None):
     from ldm3d_torch.train.dm_trainer import DiffusionTrainer
-    return DiffusionTrainer(cfg.diffusion, device=device,
-                            train_cfg=cfg.train).init_random(cfg.train.seed)
+    return DiffusionTrainer(cfg.diffusion, device=device, train_cfg=cfg.train,
+                            mesh=mesh).init_random(cfg.train.seed)
 
 
 def _adopt_dm_meta(cfg, args):
@@ -554,8 +588,11 @@ def _adopt_dm_meta(cfg, args):
                                               "train_meta.json"))
 
 
-def _encode_corpus(trainer, loader, t0: float):
-    """(latents, contexts) of every batch of `loader`, on the device."""
+def _encode_corpus(trainer, loader, t0: float, mesh=None):
+    """(latents, contexts) of every batch of `loader`, on the device. With
+    a `mesh` each process encodes its rows of every batch and the rows
+    are gathered, so that every process holds the whole corpus in the
+    one-process order."""
     lats, ctxs = [], []
     for i, (vol, _mask, ctx) in enumerate(loader):
         lats.append(trainer.encode_latents(vol))
@@ -563,7 +600,19 @@ def _encode_corpus(trainer, loader, t0: float):
         if (i + 1) % 32 == 0:
             print(f"cache_latents: encoded {i + 1} batches "
                   f"[{time.time() - t0:.0f}s]", flush=True)
-    return torch.cat(lats), torch.cat(ctxs)
+    from ldm3d_torch.parallel.mesh import DATA_AXIS, data_group
+
+    lat, ctx = torch.cat(lats), torch.cat(ctxs)
+    group = data_group(mesh)
+    if group is None:
+        return lat, ctx
+
+    def gather(x):
+        # [processes x batches x rows] -> [batches x processes x rows]
+        full = pdist.all_gather_rows(x, group).reshape(
+            (mesh.shape[DATA_AXIS], len(lats), -1) + x.shape[1:])
+        return full.transpose(0, 1).reshape((-1,) + x.shape[1:])
+    return gather(lat), gather(ctx)
 
 
 def run_train_dm(cfg, args):
@@ -577,10 +626,12 @@ def run_train_dm(cfg, args):
     from ldm3d_torch.train.vq_trainer import load_stage1_checkpoint
     from ldm3d_torch.utils.export import load_stage1_npz
 
+    mesh = _mesh(cfg)
     device = _device(args)
-    train_loader, val_loader = _loaders(cfg, args, device)
+    primary = pdist.is_primary()
+    train_loader, val_loader = _loaders(cfg, args, device, mesh)
     size = cfg.data.volume_size
-    trainer = _dm_trainer(cfg, device)
+    trainer = _dm_trainer(cfg, device, mesh)
     vq_epoch = None
     if args.vqvae_load_ckpt:
         if os.path.isdir(args.vqvae_load_ckpt):
@@ -623,7 +674,8 @@ def run_train_dm(cfg, args):
             return out
 
         image_logger = ImageLogger(os.path.join(logdir, "images"), render,
-                                   log_freq=args.image_log_freq)
+                                   log_freq=args.image_log_freq,
+                                   write=primary)
 
     epoch_callback = None
     if args.fidelity_freq:
@@ -633,15 +685,28 @@ def run_train_dm(cfg, args):
         for batch in (val_loader or train_loader):
             feats.append(trainer.latent_features(batch[0]))
             ctx_rows.append(batch[2].cpu().numpy().reshape(-1))
+        if pdist.process_count() > 1:
+            # every process's rows to process 0, batch by batch in the
+            # one-process order: process 0 alone evaluates (the U-Net is
+            # in eval mode there, so the others need not run with it;
+            # they wait at the loop's end-of-epoch barrier)
+            parts = [None] * pdist.process_count() if primary else None
+            torch.distributed.gather_object((feats, ctx_rows), parts, dst=0)
+            if primary:
+                feats = [p[0][i] for i in range(len(feats)) for p in parts]
+                ctx_rows = [p[1][i] for i in range(len(ctx_rows))
+                            for p in parts]
         real_feats = np.concatenate(feats, axis=0)
         real_ctx = (np.concatenate(ctx_rows, axis=0)
                     if args.fidelity_by_class and trainer.conditional
                     else None)
-        print(f"fidelity: cached {real_feats.shape[0]} real-volume "
-              f"feature rows ({'val' if val_loader else 'train'} split)")
+        if primary:
+            print(f"fidelity: cached {real_feats.shape[0]} real-volume "
+                  f"feature rows ({'val' if val_loader else 'train'} "
+                  f"split)")
 
         def epoch_callback(epoch, tr):
-            if (epoch + 1) % args.fidelity_freq != 0:
+            if (epoch + 1) % args.fidelity_freq != 0 or not primary:
                 return {}
             gen = torch.Generator(device=device).manual_seed(
                 cfg.train.seed + 5000 + epoch)
@@ -684,8 +749,9 @@ def run_train_dm(cfg, args):
                       f"re-encoding", flush=True)
                 lat_all = ctx_all = None
         if lat_all is None:
-            lat_all, ctx_all = _encode_corpus(trainer, train_loader, t0)
-            if lat_disk:
+            lat_all, ctx_all = _encode_corpus(trainer, train_loader, t0,
+                                              mesh)
+            if lat_disk and primary:
                 np.savez(lat_disk,
                          lat=lat_all.cpu().numpy().astype(np.float16),
                          ctx=ctx_all.cpu().numpy())
@@ -714,27 +780,29 @@ def run_train_dm(cfg, args):
                   f"force raw reference behavior; restore/serve adopt the "
                   f"value from train_meta.json.")
         train_loader = LatentLoader(lat_all, ctx_all, cfg.train.batch_size,
-                                    seed=cfg.train.seed)
+                                    seed=cfg.train.seed, mesh=mesh)
 
         def step_fn(batch):  # noqa: F811 - replaces the volume path
             lat, ctx = batch
             return trainer.train_step_latents(lat, ctx)
 
-    os.makedirs(logdir, exist_ok=True)
-    with open(os.path.join(logdir, "train_meta.json"), "w") as f:
-        json.dump(train_meta(cfg), f, indent=1)
+    if primary:
+        os.makedirs(logdir, exist_ok=True)
+        with open(os.path.join(logdir, "train_meta.json"), "w") as f:
+            json.dump(train_meta(cfg), f, indent=1)
 
     fit_fn = fit if not args.auto_resume else functools.partial(
         fit_with_recovery, max_restarts=args.auto_resume)
     metrics = fit_fn(
         trainer, train_loader, cfg.train.epochs,
-        ckpt=None if args.test_run else ckpt,
+        ckpt=None if args.test_run or not primary else ckpt,
         image_logger=image_logger,
         epoch_callback=epoch_callback,
         csv_logger=CSVLogger(os.path.join(logdir, "training.log"),
-                             append=args.resume_ckpt is not None),
+                             append=args.resume_ckpt is not None)
+        if primary else None,
         metrics_logger=MetricsLogger(os.path.join(logdir, "metrics.jsonl"),
-                                     run_name=cfg.name),
+                                     run_name=cfg.name) if primary else None,
         initial_epoch=initial_epoch, ckpt_freq=args.ckpt_freq,
         step_fn=step_fn)
     ckpt.wait()
@@ -959,12 +1027,14 @@ def run_sweep(cfg, args):
     method = spec.get("method", "grid")
     results = []
     results_path = os.path.join(cfg.ckpt_dir, "sweep_results.jsonl")
-    os.makedirs(cfg.ckpt_dir, exist_ok=True)
+    if pdist.is_primary():
+        os.makedirs(cfg.ckpt_dir, exist_ok=True)
 
     def record(rec):
         results.append(rec)
-        with open(results_path, "a") as f:
-            f.write(json.dumps(rec) + "\n")
+        if pdist.is_primary():
+            with open(results_path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
 
     if method == "bayes":
         search = BayesSearch(spec, seed=cfg.train.seed, goal=goal)
@@ -1009,21 +1079,75 @@ def run_create_dataset(cfg, args):
         print(f"cache at {cfg.data.cache_dir}")
 
 
+def _refuse_auto_resume(args, processes: int) -> None:
+    """--auto_resume restores on process 0 alone (the only one with a
+    checkpoint manager), so a failure on one process would leave the
+    others waiting in a collective: refused over several processes."""
+    if args.auto_resume and processes > 1:
+        raise SystemExit("ldm3d_torch: --auto_resume over several "
+                         "processes is not ported yet; see ROADMAP queue 1 "
+                         "item 9(d)")
+
+
+def _local_process(index: int, argv, n: int, port: int) -> None:
+    """Process `index` of a --cpu_devices run."""
+    main(list(argv) + ["--cpu_devices", "0", "--coordinator",
+                       f"127.0.0.1:{port}", "--num_processes", str(n),
+                       "--process_id", str(index)])
+
+
+def _run_local_processes(argv, n: int) -> None:
+    """The command in `n` local processes joined over a free localhost
+    port; returns when all have ended, raises when one fails (the others
+    are then stopped)."""
+    import torch.multiprocessing as mp
+    mp.start_processes(_local_process, args=(argv, n, pdist.free_port()),
+                       nprocs=n, join=True, start_method="spawn")
+
+
 def main(argv=None):
     if hasattr(sys.stdout, "reconfigure"):
         # one line per epoch must reach a log file as it is written
         sys.stdout.reconfigure(line_buffering=True)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
-    from ldm3d_torch.core.presets import get_preset
-    cfg = apply_overrides(get_preset(args.preset), args)
-    _device(args)           # no GPU and no --platform cpu: raise before any work
+    if args.cpu_devices > 1:
+        if args.platform != "cpu" or args.coordinator \
+                or os.environ.get("LDM3D_COORDINATOR"):
+            raise SystemExit("ldm3d_torch: --cpu_devices starts local "
+                             "processes on the CPU: pass --platform cpu and "
+                             "no coordinator")
+        _refuse_auto_resume(args, args.cpu_devices)
+        _run_local_processes(argv, args.cpu_devices)
+        return
+    if pdist.initialize(args.coordinator, args.num_processes,
+                        args.process_id, platform=args.platform):
+        print(f"multi-host: process {pdist.process_index()}/"
+              f"{pdist.process_count()}, backend "
+              f"{pdist.collective_backend()}, device {pdist.process_device()}")
+    try:
+        _refuse_auto_resume(args, pdist.process_count())
+        from ldm3d_torch.core.presets import get_preset
+        cfg = apply_overrides(get_preset(args.preset), args)
+        _device(args)       # no GPU and no --platform cpu: raise before work
 
-    with contextlib.ExitStack() as stack:
-        if args.profile:
-            from ldm3d_torch.utils.profiling import trace
-            stack.enter_context(trace(os.path.join(cfg.ckpt_dir, "trace")))
-        _run_modes(cfg, args)
+        with contextlib.ExitStack() as stack:
+            if args.profile:
+                from ldm3d_torch.utils.profiling import trace
+                stack.enter_context(trace(os.path.join(cfg.ckpt_dir,
+                                                       "trace")))
+            _run_modes(cfg, args)
+        pdist.barrier()
+    finally:
+        pdist.shutdown()
+
+
+def _on_primary(fn, cfg, args):
+    """A mode that does not train: process 0 runs it (one process, no
+    mesh), the others wait for it."""
+    if pdist.is_primary():
+        fn(cfg, args)
+    pdist.barrier()
 
 
 def _run_modes(cfg, args) -> None:
@@ -1031,17 +1155,17 @@ def _run_modes(cfg, args) -> None:
         run_sweep(cfg, args)
         return
     if args.create_dataset:
-        run_create_dataset(cfg, args)
+        _on_primary(run_create_dataset, cfg, args)
     if args.train_vq:
         run_train_vq(cfg, args)
     if args.test_vq:
-        run_test_vq(cfg, args)
+        _on_primary(run_test_vq, cfg, args)
     if args.train_dm:
         run_train_dm(cfg, args)
     if args.test_dm:
-        run_test_dm(cfg, args)
+        _on_primary(run_test_dm, cfg, args)
     if args.fidelity_sweep:
-        run_fidelity_sweep(cfg, args)
+        _on_primary(run_fidelity_sweep, cfg, args)
     if not any([args.create_dataset, args.train_vq, args.test_vq,
                 args.train_dm, args.test_dm, args.fidelity_sweep]):
         print("nothing to do: pass --train_vq/--test_vq/--train_dm/"

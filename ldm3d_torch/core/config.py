@@ -173,8 +173,19 @@ class DiffusionConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The process mesh of training (`parallel.mesh.make_mesh`): data
+    parallelism over 'data', spatial sharding over 'space', conv-channel
+    sharding over 'model'. -1 on 'data' uses every process."""
+
+    data: int = -1
+    space: int = 1
+    model: int = 1
+
+
+@dataclass(frozen=True)
 class TrainConfig:
-    """The optimizer, EMA and seed settings of training."""
+    """The optimizer, EMA, seed and mesh settings of training."""
 
     batch_size: int = 8                # global batch ("ref" loss divisor)
     learning_rate: float = 1e-4
@@ -192,6 +203,7 @@ class TrainConfig:
     replace_codebook_freq: int = 10    # epochs between unused-code replacement
     checkpoint_every: int = 1
     keep_checkpoints: int = 5
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 @dataclass(frozen=True)

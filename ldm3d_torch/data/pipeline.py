@@ -17,7 +17,12 @@ serves the latents of `--cache_latents` from the device, in one
 `np.random.default_rng(seed).permutation` per epoch, dropping the ragged
 tail as the JAX loader does.
 
-Not ported: mesh sharding (ROADMAP queue 1 item 9).
+With a `mesh` of several processes (`parallel.mesh.make_mesh`), every
+process walks the same seeded global order and yields only its rows of
+each global batch (`parallel.distributed.local_batch_rows`), the
+augmentation's draws included: those are made for the global batch and
+sliced, so that the processes' batches together are the one-process
+batch, bit for bit.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 
 from ldm3d_torch.core.config import DataConfig
 from ldm3d_torch.core.device import resolve_device
+from ldm3d_torch.parallel.distributed import local_batch_rows
 
 MANIFEST = "manifest.json"
 
@@ -149,14 +155,17 @@ class DataLoader:
     augmentation on the device. Yields (vol [B, S, S, S, 1] float32,
     mask float32, context [B] int32), all on `device` (the GPU unless
     "cpu" is given); drops the ragged tail. `reader` says what reads the
-    files: "native" (the cache's `NativeReader`) or "numpy"."""
+    files: "native" (the cache's `NativeReader`) or "numpy". `batch_size`
+    is the global batch; with a `mesh` each batch holds this process's
+    rows of it."""
 
     def __init__(self, cache: VolumeCache, batch_size: int, cfg: DataConfig,
                  seed: int = 0, train: bool = True,
                  indices: Optional[Sequence[int]] = None,
-                 prefetch: int = 2, device=None):
+                 prefetch: int = 2, device=None, mesh=None):
         self.cache = cache
         self.batch_size = batch_size
+        self.rows = local_batch_rows(mesh, batch_size)
         self.cfg = cfg
         self.seed = seed
         self.train = train
@@ -173,10 +182,11 @@ class DataLoader:
     def _host_batches(self, order: np.ndarray) -> Iterator:
         """(img, mask, ctx) numpy batches, float16 as cached; they are
         widened on the device."""
-        bs, reader = self.batch_size, self.cache.reader
+        bs_global, reader = self.batch_size, self.cache.reader
         s = self.cache.volume_size
-        for i in range(len(order) // bs):
-            idxs = [int(j) for j in order[i * bs:(i + 1) * bs]]
+        for i in range(len(order) // bs_global):
+            idxs = [int(j) for j in _rows_of(order, i, bs_global, self.rows)]
+            bs = len(idxs)
             ctx = np.asarray([self.cache.entries[j]["context"]
                               for j in idxs], np.int32)
             if reader is None:
@@ -230,7 +240,9 @@ class DataLoader:
                 vol, mask = vol.float(), mask.float()   # widen on device
                 if self.train and self.cfg.augment:
                     vol, mask = augment_batch(vol, mask, self.cfg,
-                                              generator=aug_gen)
+                                              generator=aug_gen,
+                                              rows=self.rows,
+                                              batch=self.batch_size)
                 yield vol, mask, ctx
         finally:
             stop.set()
@@ -243,14 +255,17 @@ class DeviceSyntheticLoader:
     the corpus's draws (`synthetic.corpus_draws`, replayed once on the
     host), rounded to float16 and widened. Same order, split, per-epoch
     shuffle and augmentation as `DataLoader`, so the batches are equal to
-    a `DataLoader`'s over that cache, bit for bit, on one device."""
+    a `DataLoader`'s over that cache, bit for bit, on one device. With a
+    `mesh`, this process's rows, as `DataLoader`."""
 
     def __init__(self, num_volumes: int, batch_size: int, cfg: DataConfig,
                  corpus_seed: int = 0, seed: int = 0, train: bool = True,
-                 indices: Optional[Sequence[int]] = None, device=None):
+                 indices: Optional[Sequence[int]] = None, device=None,
+                 mesh=None):
         from ldm3d_torch.data.synthetic import corpus_draws
 
         self.batch_size = batch_size
+        self.rows = local_batch_rows(mesh, batch_size)
         self.cfg = cfg
         self.seed = seed
         self.train = train
@@ -271,24 +286,28 @@ class DeviceSyntheticLoader:
         bs = self.batch_size
         for i in range(len(order) // bs):
             vol, mask, ctx = synthetic_volumes_at(
-                self.corpus, order[i * bs:(i + 1) * bs],
+                self.corpus, _rows_of(order, i, bs, self.rows),
                 self.cfg.volume_size, self.device)
             if self.train and self.cfg.augment:
                 vol, mask = augment_batch(vol, mask, self.cfg,
-                                          generator=aug_gen)
+                                          generator=aug_gen, rows=self.rows,
+                                          batch=bs)
             yield vol, mask, ctx
 
 
 class LatentLoader:
     """The cached latents of `--cache_latents`, on their device: (latents
     [B, ...], context [B]) batches in a fresh permutation per epoch from
-    `np.random.default_rng(seed)`, dropping the ragged tail."""
+    `np.random.default_rng(seed)`, dropping the ragged tail. With a
+    `mesh`, `latents` is the whole corpus on every process and each batch
+    holds this process's rows of the global batch."""
 
     def __init__(self, latents: torch.Tensor, context: torch.Tensor,
-                 batch_size: int, seed: int = 0):
+                 batch_size: int, seed: int = 0, mesh=None):
         self.latents = latents
         self.context = context
         self.batch_size = int(batch_size)
+        self.rows = local_batch_rows(mesh, self.batch_size)
         self._rng = np.random.default_rng(seed)
         self.n = int(latents.shape[0])
         if self.n < self.batch_size:
@@ -303,9 +322,15 @@ class LatentLoader:
             self.latents.device)
         bs = self.batch_size
         for i in range(self.n // bs):
-            idx = order[i * bs:(i + 1) * bs]
+            idx = _rows_of(order, i, bs, self.rows)
             yield (self.latents.index_select(0, idx),
                    self.context.index_select(0, idx))
+
+
+def _rows_of(order, i: int, bs: int, rows: Optional[range]):
+    """Batch `i` of `order` in batches of `bs`: all of it, or its `rows`."""
+    batch = order[i * bs:(i + 1) * bs]
+    return batch if rows is None else batch[rows.start:rows.stop]
 
 
 def train_val_split(cache, val_fraction: float, seed: int = 0):
@@ -321,18 +346,25 @@ def augment_batch(vol: torch.Tensor, mask: torch.Tensor, cfg: DataConfig,
                   generator: Optional[torch.Generator] = None,
                   flip_u: Optional[torch.Tensor] = None,
                   brightness: Optional[torch.Tensor] = None,
-                  contrast: Optional[torch.Tensor] = None):
+                  contrast: Optional[torch.Tensor] = None,
+                  rows: Optional[range] = None, batch: Optional[int] = None):
     """Per volume: flip axis 1 unless u < flip_chance, scale by the
     brightness factor and clip to [0, 1], then contrast c:
     clip((1 + c)(vol - mean) + mean, 0, 1). The draws, [B] or
     [B, 1, 1, 1, 1] (u in [0, 1), the factors in their ranges), come from
-    `generator` unless injected."""
+    `generator` unless injected. With `rows`, `vol` is those rows of a
+    global batch of `batch` volumes: the draws are made for the global
+    batch and sliced."""
     b, dev = vol.shape[0], vol.device
     shape = (b, 1, 1, 1, 1)
 
     def draw(x, lo, hi):
         if x is None:
-            u = torch.rand(shape, generator=generator, device=dev)
+            if rows is None:
+                u = torch.rand(shape, generator=generator, device=dev)
+            else:
+                u = torch.rand((batch, 1, 1, 1, 1), generator=generator,
+                               device=dev)[rows.start:rows.stop]
             return u if lo is None else lo + (hi - lo) * u
         return torch.as_tensor(x, dtype=torch.float32).to(dev).reshape(shape)
 

@@ -16,10 +16,12 @@ import math
 from typing import Callable, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ldm3d_torch.models.quantizers import Quantizer
+from ldm3d_torch.parallel.distributed import all_reduce_sum
 
 _Int3 = Union[int, Tuple[int, int, int]]
 
@@ -280,6 +282,18 @@ def act_layer(name: Optional[str], channels: int) -> nn.Module:
     return _Act(name)
 
 
+def _global_var_mean(x: torch.Tensor, dims, group):
+    """(biased variance, mean) per channel over `dims` of the batch that
+    `group`'s processes hold together (equal local shapes): the mean
+    first, then the squared deviations from it, each summed over the
+    group."""
+    count = x.numel() // x.shape[1] * dist.get_world_size(group)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mean = all_reduce_sum(x.sum(dim=dims), group) / count
+    sq = torch.square(x - mean.view(shape)).sum(dim=dims)
+    return all_reduce_sum(sq, group) / count, mean
+
+
 class _BatchNorm(nn.Module):
     """flax BatchNorm(momentum=0.99, epsilon=1e-3) over the channels of an
     NCDHW volume.
@@ -297,7 +311,13 @@ class _BatchNorm(nn.Module):
     `live_stats`, and eval-mode forwards normalise with those until
     `live_stats` is cleared: in JAX the statistics a flax update returns
     are traced values, so gradients reach the critic's parameters through
-    the statistics of its real forward."""
+    the statistics of its real forward.
+
+    With a process `group` (`parallel.mesh.attach_data_group`), training
+    mode normalises with the mean and biased variance of the group's
+    global batch (two all-reduces, differentiable), as the JAX step does
+    on a data-sharded batch; the running statistics then agree on every
+    process."""
 
     momentum = 0.99
     eps = 1e-3
@@ -311,6 +331,12 @@ class _BatchNorm(nn.Module):
         self.update_stats = True
         self.live_stats_graph = False
         self.live_stats = None
+        self.group = None
+
+    def __getstate__(self):
+        # a process group neither pickles nor copies: a copy (the EMA
+        # U-Net) is not attached to it
+        return {**super().__getstate__(), "group": None}
 
     def _normalize(self, x, mean, var):
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -326,7 +352,10 @@ class _BatchNorm(nn.Module):
                                 self.weight, self.bias, training=False,
                                 eps=self.eps)
         dims = [0, *range(2, x.dim())]
-        var, mean = torch.var_mean(x, dim=dims, correction=0)
+        if self.group is None:
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+        else:
+            var, mean = _global_var_mean(x, dims, self.group)
         if self.update_stats:
             m = self.momentum
             new = (self.running_mean * m + mean * (1.0 - m),

@@ -27,7 +27,7 @@ re-seed dead codes between epochs.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +37,7 @@ from ldm3d_torch.ops.quantize import (codebook_gather, codebook_usage_counts,
                                       ema_statistics,
                                       nearest_codebook_indices,
                                       perplexity_from_counts)
+from ldm3d_torch.parallel.distributed import all_gather_rows, all_reduce_sum
 
 
 class QuantAux(NamedTuple):
@@ -53,12 +54,32 @@ class Draws:
     `permutation`, `choice` and `randint` (the VQ-GAN's frame indices).
     Each comes from `generator` (which lives on
     the tensors' device), or, for a kind given as a list, from that list
-    in call order."""
+    in call order.
+
+    A draw made with `rows=True` has one row per batch row (dim 0 of
+    `shape`). Under data parallelism `shard` is (index, count) along the
+    data axis: such a draw is made (or injected) for the global batch,
+    count x shape[0] rows, and this process takes its index-th block, so
+    that N processes draw what one process draws on the global batch."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
+                 shard: Optional[Tuple[int, int]] = None,
                  **injected: List):
         self.generator = generator
+        self.shard = shard
         self._injected = {k: list(v) for k, v in injected.items()}
+
+    def _global(self, shape, rows: bool):
+        if not rows or self.shard is None:
+            return tuple(shape)
+        return (shape[0] * self.shard[1],) + tuple(shape[1:])
+
+    def _local(self, value: torch.Tensor, rows: bool) -> torch.Tensor:
+        if not rows or self.shard is None:
+            return value
+        i, n = self.shard
+        m = value.shape[0] // n
+        return value[i * m:(i + 1) * m]
 
     def _take(self, kind: str, make, device):
         if kind in self._injected:
@@ -73,23 +94,29 @@ class Draws:
                              "injected value")
         return make(self.generator)
 
-    def bernoulli(self, p: float, shape, device) -> torch.Tensor:
+    def bernoulli(self, p: float, shape, device, rows: bool = False
+                  ) -> torch.Tensor:
         """bool [shape], True with probability p."""
-        return self._take("bernoulli", lambda g: torch.rand(
-            shape, generator=g, device=device) < p, device).bool()
+        full = self._global(shape, rows)
+        return self._local(self._take("bernoulli", lambda g: torch.rand(
+            full, generator=g, device=device) < p, device).bool(), rows)
 
-    def normal(self, shape, device) -> torch.Tensor:
-        return self._take("normal", lambda g: torch.randn(
-            shape, generator=g, device=device), device).float()
+    def normal(self, shape, device, rows: bool = False) -> torch.Tensor:
+        full = self._global(shape, rows)
+        return self._local(self._take("normal", lambda g: torch.randn(
+            full, generator=g, device=device), device).float(), rows)
 
     def permutation(self, n: int, device) -> torch.Tensor:
         return self._take("permutation", lambda g: torch.randperm(
             n, generator=g, device=device), device).long()
 
-    def randint(self, low: int, high: int, shape, device) -> torch.Tensor:
+    def randint(self, low: int, high: int, shape, device,
+                rows: bool = False) -> torch.Tensor:
         """Integers uniform in [low, high)."""
-        return self._take("randint", lambda g: torch.randint(
-            low, high, shape, generator=g, device=device), device).long()
+        full = self._global(shape, rows)
+        return self._local(self._take("randint", lambda g: torch.randint(
+            low, high, full, generator=g, device=device), device).long(),
+            rows)
 
     def choice(self, p: torch.Tensor, num: int) -> torch.Tensor:
         """[num] indices drawn with replacement with probabilities p."""
@@ -106,7 +133,38 @@ def _draws(draws: Optional[Draws], who: str) -> Draws:
 
 class Quantizer(nn.Module):
     """Base of the quantizers: `reset_parameters(generator)` is the JAX
-    package's init, drawn from `generator`."""
+    package's init, drawn from `generator`.
+
+    With a process `group` (`parallel.mesh.attach_data_group`) the
+    statistics JAX takes over the global batch are those of the group's
+    batch: the usage counts (and so the perplexity and `codebooks_used`)
+    in every mode, and in training the EMA kinds' cluster statistics and
+    their random rows, drawn from the group's rows in rank order. The
+    codebooks then stay equal on every process."""
+
+    group = None
+
+    def __getstate__(self):
+        # a process group neither pickles nor copies: a copy (the EMA
+        # U-Net) is not attached to it
+        return {**super().__getstate__(), "group": None}
+
+    def _counts(self, indices: torch.Tensor) -> torch.Tensor:
+        counts = codebook_usage_counts(indices, self.num_embeddings)
+        return counts if self.group is None \
+            else all_reduce_sum(counts, self.group)
+
+    def _ema_statistics(self, flat, indices):
+        counts, sums = ema_statistics(flat, indices, self.num_embeddings)
+        if self.group is not None:
+            counts = all_reduce_sum(counts, self.group)
+            if self.training:
+                sums = all_reduce_sum(sums, self.group)
+        return counts, sums
+
+    def _global_rows(self, flat: torch.Tensor) -> torch.Tensor:
+        return flat if self.group is None \
+            else all_gather_rows(flat, self.group)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         raise NotImplementedError
@@ -152,7 +210,7 @@ class VectorQuantizerSTE(Quantizer):
 
         quantized = x + (quantized - x).detach()    # straight through
 
-        counts = codebook_usage_counts(indices, self.num_embeddings)
+        counts = self._counts(indices)
         if self.training:
             with torch.no_grad():
                 self.codebooks_used += counts
@@ -218,7 +276,8 @@ class VectorQuantizerEMA(Quantizer):
         codebook = self.codebook
         if self.training:
             draws = _draws(draws, "VectorQuantizerEMA")
-            k_rand = random_rows(flat, k, draws)
+            flat_all = self._global_rows(flat)
+            k_rand = random_rows(flat_all, k, draws)
             init = self.need_init.clone()   # saved for the backward
             codebook = torch.where(init, k_rand, self.codebook)
             with torch.no_grad():
@@ -237,7 +296,7 @@ class VectorQuantizerEMA(Quantizer):
         codebook_term = torch.mean(torch.square(x.detach() - quantized))
         loss = self.beta * commitment + codebook_term
 
-        counts, sums = ema_statistics(flat, indices, k)
+        counts, sums = self._ema_statistics(flat, indices)
         if self.training:
             with torch.no_grad():
                 ecs = self.ema_cluster_size * self.decay \
@@ -249,7 +308,7 @@ class VectorQuantizerEMA(Quantizer):
                 weights = (ecs + 1e-7) / (n + k * 1e-7) * n
                 new_codebook = self.ema_w / weights[:, None]
                 if not self.no_random_restart:
-                    k_rand = random_rows(flat.detach(), k, draws)
+                    k_rand = random_rows(flat_all.detach(), k, draws)
                     alive = ecs >= self.restart_thres
                     new_codebook = torch.where(alive[:, None], new_codebook,
                                                k_rand)
@@ -293,7 +352,7 @@ class VectorQuantizerEMASonnet(Quantizer):
         quantized = self.codebook[indices.long()].reshape(x.shape)
         quantized = quantized.to(x.dtype)
 
-        counts, sums = ema_statistics(flat, indices, k)
+        counts, sums = self._ema_statistics(flat, indices)
         if self.training:
             with torch.no_grad():
                 ecs = self.ema_cluster_size * self.decay \
@@ -316,7 +375,7 @@ class VectorQuantizerEMASonnet(Quantizer):
 def _noise_substitute(x: torch.Tensor, hard: torch.Tensor, draws: Draws,
                       eps: float) -> torch.Tensor:
     """x + ||x - hard|| / (||noise|| + eps) * noise, norms per vector."""
-    noise = draws.normal(x.shape, x.device).to(x.dtype)
+    noise = draws.normal(x.shape, x.device, rows=True).to(x.dtype)
     res_norm = torch.sqrt(torch.sum(torch.square(x - hard), dim=-1,
                                     keepdim=True))
     noise_norm = torch.sqrt(torch.sum(torch.square(noise), dim=-1,
@@ -357,7 +416,7 @@ class NSVQ(Quantizer):
         else:
             quantized = hard
         loss = torch.mean(torch.square(x - quantized))
-        counts = codebook_usage_counts(indices, k)
+        counts = self._counts(indices)
         if self.training:
             with torch.no_grad():
                 self.codebooks_used += counts
@@ -404,7 +463,7 @@ class RNSVQ(Quantizer):
             q = codebook_gather(self.codebooks[i], idx)
             total = total + q
             residual = residual - q.detach()
-            counts.append(codebook_usage_counts(idx, k))
+            counts.append(self._counts(idx))
             indices.append(idx.reshape(x.shape[:-1]))
         hard = total.reshape(x.shape)
         if self.training:

@@ -137,7 +137,7 @@ def _dropout(x: torch.Tensor, rate: float, training: bool,
                          "Draws with a generator)")
     keep = 1.0 - rate
     b, c, d, h, w = x.shape
-    mask = draws.bernoulli(keep, (b, d, h, w, c), x.device)
+    mask = draws.bernoulli(keep, (b, d, h, w, c), x.device, rows=True)
     return torch.where(mask.permute(0, 4, 1, 2, 3), x / keep,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 

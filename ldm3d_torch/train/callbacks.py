@@ -181,20 +181,27 @@ def volume_montage(vols: np.ndarray, max_items: int = 8) -> np.ndarray:
 
 class ImageLogger:
     """Every `log_freq` epochs, `render_fn(trainer) -> {name: volumes}`
-    and one montage per name, `{out_dir}/epoch{N}_{name}.png`."""
+    and one montage per name, `{out_dir}/epoch{N}_{name}.png`. With
+    `write=False` (every process but 0 of a multi-process run) it renders,
+    since a render may hold collectives, and writes nothing."""
 
-    def __init__(self, out_dir: str, render_fn, log_freq: int = 10):
+    def __init__(self, out_dir: str, render_fn, log_freq: int = 10,
+                 write: bool = True):
         self.out_dir = out_dir
         self.render_fn = render_fn
         self.log_freq = max(1, log_freq)
-        os.makedirs(out_dir, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(out_dir, exist_ok=True)
 
     def __call__(self, epoch: int, trainer) -> None:
         if (epoch + 1) % self.log_freq:
             return
         for name, vol in self.render_fn(trainer).items():
-            _png(os.path.join(self.out_dir, f"epoch{epoch + 1}_{name}.png"),
-                 volume_montage(vol))
+            if self.write:
+                _png(os.path.join(self.out_dir,
+                                  f"epoch{epoch + 1}_{name}.png"),
+                     volume_montage(vol))
 
 
 class MetricsLogger:

@@ -7,6 +7,13 @@ latent-FID evaluation of the training CLI (`fidelity_eval`).
 
 The Python loop over `train_step_latents` is the counterpart of
 `train_epoch_latents`, whose `lax.scan` only saved TPU dispatches.
+
+With a `mesh` of several processes (`parallel.mesh.make_mesh`), each
+process trains on its rows of every global batch: the draws are made for
+the global batch and sliced, the U-Net's BatchNorm normalises with the
+global batch's statistics, and the gradients and metrics are reduced
+over the data group, so that the processes take the step one process
+takes on the global batch.
 """
 
 from __future__ import annotations
@@ -32,6 +39,10 @@ from ldm3d_torch.models.unet3d import UNet3D
 from ldm3d_torch.models.vqvae import VQVAE
 from ldm3d_torch.ops.fid import (frechet_distance, latent_fidelity,
                                  pool_latent_features)
+from ldm3d_torch.parallel.distributed import (reduce_gradients,
+                                              reduce_metrics)
+from ldm3d_torch.parallel.mesh import (attach_data_group, data_group,
+                                       data_shard)
 
 SAMPLERS = ("ddpm", "ddim", "dpmpp", "dpmpp_sde")
 
@@ -88,10 +99,11 @@ class DiffusionTrainer:
     The VQ-VAE is frozen: always in eval mode, outside the optimizer. The
     U-Net is in train mode only inside a train step. t, noise and the
     context-drop mask of a step come from `self.generator` (on this
-    trainer's device, seeded with `train_cfg.seed`) unless injected."""
+    trainer's device, seeded with `train_cfg.seed`) unless injected; under
+    a `mesh` they are the global batch's, and so are injected ones."""
 
     def __init__(self, cfg: DiffusionConfig, device=None,
-                 train_cfg: Optional[TrainConfig] = None):
+                 train_cfg: Optional[TrainConfig] = None, mesh=None):
         self.cfg = cfg
         self.train_cfg = train_cfg or TrainConfig()
         self.device = resolve_device(device)
@@ -106,6 +118,9 @@ class DiffusionTrainer:
             self.train_cfg.seed)
         self.optimizer: Optional[torch.optim.Adam] = None
         self.step = 0
+        self.mesh = mesh
+        # the frozen stage-1 runs in eval mode only: no global statistics
+        attach_data_group(self.model.unet, mesh)
 
     def init_random(self, seed: int, scheme: str = "jax"
                     ) -> "DiffusionTrainer":
@@ -206,15 +221,26 @@ class DiffusionTrainer:
         return self.optimizer
 
     def _draws(self, shape, t, noise, drop):
-        b, gen, dev = shape[0], self.generator, self.device
+        """t, noise and the drop mask of the global batch (drawn unless
+        injected), then this process's rows of them."""
+        gen, dev = self.generator, self.device
+        shard = data_shard(self.mesh)
+        b = shape[0] * (1 if shard is None else shard[1])
         if t is None:
             t = torch.randint(0, self.cfg.timesteps, (b,), generator=gen,
                               device=dev)
         if noise is None:
-            noise = torch.randn(shape, generator=gen, device=dev)
+            noise = torch.randn((b,) + tuple(shape[1:]), generator=gen,
+                                device=dev)
         if drop is None and self.conditional and self.cfg.unet.cfg_dropout > 0:
             drop = torch.rand(b, generator=gen, device=dev) \
                 < self.cfg.unet.cfg_dropout
+
+        def local(x):
+            if x is None or shard is None:
+                return x
+            return x[shard[0] * shape[0]:(shard[0] + 1) * shape[0]]
+        t, noise, drop = local(t), local(noise), local(drop)
         return (t.to(dev).long(), noise.to(dev, torch.float32),
                 None if drop is None else drop.to(dev).bool())
 
@@ -256,10 +282,17 @@ class DiffusionTrainer:
         mse = err.mean()
         opt.zero_grad(set_to_none=True)
         (ref_loss if cfg.loss_reduction == "ref" else mse).backward()
+        metrics = {"loss": ref_loss.detach(), "noise_mse": mse.detach()}
+        group = data_group(self.mesh)
+        if group is not None:
+            # ref_loss is a share of the global sum, mse a local mean
+            reduce_gradients(unet.parameters(), group,
+                             average=cfg.loss_reduction != "ref")
+            metrics = reduce_metrics(metrics, group, sums=("loss",))
         opt.step()
         self._update_ema()
         self.step += 1
-        return {"loss": ref_loss.detach(), "noise_mse": mse.detach()}
+        return metrics
 
     @torch.no_grad()
     def _update_ema(self) -> None:

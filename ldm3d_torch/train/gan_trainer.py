@@ -24,6 +24,14 @@ are traced values. Before `disc_threshold` the warm program runs no
 critic at all, and the critics take an Adam step with zero gradients, so
 that their parameters stay as they were while Adam's step count moves on.
 The port computes in float32 (TF32 convolutions on the card).
+
+With a `mesh` of several processes each holds its rows of every global
+batch, as in the other trainers: the frame indices are the global
+batch's, sliced; BatchNorm (the critics' live statistics included) and
+the quantizer's statistics are the global batch's; both optimizers'
+gradients are averaged over the data group; the adaptive weight's
+gradient norms are those of the global batch's gradients; R1, a mean of
+per-sample terms, is averaged with the rest of the metrics.
 """
 
 from __future__ import annotations
@@ -49,6 +57,11 @@ from ldm3d_torch.models.vqgan import (Discriminator2D, Discriminator3D,
                                       VQGANAutoencoder, hinge_d_loss,
                                       vanilla_d_loss)
 from ldm3d_torch.ops.metrics import volume_psnr, volume_ssim
+from ldm3d_torch.parallel.distributed import (all_reduce_sum,
+                                              reduce_gradients,
+                                              reduce_metrics)
+from ldm3d_torch.parallel.mesh import (attach_data_group, data_group,
+                                       data_shard)
 
 
 class VQGANModules(nn.Module):
@@ -98,12 +111,14 @@ class GANTrainer:
     training mode only inside `train_step`."""
 
     def __init__(self, cfg: VQGANConfig, train_cfg: Optional[TrainConfig]
-                 = None, device=None, volume_size: int = 128):
+                 = None, device=None, volume_size: int = 128, mesh=None):
         self.cfg = cfg
         self.train_cfg = train_cfg or TrainConfig()
         self.device = resolve_device(device)
         self.volume_size = volume_size
         self.model = VQGANModules(cfg, volume_size).to(self.device).eval()
+        self.mesh = mesh
+        attach_data_group(self.model, mesh)
         self.ae, self.disc3d = self.model.ae, self.model.disc3d
         self.disc2d, self.lpips = self.model.disc2d, self.model.lpips
         # the critics' fake, R1 and adaptive forwards read the statistics
@@ -213,7 +228,7 @@ class GANTrainer:
         lo, hi = self.cfg.frame_idx_range
         hi = min(hi, h)
         lo = min(lo, hi - 1)
-        return draws.randint(lo, hi, (b,), self.device)
+        return draws.randint(lo, hi, (b,), self.device, rows=True)
 
     def _forward_losses(self, vol, mask, draws: Draws, training: bool,
                         warm: bool = False):
@@ -330,8 +345,18 @@ class GANTrainer:
             g_r, = torch.autograd.grad(nll_of(r), r)
             r = img_recon.detach().requires_grad_(True)
             g_a, = torch.autograd.grad(adv_of(r), r)
-        lam = torch.linalg.vector_norm(g_r) / (
-            torch.linalg.vector_norm(g_a) + 1e-6)
+        group = data_group(self.mesh)
+        if group is None:
+            lam = torch.linalg.vector_norm(g_r) / (
+                torch.linalg.vector_norm(g_a) + 1e-6)
+        else:
+            # the global losses are the means of the processes' local
+            # ones: their gradients are the local ones over the group size
+            n = float(self.mesh.shape["data"])
+            sq = all_reduce_sum(torch.stack([torch.sum(torch.square(g_r)),
+                                             torch.sum(torch.square(g_a))]),
+                                group) / (n * n)
+            lam = torch.sqrt(sq[0]) / (torch.sqrt(sq[1]) + 1e-6)
         return torch.clamp(lam, 0.0, cfg.adaptive_g_max).detach()
 
     def _r1(self, vol_c, frames_c, b: int, create_graph: bool):
@@ -366,7 +391,7 @@ class GANTrainer:
         if warm is None:
             warm = self.epoch < self.cfg.disc_threshold
         vol, mask = self._batch(vol, mask)
-        draws = draws or Draws(self.generator)
+        draws = draws or Draws(self.generator, shard=data_shard(self.mesh))
         self._networks(True)
         try:
             total, metrics, _ = self._forward_losses(vol, mask, draws, True,
@@ -384,10 +409,21 @@ class GANTrainer:
             for p in group.param_groups[0]["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        if data_group(self.mesh) is not None:
+            reduce_gradients(self.model.parameters(), data_group(self.mesh))
         self.optimizer.step()
         self.disc_optimizer.step()
         self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return self._global({k: v.detach() for k, v in metrics.items()})
+
+    def _global(self, metrics: Dict) -> Dict:
+        """Metrics of the global batch: means over the data group; the
+        perplexity and the adaptive weight are already global."""
+        group = data_group(self.mesh)
+        if group is None:
+            return metrics
+        return reduce_metrics(metrics, group,
+                              keep=("perplexity", "adaptive_weight"))
 
     @torch.no_grad()
     def eval_step(self, vol: torch.Tensor, mask: torch.Tensor,
@@ -400,11 +436,11 @@ class GANTrainer:
         vol, mask = self._batch(vol, mask)
         if draws is None:
             draws = Draws(torch.Generator(device=self.device)
-                          .manual_seed(seed))
+                          .manual_seed(seed), shard=data_shard(self.mesh))
         _, metrics, img_recon = self._forward_losses(vol, mask, draws, False)
         metrics["ssim"] = volume_ssim(img_recon, vol)
         metrics["psnr"] = volume_psnr(img_recon, vol)
-        return metrics
+        return self._global(metrics)
 
     def next_epoch(self) -> None:
         """The epoch counter that gates the adversarial terms."""

@@ -9,6 +9,11 @@ step's metrics stay on the device until the epoch ends, when they are
 fetched in one transfer. Between epochs, in the JAX loop's order: the
 validation pass, the VQ-GAN's epoch counter, unused-code replacement, the
 plateau schedule, the epoch callback, logging and the checkpoint.
+
+Across processes every process runs the loop (the trainers reduce each
+step's metrics, so every process sees the global ones), the caller gives
+the loggers and the checkpoint manager to process 0 only, and the others
+wait at a barrier at the end of each epoch while it writes.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ldm3d_torch.parallel.distributed import barrier, is_primary
 from ldm3d_torch.train.callbacks import (CSVLogger, MetricsLogger,
                                          ReduceLROnPlateau, get_learning_rate)
 from ldm3d_torch.train.checkpoint import CheckpointManager
@@ -80,7 +86,10 @@ def fit(trainer, train_loader, epochs: int,
       and at every new best of the first `_PIN_RULES` metric the epoch
       reports (pinned: retention never drops it); its metric for
       save_best_only is val_loss, else loss.
+    - Across processes, only process 0 prints; every process waits for
+      the others at the end of each epoch.
     """
+    verbose = verbose and is_primary()
     last_metrics: Dict[str, float] = {}
     best_pin: Dict[str, float] = {}
     for epoch in range(initial_epoch, epochs):
@@ -151,6 +160,7 @@ def fit(trainer, train_loader, epochs: int,
                 if metrics_logger is not None:
                     metrics_logger(epoch, {pin: best_pin[name],
                                            "pinned_epoch": epoch + 1})
+        barrier()
         if verbose:
             dt = time.time() - t0
             msg = " ".join(f"{k}={v:.5f}" for k, v in last_metrics.items()

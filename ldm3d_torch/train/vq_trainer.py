@@ -13,6 +13,12 @@ The loss is the reconstruction MSE of the image channel plus
 trains on concat(volume, mask). Eval adds per-slice SSIM and PSNR.
 The port has no compute-dtype field: it runs float32 (TF32 convolutions
 on the card), as `TrainConfig(dtype="float32")` does in JAX.
+
+With a `mesh` of several processes each holds its rows of every global
+batch: per-row draws (dropout, NSVQ noise) are the global batch's,
+sliced; BatchNorm and the quantizer's statistics are the global batch's;
+gradients are averaged and metrics reduced over the data group, so that
+the codebooks and weights stay equal on every process.
 """
 
 from __future__ import annotations
@@ -36,6 +42,10 @@ from ldm3d_torch.models.vqvae import VQVAE
 from ldm3d_torch.models.vqvae_legacy import LegacyVQVAE
 from ldm3d_torch.ops.metrics import volume_psnr, volume_ssim
 from ldm3d_torch.ops.quantize import perplexity_from_counts
+from ldm3d_torch.parallel.distributed import (reduce_gradients,
+                                              reduce_metrics)
+from ldm3d_torch.parallel.mesh import (attach_data_group, data_group,
+                                       data_shard)
 
 def make_stage1(cfg: VQVAEConfig) -> nn.Module:
     """The model of `cfg.family`: "monai" (`VQVAE`), "ema_skip"
@@ -65,11 +75,14 @@ class VQTrainer:
     `recalibrate_batch_stats`."""
 
     def __init__(self, cfg: VQVAEConfig,
-                 train_cfg: Optional[TrainConfig] = None, device=None):
+                 train_cfg: Optional[TrainConfig] = None, device=None,
+                 mesh=None):
         self.cfg = cfg
         self.train_cfg = train_cfg or TrainConfig()
         self.device = resolve_device(device)
         self.model = make_stage1(cfg).to(self.device).eval()
+        self.mesh = mesh
+        attach_data_group(self.model, mesh)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.train_cfg.seed)
         tc = self.train_cfg
@@ -150,6 +163,15 @@ class VQTrainer:
                 metrics[f"perplexity_stage{i}"] = perplexity_from_counts(c)
         return loss, metrics
 
+    def _global(self, metrics: Dict) -> Dict:
+        """Metrics of the global batch: means over the data group; the
+        perplexities already come from global counts."""
+        group = data_group(self.mesh)
+        if group is None:
+            return metrics
+        return reduce_metrics(metrics, group, keep=[
+            k for k in metrics if k.startswith("perplexity")])
+
     def _batch(self, vol, mask):
         return (vol.to(self.device, torch.float32),
                 mask.to(self.device, torch.float32))
@@ -164,8 +186,9 @@ class VQTrainer:
         vol, mask = self._batch(vol, mask)
         self.model.train()       # through the backward pass: remat
         try:                     # recomputes units in training mode
-            recon, aux = self.model(self._model_input(vol, mask),
-                                    draws or Draws(self.generator))
+            recon, aux = self.model(
+                self._model_input(vol, mask),
+                draws or Draws(self.generator, shard=data_shard(self.mesh)))
             loss, metrics = self._losses(vol, recon, aux)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -174,9 +197,11 @@ class VQTrainer:
         for p in self.model.parameters():
             if p.grad is None:    # optax updates every parameter
                 p.grad = torch.zeros_like(p)
+        if data_group(self.mesh) is not None:
+            reduce_gradients(self.model.parameters(), data_group(self.mesh))
         self.optimizer.step()
         self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return self._global({k: v.detach() for k, v in metrics.items()})
 
     @torch.no_grad()
     def eval_step(self, vol: torch.Tensor, mask: torch.Tensor
@@ -189,7 +214,7 @@ class VQTrainer:
         img = recon[..., :vol.shape[-1]].float()
         metrics["ssim"] = volume_ssim(img, vol)
         metrics["psnr"] = volume_psnr(img, vol)
-        return metrics
+        return self._global(metrics)
 
     @torch.no_grad()
     def reconstruct(self, vol: torch.Tensor, mask: torch.Tensor
@@ -217,7 +242,8 @@ class VQTrainer:
             for _ in range(passes):
                 for batch in loader:
                     vol, mask = self._batch(batch[0], batch[1])
-                    self.model(self._model_input(vol, mask), Draws(gen))
+                    self.model(self._model_input(vol, mask),
+                               Draws(gen, shard=data_shard(self.mesh)))
                     for k, b in quantizer.named_buffers():
                         b.copy_(saved[k])
         finally:

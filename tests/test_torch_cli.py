@@ -25,6 +25,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import threading
 import urllib.request
 
@@ -43,7 +44,8 @@ from ldm3d.train.dm_trainer import DiffusionTrainer as JTrainer
 from ldm3d.utils import export as jexport
 from ldm3d_torch.cli import main as cli
 from ldm3d_torch.convert import flax_state
-from ldm3d_torch.core.config import flagship_cfg
+from ldm3d_torch.core import presets
+from ldm3d_torch.core.config import MeshConfig, flagship_cfg
 from ldm3d_torch.core.presets import get_preset, list_presets
 from ldm3d_torch.data import pipeline
 from ldm3d_torch.data.synthetic import synthetic_batch
@@ -454,21 +456,35 @@ def test_trained_state_samples_as_jax(against_jax):
         <= SAMPLE_REL_TOL
 
 
+# a training mode and the mesh its preset would carry
 UNPORTED = [
-    (["--coordinator", "h:1"], "item 9"),
-    (["--num_processes", "2"], "item 9"), (["--cpu_devices", "4"], "item 9"),
+    (["--train_vq"], "item 9", MeshConfig(space=2)),
+    (["--train_dm"], "item 9", MeshConfig(model=2)),
+    (["--train_dm", "--cache_latents"], "item 9", MeshConfig(space=2,
+                                                             model=2)),
 ]
 
 
 # the ids count from 6: cases 0 and 1, the VQ-GAN modes, run now
 # (test_vqgan_modes_run_on_the_cpu); cases 2-5, --fidelity_sweep, --sweep,
-# --device_data and --profile, too (tests/test_torch_cli_modes.py)
-@pytest.mark.parametrize("flags,item", UNPORTED, ids=[
-    f"flags{i}-{item}" for i, (_, item) in enumerate(UNPORTED, start=6)])
-def test_unported_modes_exit_with_their_item(flags, item):
-    with pytest.raises(SystemExit, match=f"not ported yet; see ROADMAP "
-                                         f"queue 1 {item}"):
-        cli.main(["--preset", "smoke_cond", "--platform", "cpu"] + flags)
+# --device_data and --profile, too (tests/test_torch_cli_modes.py); cases
+# 6-8 were the multi-process flags, which run now
+# (tests/test_torch_multiprocess.py): what is refused is a mesh with a
+# 'space' axis (item 9(b)) or a 'model' axis (item 9(c))
+@pytest.mark.parametrize("flags,item,mesh", UNPORTED, ids=[
+    f"flags{i}-{item}" for i, (_, item, _) in enumerate(UNPORTED, start=6)])
+def test_unported_modes_exit_with_their_item(flags, item, mesh, tmp_path,
+                                            monkeypatch):
+    cfg = get_preset("smoke_cond")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                             mesh=mesh))
+    monkeypatch.setattr(presets, "get_preset", lambda name: cfg)
+    sub = "(b)" if mesh.space > 1 else "(c)"
+    with pytest.raises(SystemExit, match=re.escape(
+            f"not ported yet; see ROADMAP queue 1 {item}{sub}")):
+        cli.main(["--preset", "smoke_cond", "--platform", "cpu",
+                  "--ckpt_dir", str(tmp_path)] + flags)
+    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("flags", [

@@ -8,7 +8,9 @@
   the same `.json` and `.md` files. Then a real sweep over a trained
   checkpoint: each row equals a direct `fidelity_eval` with the sweep's
   seed, and a guided cell of a model trained without cfg_dropout is
-  skipped.
+  skipped. Both CLIs read one fixed clock (`time.perf_counter`
+  stubbed), so that the rows' `eval_seconds` are equal by construction
+  however long a fake call takes under a loaded test run.
 - `--profile` writes a Chrome trace of the run under `{ckpt_dir}/trace`.
 - `--train_vq --synthetic --device_data` trains exactly as the cache
   path does: the same `training.log`.
@@ -17,6 +19,7 @@
 import glob
 import json
 import os
+import time
 
 import jax
 import numpy as np
@@ -114,6 +117,9 @@ def test_fidelity_sweep_files_equal_jax(tmp_path, monkeypatch, by_class,
     monkeypatch.setattr(cli, "_loaders", lambda cfg, args, device: _loader())
     monkeypatch.setattr(pckpt.CheckpointManager, "restore",
                         lambda self, epoch=None: ({}, 3))
+    # the JAX CLI imports `time` inside run_fidelity_sweep: patch the
+    # module's function, which both sides read at call time
+    monkeypatch.setattr(time, "perf_counter", lambda: 100.0)
     outs = {}
     for side, mod in (("jax", jcli), ("port", cli)):
         out = str(tmp_path / side)

@@ -12,8 +12,10 @@ checkpoint, stage-1 at `smoke` (--train_vq, --test_vq) and the VQ-GAN
 at `vqgan_attn` on 16^3 volumes (--train_vq for a warm and an
 adversarial epoch, --test_vq), a --fidelity_sweep under --profile, a
 bayes --sweep of one --train_vq point on --device_data, the native
-reader, the profiling helpers and the offline plots. The sources of the
-port (every module under `ldm3d_torch/`,
+reader, the profiling helpers, the offline plots, `parallel/` (a
+one-process mesh and halo conv) and a two-process --train_vq
+(--cpu_devices 2, whose processes start afresh). The sources of the
+port (every module under `ldm3d_torch/`, `parallel/` included,
 so the CLI, data, checkpoint and export modules too) and of
 `chip_smoke.py` are also searched for such imports.
 """
@@ -133,6 +135,14 @@ with tempfile.TemporaryDirectory() as d:
     assert "loss" in visualize.read_training_log(log)
     visualize.main(["loss", log, "--out", d + "/loss.png"])
     assert os.path.exists(d + "/loss.png")
+    from ldm3d_torch.parallel.halo import halo_conv3d
+    from ldm3d_torch.parallel.mesh import make_mesh
+    y = halo_conv3d(torch.ones(1, 4, 4, 4, 2), torch.ones(3, 3, 3, 2, 3),
+                    None, 1, make_mesh())
+    assert y.shape == (1, 4, 4, 4, 3) and float(y[0, 1, 1, 1, 0]) == 54.0
+    cli_main(s1 + ["--train_vq", "--epochs", "1", "--lbs", "1",
+                   "--cpu_devices", "2", "--ckpt_dir", d + "/mp"])
+    assert os.listdir(d + "/mp") == ["smoke_vq"]
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
 assert not loaded, loaded

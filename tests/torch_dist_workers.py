@@ -1,0 +1,207 @@
+"""Worker processes of the port's multi-process tests
+(tests/test_torch_parallel.py, tests/test_torch_multiprocess.py).
+
+    python tests/torch_dist_workers.py <job> <rank> <processes> <port> <dir>
+
+Each worker joins a gloo group on 127.0.0.1:<port> through
+`ldm3d_torch.parallel.distributed.initialize`, reads the job's inputs from
+`<dir>/<job>_in.pt` (written by the test), computes its share on the CPU
+and saves what it computed to `<dir>/<job>_out<rank>.pt`. It imports
+nothing of JAX, so that it starts in the time torch takes to import.
+`launch` starts the workers of a job from a test and waits for them.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def launch(job: str, directory, n: int = 2, timeout: float = 120.0):
+    """Run `job` in `n` worker processes; returns their outputs in rank
+    order. Fails when a worker fails or outlives `timeout` seconds (all
+    are then killed)."""
+    from ldm3d_torch.parallel.distributed import free_port
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(HERE), os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), job, str(r), str(n),
+         str(port), str(directory)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(deadline - time.monotonic(),
+                                               1.0))
+            logs.append(out)
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"{job}: a worker outlived {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"{job} rank {r} failed:\n{log}"
+    return [torch.load(os.path.join(str(directory), f"{job}_out{r}.pt"),
+                       weights_only=False) for r in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# Jobs: each takes its inputs and its mesh and returns what it computed
+# ---------------------------------------------------------------------------
+
+
+def job_halo(spec):
+    """`halo_conv3d` of each case on a (1, 2, 1) space mesh: this rank's
+    output rows and the gradients of sum(out * g) (input rows; kernel and
+    bias summed over the space group)."""
+    from ldm3d_torch.core.config import MeshConfig
+    from ldm3d_torch.parallel.distributed import all_reduce_sum
+    from ldm3d_torch.parallel.halo import halo_conv3d
+    from ldm3d_torch.parallel.mesh import SPACE_AXIS, make_mesh
+
+    mesh = make_mesh(MeshConfig(data=1, space=2))
+    i, n = mesh.coord(SPACE_AXIS), mesh.shape[SPACE_AXIS]
+    out = []
+    for case in spec:
+        x, k, b, g = (case[key] for key in ("x", "kernel", "bias", "g"))
+        rows = x.shape[1] // n
+        x = x[:, i * rows:(i + 1) * rows].clone().requires_grad_(True)
+        k = k.clone().requires_grad_(True)
+        b = b.clone().requires_grad_(True)
+        y = halo_conv3d(x, k, b, case["stride"], mesh, shard_axis=1)
+        g_rows = g.shape[1] // n
+        (y * g[:, i * g_rows:(i + 1) * g_rows]).sum().backward()
+        group = mesh.group(SPACE_AXIS)
+        out.append(dict(y=y.detach(), dx=x.grad,
+                        dk=all_reduce_sum(k.grad, group),
+                        db=all_reduce_sum(b.grad, group)))
+    return out
+
+
+def _adam_moment(trainer_params, optimizer, slot):
+    return {n: optimizer.state[p][slot].clone()
+            for n, p in trainer_params if p in optimizer.state}
+
+
+def job_steps(spec):
+    """One data-parallel step of each trainer case of `spec` on this
+    rank's rows (`shard_batch`), from the state the test gives."""
+    from ldm3d_torch.core.config import MeshConfig, TrainConfig
+    from ldm3d_torch.models.quantizers import Draws, make_quantizer
+    from ldm3d_torch.parallel.mesh import (attach_data_group, data_shard,
+                                           make_mesh, shard_batch)
+    from ldm3d_torch.train.dm_trainer import DiffusionTrainer
+    from ldm3d_torch.train.gan_trainer import GANTrainer
+    from ldm3d_torch.train.vq_trainer import VQTrainer
+
+    out = {}
+    for name, case in spec.items():
+        mesh = make_mesh(MeshConfig(), batch_size=case["batch"])
+        kind = case["kind"]
+        if kind == "vq":
+            tr = VQTrainer(case["cfg"], TrainConfig(**case["train"]),
+                           device="cpu", mesh=mesh)
+            tr.model.load_state_dict(case["state"], strict=True)
+            vol, mask = shard_batch(mesh, (case["vol"], case["mask"]))
+            draws = Draws(shard=data_shard(mesh), **case["draws"]) \
+                if case.get("draws") else None
+            m = tr.train_step(vol, mask, draws)
+            res = dict(metrics={k: float(v) for k, v in m.items()},
+                       state={k: t.clone() for k, t in
+                              tr.model.state_dict().items()},
+                       mu=_adam_moment(tr.model.named_parameters(),
+                                       tr.optimizer, "exp_avg"))
+            if "eval_state" in case:
+                tr.model.load_state_dict(case["eval_state"], strict=True)
+            res["eval"] = {k: float(v) for k, v in
+                           tr.eval_step(vol, mask).items()}
+            if "replace" in case:
+                res["replaced"] = tr.replace_unused(
+                    2, Draws(**case["replace"]))
+                res["after_replace"] = {k: t.clone() for k, t in
+                                        tr.model.state_dict().items()}
+        elif kind == "dm":
+            tr = DiffusionTrainer(case["cfg"], device="cpu",
+                                  train_cfg=TrainConfig(**case["train"]),
+                                  mesh=mesh)
+            tr.load_state_dicts(case["state"], case["ema"])
+            lat, ctx = shard_batch(mesh, (case["lat"], case["ctx"]))
+            m = tr.train_step_latents(lat, ctx, **case["draws"])
+            unet = tr.model.unet
+            res = dict(metrics={k: float(v) for k, v in m.items()},
+                       state={k: t.clone() for k, t in
+                              tr.model.state_dict().items()},
+                       ema={k: t.clone() for k, t in
+                            tr.ema_unet.state_dict().items()},
+                       mu=_adam_moment(unet.named_parameters(),
+                                       tr.optimizer, "exp_avg"),
+                       nu=_adam_moment(unet.named_parameters(),
+                                       tr.optimizer, "exp_avg_sq"))
+        elif kind == "gan":
+            tr = GANTrainer(case["cfg"], TrainConfig(**case["train"]),
+                            device="cpu", volume_size=case["size"],
+                            mesh=mesh).init_random(case["seed"])
+            tr.epoch = case["epoch"]
+            vol, mask = shard_batch(mesh, (case["vol"], case["mask"]))
+            m = tr.train_step(vol, mask)
+            res = dict(metrics={k: float(v) for k, v in m.items()},
+                       grads={n: p.grad.clone() for n, p in
+                              tr.model.named_parameters()
+                              if p.grad is not None},
+                       state={k: t.clone() for k, t in
+                              tr.model.state_dict().items()})
+        elif kind == "quantizer":
+            q = make_quantizer(case["cfg"])
+            q.reset_parameters(torch.Generator().manual_seed(case["seed"]))
+            attach_data_group(q, mesh)
+            q.train()
+            gen = torch.Generator().manual_seed(case["seed"] + 1)
+            res = dict(steps=[])
+            for x in case["xs"]:
+                x = shard_batch(mesh, x).clone().requires_grad_(True)
+                y, aux = q(x, Draws(gen, shard=data_shard(mesh)))
+                (y.square().mean() + aux.loss).backward()
+                res["steps"].append(dict(
+                    y=y.detach(), dx=x.grad, perplexity=float(aux.perplexity),
+                    counts=aux.usage_counts.clone(),
+                    buffers={k: b.clone() for k, b in q.named_buffers()}))
+        else:
+            raise ValueError(f"unknown case kind {kind!r}")
+        out[name] = res
+    return out
+
+
+JOBS = {"halo": job_halo, "steps": job_steps}
+
+
+def main(argv) -> None:
+    job, rank, n, port, directory = argv
+    torch.set_num_threads(2)
+    from ldm3d_torch.parallel import distributed as pdist
+
+    pdist.initialize(f"127.0.0.1:{port}", int(n), int(rank),
+                     platform="cpu")
+    try:
+        spec = torch.load(os.path.join(directory, f"{job}_in.pt"),
+                          weights_only=False)
+        out = JOBS[job](spec)
+        torch.save(out, os.path.join(directory, f"{job}_out{rank}.pt"))
+        pdist.barrier()
+    finally:
+        pdist.shutdown()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
