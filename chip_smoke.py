@@ -16,6 +16,15 @@
                                                  # itself and (stage 2,
                                                  # deterministic) float64,
                                                  # printed
+    python3 chip_smoke.py --spatial-check        # device, build, and the
+                                                 # spatial phase's two
+                                                 # steps, each and its
+                                                 # one-process twin against
+                                                 # float64 CPU steps,
+                                                 # printed
+    python3 chip_smoke.py --spatial-check --seed 1   # the same from
+                                                 # another seed (inputs and
+                                                 # weights)
 
 Phases, one line each (flush=True); any failure raises and the exit code is
 not 0:
@@ -125,6 +134,23 @@ not 0:
                 global batch 8), one epoch and --resume_ckpt -1 to a
                 second: one checkpoint directory, process 0's epoch-1 loss
                 against the cli phase's one-process epoch
+     spatial    main path 9: spatial parallelism. Two processes of this
+                script (--spatial-worker) on the one card, a data 1 x
+                space 2 mesh over gloo, each one depth slab of every
+                volume: the flagship's stage-1 at 128^3, global batch 2
+                (remat full; one codebook launch each), and its latent
+                step at global batch 8 (12 attention launches each, on
+                the 4^3 level's 2-row slabs), each against the
+                one-process step of a twin on process 0 (TF32 off, cuDNN
+                deterministic; the bounds of SPATIAL_*) and bitwise equal
+                across the processes; the step times with the halo
+                exchanges', the statistics' and the gradients'
+                all-reduces timed apart; the stage-1 step's peak with
+                remat off below 0.9 of one process's; `generate` (DDIM 3,
+                2 samples) from the EMA U-Net with the decode over slabs
+                against the twin's; then --train_vq at a space axis of 2 from
+                the command line, one epoch on 6 volumes (4 codebook
+                launches each)
  14. train_gan  main path 7: the VQ-GAN. A warm and an adversarial step of
                 vqgan_attn at full width (R1 and the adaptive weight on,
                 32^3) on the card, f32 with TF32 off, against a float64
@@ -141,13 +167,14 @@ not 0:
                 and the adaptive weight each on and off, VGG16 alone)
  15. kernels    one JSON line with the whole run's kernel numbers
  16. last line  {"ok": true, "device": {...}}
-Sockets only on localhost, between the ddp phase's two processes, which
-end (or are killed at DDP_TIMEOUT) before the phase does; one profiler
+Sockets only on localhost, between the ddp and spatial phases' two
+processes, which end (or are killed at DDP_TIMEOUT / SPATIAL_TIMEOUT)
+before their phase does; one profiler
 trace, written in the cli phase's temporary directory; the threads are
 the CLI's data loader prefetchers, joined when their epoch ends, and the
 native reader's pool. Nothing is written but the builds under
 ldm3d_torch/_build/ (the kernels and the native reader) and the cli,
-train_vq, ddp and train_gan phases' temporary directories.
+train_vq, ddp, spatial and train_gan phases' temporary directories.
 Imports nothing of JAX.
 """
 
@@ -412,6 +439,47 @@ DDP_MODEL_GRAD_RTOL = 2e-3
 # the CLI's epoch-1 loss against the cli phase's (TF32 convolutions at
 # batch 4 and at batch 8; measured 5.1e-7)
 DDP_CLI_LOSS_RTOL = 1e-4
+# Main path 9 (`spatial`): spatial parallelism over SPATIAL_PROCESSES
+# processes of this script on the one card, a data 1 x space 2 mesh (each
+# process one depth slab of every volume; gloo, through the host). Stage 1
+# (TRAIN_VQ_FLAGS, TRAIN_VQ_SIZE^3) at global batch SPATIAL_VQ_BATCH,
+# stage 2's latent step at DDP_BATCH, `generate` (DDIM, SPATIAL_GEN_STEPS
+# steps, SPATIAL_GEN_NUM samples) with a sharded decode, and one --train_vq
+# epoch of the CLI with a space = 2 preset mesh on SPATIAL_CLI_VOLUMES
+# volumes at global batch SPATIAL_VQ_BATCH (--lbs is per process, global =
+# lbs x processes, as the JAX CLI's per device). The compared steps run
+# TF32 off and cuDNN deterministic on both sides; the loss and BatchNorm
+# statistics hold the ddp phase's DDP_LOSS_RTOL, the whole model
+# DDP_MODEL_GRAD_RTOL of its largest gradient. Each tensor: the spatial
+# step does not repeat the one-process arithmetic (GroupNorm's sums over
+# slabs, cuDNN's algorithms for the slab's shapes), and `--spatial-check`
+# measured that float32 alone moves these gradients that far (PERF.md
+# §6): stage 1 lies 1.11e-2 of a tensor's largest from one process, where
+# the one-process step lies 1.02e-2 from a float64 CPU step and the
+# spatial step 9.8e-3; the one-process step with GroupNorm's slab
+# arithmetic alone lies 9.2e-3 from itself, with cuDNN's default
+# algorithms 3.7e-3. Held to 3e-2. Stage 2, per group (the ddp phase's
+# groups): the cross-attention MLPs 9.20e-2 from one process (one process
+# from float64 9.21e-2, the spatial step 2.2e-2), held to 0.1 as in the
+# ddp phase; the other cross-attention tensors 3.09e-2 (one process from
+# float64 3.14e-2, spatial 3.18e-2), held to 0.1; the rest 3.3e-3, held
+# to 1e-2 as in the ddp phase. These per-tensor bounds hold float32
+# noise: a fault of a halo or a gather confined to a few rows can hide
+# under them, and is caught by the whole-model bound (measured 7.0e-4 /
+# 1.0e-3 of the largest gradient) and by tests/test_torch_spatial.py on
+# the CPU (each tensor within 1e-4 of its largest). The decoded volumes:
+# SAMPLER_REL_TOL of their largest value (the samplers' card-vs-CPU
+# bound). The stage-1 step with remat off must peak below
+# SPATIAL_MEMORY_RATIO of the one-process step's peak at the same global
+# batch (the JAX package's own contract, __graft_entry__.py).
+SPATIAL_S1_GRAD_RTOL = ((None, 3e-2),)
+SPATIAL_S2_GRAD_RTOL = ((r"^xattn_[^.]*\.mlp\d\.", 0.1), (r"^xattn_", 0.1),
+                        (None, 1e-2))
+SPATIAL_PROCESSES, SPATIAL_VQ_BATCH = 2, 2
+SPATIAL_GEN_NUM, SPATIAL_GEN_STEPS = 2, 3
+SPATIAL_CLI_VOLUMES = 6
+SPATIAL_MEMORY_RATIO = 0.9
+SPATIAL_TIMEOUT = 480             # seconds for the workers, all of them
 
 
 _T0 = time.perf_counter()
@@ -558,6 +626,9 @@ def phase_kernel(card: str) -> Dict[str, dict]:
         ("train_f32", 8, 64, 64, 512, torch.float32),     # train path
         # the ddp path: 4 rows per process (stage-2 step, CLI at --lbs 4)
         ("ddp_f32", 4, 64, 64, 512, torch.float32),
+        # the spatial path: a 2-row slab's 32 queries of the 4^3 level
+        # against its 64 keys (stage-2 step at batch 8)
+        ("spatial_f32", 8, 32, 64, 512, torch.float32),
         ("self_bf16", 16, 64, 64, 512, torch.bfloat16),
         ("cross_ragged_f32", 16, 64, 37, 512, torch.float32),
         ("cross_ragged_bf16", 16, 64, 37, 512, torch.bfloat16),
@@ -615,7 +686,7 @@ def phase_codebook(card: str) -> Dict[str, dict]:
     shape [4096, 256] x [1024, 256], in f32 and bf16, with a ragged N and
     with duplicated codes (which must give the first index exactly), at
     the nsvqvae, rnsvqvae and vqgan_attn stage-1 shapes and at the ddp
-    path's per-process shapes."""
+    path's and the spatial path's per-process shapes."""
     cases = [  # name, N, K, D, dtype, duplicated codes
         ("train_f32", 4096, 1024, 256, torch.float32, False),  # train path
         ("train_bf16", 4096, 1024, 256, torch.bfloat16, False),
@@ -632,6 +703,9 @@ def phase_codebook(card: str) -> Dict[str, dict]:
         # latents) and the CLI's encode at --lbs 4
         ("ddp_stage1_f32", 1024, 1024, 256, torch.float32, False),
         ("ddp_cli_f32", 2048, 1024, 256, torch.float32, False),
+        # the spatial path, per process: 2 volumes' 8 x 8 x 4 latent slabs
+        # (the stage-1 step, the CLI's steps, eval and montage)
+        ("spatial_f32", 512, 1024, 256, torch.float32, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
@@ -690,6 +764,7 @@ ATTN_SHAPES = [  # B, nq, nkv, C, dtype
     (2, 200, 300, 256, torch.float32),    # Q streamed over 5 key tiles
     (64, 64, 64, 512, torch.float32),     # guided at num 32 (2 x 32)
     (4, 64, 64, 512, torch.float32),      # cli --test_dm at batch 4
+    (2, 32, 64, 512, torch.float32),      # spatial generate, 2 samples
 ]
 CB_SHAPES = [  # N, K, D, dtype
     (37, 16, 8, torch.float32),           # the tiny slice
@@ -2744,15 +2819,15 @@ def _ddp_stage2_timing(spec: dict, tr: DiffusionTrainer, inp: dict,
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
 
-def _ddp_s1_inputs(spec: dict) -> dict:
+def _ddp_s1_inputs(spec: dict, batch: int = DDP_VQ_BATCH) -> dict:
     """The stage-1 step's config and global batch (made alike on every
     process from SEED)."""
     args = cli.build_parser().parse_args(spec["vq_flags"])
     rng = np.random.default_rng(SEED + 8)
-    vol = _seeded_volumes(rng, DDP_VQ_BATCH, spec["vq_size"])
+    vol = _seeded_volumes(rng, batch, spec["vq_size"])
     return dict(vcfg=cli.apply_overrides(get_preset(args.preset),
                                          args).vqvae,
-                tc=TrainConfig(batch_size=DDP_VQ_BATCH, seed=SEED),
+                tc=TrainConfig(batch_size=batch, seed=SEED),
                 vol=vol, mask=(vol > 0.5).float())
 
 
@@ -2970,36 +3045,7 @@ def phase_ddp(card: str, cli_row: dict, check: bool = False) -> dict:
         if DDP_DEVICE == "cuda" and free < need:
             raise RuntimeError(f"ddp: {free} bytes free in {tmp}, {need} "
                                "needed")
-        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
-                for r in range(DDP_PROCESSES)]
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--ddp-worker",
-             path, str(r)], stdout=logs[r], stderr=subprocess.STDOUT)
-            for r in range(DDP_PROCESSES)]
-        deadline = time.monotonic() + DDP_TIMEOUT
-        try:
-            for p in procs:   # past the deadline: killed, exit code < 0
-                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
-        except subprocess.TimeoutExpired:
-            print(f"ddp: the workers outlived {DDP_TIMEOUT} s", flush=True)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for f in logs:
-                f.close()
-        if any(p.returncode != 0 for p in procs):
-            for r in range(DDP_PROCESSES):
-                with open(os.path.join(tmp, f"rank{r}.log")) as f:
-                    print(f"--- ddp rank {r} (exit {procs[r].returncode})\n"
-                          + f.read()[-6000:], flush=True)
-            raise RuntimeError(f"ddp: workers exited "
-                               f"{[p.returncode for p in procs]}")
-        ranks = []
-        for r in range(DDP_PROCESSES):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+        ranks = _run_workers("ddp", path, tmp, DDP_PROCESSES, DDP_TIMEOUT)
         if check:
             for key, res in ranks[0].items():
                 say("ddp_check", part=key, result=res, card=card)
@@ -3010,6 +3056,44 @@ def phase_ddp(card: str, cli_row: dict, check: bool = False) -> dict:
                            time.perf_counter() - t_phase)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _run_workers(phase: str, spec_path: str, tmp: str, n: int,
+                 timeout: float) -> list:
+    """`n` processes of this script (`--{phase}-worker spec_path rank`),
+    each writing its output to rank{r}.log and its numbers to rank{r}.json
+    in `tmp`; killed past `timeout` seconds. Returns the numbers in rank
+    order; raises (printing the logs) when a worker fails."""
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in range(n)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), f"--{phase}-worker",
+         spec_path, str(r)], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(n)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:   # past the deadline: killed, exit code < 0
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        print(f"{phase}: the workers outlived {timeout} s", flush=True)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(p.returncode != 0 for p in procs):
+        for r in range(n):
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                print(f"--- {phase} rank {r} (exit {procs[r].returncode})\n"
+                      + f.read()[-6000:], flush=True)
+        raise RuntimeError(f"{phase}: workers exited "
+                           f"{[p.returncode for p in procs]}")
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
 
 
 def _ddp_report(card, ranks, rank0_text, cli_row, cli_cfg, tmp,
@@ -3110,6 +3194,556 @@ def _ddp_report(card, ranks, rank0_text, cli_row, cli_cfg, tmp,
     return counts
 
 
+class _CollectiveTimer:
+    """Times every `torch.distributed.all_reduce` inside the block (the
+    card synchronised before and after each), by caller: "halo" (the
+    exchanges of `parallel.halo`), "grads" (`reduce_gradients`),
+    "metrics" (`reduce_metrics`) and "stats" (the norms' and quantizers'
+    sums, the gathers). The synchronisation costs time of its own: the
+    shares are of the instrumented step."""
+
+    def __init__(self, dev: str):
+        self.dev = dev
+        self.ms: Dict[str, float] = {}
+        self.calls: Dict[str, int] = {}
+        self.bytes: Dict[str, int] = {}
+
+    def _kind(self, frame) -> str:
+        if frame.f_code.co_filename.endswith("halo.py"):
+            return "halo"
+        return {"reduce_gradients": "grads",
+                "reduce_metrics": "metrics"}.get(frame.f_code.co_name,
+                                                 "stats")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.real = dist.all_reduce
+
+        def timed(t, *a, **kw):
+            kind = self._kind(sys._getframe(1))
+            _sync(self.dev)
+            t0 = time.perf_counter()
+            out = self.real(t, *a, **kw)
+            _sync(self.dev)
+            self.ms[kind] = self.ms.get(kind, 0.0) \
+                + 1e3 * (time.perf_counter() - t0)
+            self.calls[kind] = self.calls.get(kind, 0) + 1
+            self.bytes[kind] = self.bytes.get(kind, 0) \
+                + t.numel() * t.element_size()
+            return out
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.all_reduce = self.real
+
+
+def _spatial_timing(step, dev: str) -> dict:
+    """Uncounted: one step with the defaults (TF32 convolutions, cuDNN's
+    own algorithms) for its time, then one with every all-reduce timed."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    try:
+        _sync(dev)
+        t0 = time.perf_counter()
+        step()
+        _sync(dev)
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        with _CollectiveTimer(dev) as timer:
+            t0 = time.perf_counter()
+            step()
+            _sync(dev)
+            timed_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return dict(step_ms=step_ms, instrumented_step_ms=timed_ms,
+                collective_ms=timer.ms, collective_calls=timer.calls,
+                collective_bytes=timer.bytes,
+                halo_share=timer.ms.get("halo", 0.0) / timed_ms,
+                grad_allreduce_share=timer.ms.get("grads", 0.0) / timed_ms)
+
+
+def _spatial_mesh():
+    from ldm3d_torch.core.config import MeshConfig
+    from ldm3d_torch.parallel.mesh import make_mesh
+    return make_mesh(MeshConfig(data=1, space=SPATIAL_PROCESSES))
+
+
+def _peak_step(dev: str, step) -> int:
+    """The device's peak allocation during `step` (0 on the CPU)."""
+    if dev != "cuda":
+        step()
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def _spatial_stage1(spec: dict, rank: int, mesh) -> dict:
+    """The flagship's stage-1 at global batch SPATIAL_VQ_BATCH over the
+    space mesh, each rank its depth slab (remat as the preset has it),
+    against a one-process twin on rank 0 (TF32 off, cuDNN deterministic);
+    its timing; then the step with remat off and its peak memory, and on
+    rank 0 the one-process step's."""
+    from ldm3d_torch.parallel.mesh import shard_batch
+
+    dev = spec["device"]
+    inp = _ddp_s1_inputs(spec, SPATIAL_VQ_BATCH)
+    tr = VQTrainer(inp["vcfg"], inp["tc"], device=dev,
+                   mesh=mesh).init_random(SEED)
+    lv, lm = (t.to(dev) for t in shard_batch(
+        mesh, (inp["vol"], inp["mask"]), spatial_axis=3))
+    with _NoTF32():
+        _sync(dev)
+        _reset_launches()        # the main path's step starts here
+        t0 = time.perf_counter()
+        m = tr.train_step(lv, lm)
+        _sync(dev)
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        got = _launches()
+    q = tr.model.quantizer
+    out = dict(loss=float(m["loss"]), perplexity=float(m["perplexity"]),
+               launches=got, first_step_ms=first_ms,
+               remat=inp["vcfg"].remat, slab=list(lv.shape),
+               usage=_digest([q.codebooks_used]),
+               codebook=_digest([q.codebook]),
+               params=_digest(tr.model.parameters()))
+    if rank == 0:
+        twin = _ddp_s1_one_process(spec, inp)
+        m1 = _ddp_s1_step(twin, inp, dev)
+        out.update(_grad_errors(tr.model, twin.model, SPATIAL_S1_GRAD_RTOL),
+                   loss_1p=float(m1["loss"]),
+                   loss_rel_err=abs(float(m["loss"]) - float(m1["loss"]))
+                   / abs(float(m1["loss"])),
+                   usage_equal_1p=bool(torch.equal(
+                       q.codebooks_used, twin.model.quantizer.codebooks_used)))
+        out.pop("grad_rel_errs")
+        del twin
+    pdist.barrier()
+    out["timing"] = _spatial_timing(lambda: tr.train_step(lv, lm), dev)
+    del tr
+    # memory: the step with remat off, over the slabs and in one process
+    off = replace(inp["vcfg"], remat=False)
+    tr = VQTrainer(off, inp["tc"], device=dev, mesh=mesh).init_random(SEED)
+    tr.train_step(lv, lm)            # Adam's state exists from here on
+    out["peak_bytes"] = _peak_step(dev, lambda: tr.train_step(lv, lm))
+    del tr
+    pdist.barrier()
+    if rank == 0:
+        one = VQTrainer(off, inp["tc"], device=dev).init_random(SEED)
+        v, mk = inp["vol"].to(dev), inp["mask"].to(dev)
+        one.train_step(v, mk)
+        out["peak_bytes_1p"] = _peak_step(dev, lambda: one.train_step(v, mk))
+        del one
+    pdist.barrier()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spatial_stage2(spec: dict, rank: int, mesh) -> tuple:
+    """The flagship's latent step at global batch DDP_BATCH over the
+    space mesh (the latents whole, each rank's U-Net on its depth slab,
+    the draws the global batch's, injected), against a one-process twin
+    on rank 0; its timing. Returns the numbers, the trainer and the
+    twin (rank 0) or None."""
+    dev, inp = spec["device"], _ddp_s2_inputs(spec)
+    tr = DiffusionTrainer(inp["cfg"], device=dev, train_cfg=inp["tc"],
+                          mesh=mesh).init_random(SEED, "reach")
+    x, c = inp["lat"].to(dev), inp["ctx"].to(dev)
+    with _NoTF32():
+        _sync(dev)
+        _reset_launches()        # the main path's step starts here
+        t0 = time.perf_counter()
+        m = tr.train_step_latents(x, c, **inp["on"])
+        _sync(dev)
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        got = _launches()
+    out = dict(loss=float(m["loss"]), noise_mse=float(m["noise_mse"]),
+               launches=got, first_step_ms=first_ms,
+               attention_calls=attention_calls_per_step(tr.model.unet),
+               params=_digest(tr.model.unet.parameters()),
+               buffers=_digest(tr.model.unet.buffers()),
+               ema=_digest(tr.ema_unet.parameters()))
+    twin = None
+    if rank == 0:
+        twin = _ddp_s2_one_process(spec, inp)
+        m1 = _ddp_s2_step(twin, inp, dev)
+        out.update(_grad_errors(tr.model.unet, twin.model.unet,
+                                SPATIAL_S2_GRAD_RTOL),
+                   loss_1p=float(m1["loss"]),
+                   loss_rel_err=abs(float(m["loss"]) - float(m1["loss"]))
+                   / abs(float(m1["loss"])),
+                   stats_rel_err=_stats_error(tr.model.unet,
+                                              twin.model.unet))
+        out.pop("grad_rel_errs")
+    pdist.barrier()
+    out["timing"] = _spatial_timing(
+        lambda: tr.train_step_latents(x, c, **inp["on"]), dev)
+    return out, tr, twin
+
+
+def _spatial_generate(spec: dict, rank: int, tr: DiffusionTrainer,
+                      twin) -> dict:
+    """`generate` from the stage-2 trainer's EMA U-Net over the space
+    mesh (DDIM, injected noise, decode=True): the whole volume on every
+    rank; on rank 0 the one-process twin, given the same weights, samples
+    the same noise (TF32 off on both sides)."""
+    dev, cfg = spec["device"], tr.cfg
+    shape = _latent_shape(cfg, SPATIAL_GEN_NUM)
+    rng = np.random.default_rng(SEED + 9)
+    init = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(dev)
+    noise = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+             .to(dev) for _ in range(SPATIAL_GEN_STEPS)]
+    ctx = torch.arange(SPATIAL_GEN_NUM, device=dev) % (
+        cfg.unet.context_dim + 1)
+    kw = dict(init_noise=init, step_noise=noise.__getitem__,
+              sampler="ddim", sample_steps=SPATIAL_GEN_STEPS, eta=0.5,
+              decode=True)
+    with _NoTF32():
+        _sync(dev)
+        _reset_launches()        # the main path's request starts here
+        t0 = time.perf_counter()
+        vols = tr.generate(shape, ctx, **kw)
+        _sync(dev)
+        gen_ms = 1e3 * (time.perf_counter() - t0)
+        got = _launches()
+    out = dict(launches=got, generate_ms=gen_ms, shape=list(vols.shape),
+               finite=bool(torch.isfinite(vols).all()),
+               volumes=_digest([vols]))
+    if rank == 0:
+        twin.model.load_state_dict(tr.model.state_dict())
+        twin.ema_unet.load_state_dict(tr.ema_unet.state_dict())
+        with _NoTF32():
+            ref = twin.generate(shape, ctx, **kw)
+            _sync(dev)
+        out["rel_err"] = _max_rel(vols, ref)
+    pdist.barrier()
+    return out
+
+
+def _spatial_cli(spec: dict, rank: int) -> dict:
+    """One --train_vq epoch of the flagship's stage-1 from the command
+    line with the preset's mesh set to data 1 x space SPATIAL_PROCESSES
+    (each process calls the CLI's main with --coordinator), counted."""
+    import ldm3d_torch.core.presets as presets
+    from ldm3d_torch.core.config import MeshConfig
+    tmp, dev = spec["tmp"], spec["device"]
+    argv = spec["vq_flags"] + [
+        "--cache_dir", os.path.join(tmp, "cache"), "--ckpt_dir",
+        os.path.join(tmp, "ckpt"), "--out_dir", os.path.join(tmp, "out"),
+        "--platform", "gpu" if dev == "cuda" else "cpu", "--train_vq",
+        "--synthetic", "--num_synthetic", str(SPATIAL_CLI_VOLUMES),
+        "--volume_size", str(spec["vq_size"]), "--val_perc",
+        str(TRAIN_VQ_VAL), "--lbs",
+        str(SPATIAL_VQ_BATCH // SPATIAL_PROCESSES), "--epochs", "1",
+        "--image_log_freq", "1",
+        "--coordinator", f"127.0.0.1:{spec['cli_port']}",
+        "--num_processes", str(SPATIAL_PROCESSES), "--process_id",
+        str(rank)]
+    mesh = MeshConfig(data=1, space=SPATIAL_PROCESSES)
+
+    def preset(name):
+        cfg = get_preset(name)
+        return replace(cfg, train=replace(cfg.train, mesh=mesh))
+    presets.get_preset = preset
+    try:
+        _sync(dev)
+        _reset_launches()        # the main path's run starts here
+        t0 = time.perf_counter()
+        cli.main(argv)
+        _sync(dev)
+    finally:
+        presets.get_preset = get_preset
+    return dict(wall_s=time.perf_counter() - t0, launches=_launches())
+
+
+def _explicit_group_norm(self, x):
+    """GroupNorm's arithmetic of a slab in one process: the mean, then
+    the squared deviations from it (`--spatial-check`)."""
+    b = x.shape[0]
+    xg = x.reshape(b, self.groups, -1)
+    mean = xg.mean(-1, keepdim=True)
+    var = torch.square(xg - mean).mean(-1, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return y * self.weight.view(shape) + self.bias.view(shape)
+
+
+def _spatial_check(spec: dict, rank: int, mesh) -> dict:
+    """--spatial-check: each stage's spatial step (cuDNN deterministic,
+    TF32 off) and, on rank 0, the float32 steps it is compared with
+    against float64 CPU steps from the same state: the one-process step,
+    the same with cuDNN's default algorithms and (stage 1) with
+    GroupNorm's slab arithmetic; printed, not judged."""
+    from ldm3d_torch.models import layers
+    from ldm3d_torch.parallel.mesh import shard_batch
+
+    dev, out = spec["device"], {}
+    torch.backends.cudnn.deterministic = True
+    # stage 1
+    inp = _ddp_s1_inputs(spec, SPATIAL_VQ_BATCH)
+    tr = VQTrainer(inp["vcfg"], inp["tc"], device=dev,
+                   mesh=mesh).init_random(SEED)
+    lv, lm = (t.to(dev) for t in shard_batch(
+        mesh, (inp["vol"], inp["mask"]), spatial_axis=3))
+    with _NoTF32():
+        tr.train_step(lv, lm)
+    if rank == 0:
+        def errs(a, b):
+            e = _grad_errors(a, b, SPATIAL_S1_GRAD_RTOL)
+            return {k: e[k] for k in ("grad_rel_err", "grad_worst",
+                                      "grad_model_rel_err", "grad_worst5")}
+        one = _ddp_s1_one_process(spec, inp)
+        f64 = VQTrainer(inp["vcfg"], inp["tc"], device="cpu")
+        f64.model.load_state_dict({k: v.cpu() for k, v in
+                                   one.model.state_dict().items()})
+        f64.model.double()
+        f64._batch = lambda v, m: (v.cpu().double(), m.cpu().double())
+        _ddp_s1_step(one, inp, dev)
+        f64.train_step(inp["vol"], inp["mask"])
+        res = {"spatial_vs_one_process": errs(tr.model, one.model),
+               "spatial_vs_float64": errs(tr.model, f64.model),
+               "one_process_vs_float64": errs(one.model, f64.model)}
+        torch.backends.cudnn.deterministic = False
+        other = _ddp_s1_one_process(spec, inp)
+        _ddp_s1_step(other, inp, dev)
+        res["cudnn_default_vs_one_process"] = errs(other.model, one.model)
+        torch.backends.cudnn.deterministic = True
+        real = layers._GroupNorm.forward
+        layers._GroupNorm.forward = _explicit_group_norm
+        try:
+            other = _ddp_s1_one_process(spec, inp)
+            _ddp_s1_step(other, inp, dev)
+        finally:
+            layers._GroupNorm.forward = real
+        res["slab_groupnorm_arithmetic_vs_one_process"] = errs(other.model,
+                                                               one.model)
+        out["stage1"] = res
+        del one, f64, other
+    del tr
+    pdist.barrier()
+    # stage 2
+    inp = _ddp_s2_inputs(spec)
+    tr = DiffusionTrainer(inp["cfg"], device=dev, train_cfg=inp["tc"],
+                          mesh=mesh).init_random(SEED, "reach")
+    with _NoTF32():
+        tr.train_step_latents(inp["lat"].to(dev), inp["ctx"].to(dev),
+                              **inp["on"])
+    if rank == 0:
+        def errs2(a, b):
+            e = _grad_errors(a.model.unet, b.model.unet, DDP_S2_GRAD_RTOL)
+            return {k: e[k] for k in ("grad_groups", "grad_model_rel_err",
+                                      "grad_worst5")}
+        one = _ddp_s2_one_process(spec, inp)
+        f64 = _float64_twin(one, DDP_BATCH)
+        _ddp_s2_step(one, inp, dev)
+        f64.train_step_latents(inp["lat"], inp["ctx"], **inp["draws"])
+        out["stage2"] = {"spatial_vs_one_process": errs2(tr, one),
+                         "spatial_vs_float64": errs2(tr, f64),
+                         "one_process_vs_float64": errs2(one, f64)}
+    pdist.barrier()
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def spatial_worker(spec_path: str, rank: str) -> None:
+    """One process of the spatial phase: joins the other on a data 1 x
+    space 2 mesh, runs stage 1, stage 2, `generate` and the command line
+    (with --spatial-check: the check's steps alone), and writes its
+    numbers as JSON."""
+    global SEED
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, SEED = int(rank), spec["seed"]
+    dev = spec["device"]
+    if dev == "cuda":
+        _build.load_all([attn.KERNEL, cbq.KERNEL])   # built by the parent
+    out = {}
+    pdist.initialize(f"127.0.0.1:{spec['port']}", SPATIAL_PROCESSES, rank,
+                     platform="gpu" if dev == "cuda" else "cpu")
+    try:
+        out["backend"] = pdist.collective_backend()
+        out["device"] = str(pdist.process_device())
+        mesh = _spatial_mesh()
+        if spec["check"]:
+            out.update(_spatial_check(spec, rank, mesh))
+            with open(os.path.join(spec["tmp"], f"rank{rank}.json"),
+                      "w") as f:
+                json.dump(out, f)
+            return
+        torch.backends.cudnn.deterministic = True
+        out["stage1"] = _spatial_stage1(spec, rank, mesh)
+        out["stage2"], tr, twin = _spatial_stage2(spec, rank, mesh)
+        out["generate"] = _spatial_generate(spec, rank, tr, twin)
+        torch.backends.cudnn.deterministic = False
+        del tr, twin
+    finally:
+        pdist.shutdown()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["cli"] = _spatial_cli(spec, rank)
+    with open(os.path.join(spec["tmp"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_spatial(card: str, check: bool = False) -> dict:
+    """Main path 9: spatial parallelism. Two processes of this script on
+    the one card, a data 1 x space 2 mesh over gloo on localhost ports,
+    each holding one depth slab of every volume: the flagship's stage-1
+    at 128^3 (global batch 2) and its latent step (global batch 8), each
+    against the one-process step of a twin on process 0; the stage-1
+    step's peak memory with remat off against the one-process step's;
+    `generate` from the EMA U-Net with a sharded decode against the twin's;
+    one --train_vq epoch from the command line at a space axis of 2. Each
+    process zeroes its launch counters before each run of the main path
+    and reads them after; the phase adds both processes'. With `check`
+    (--spatial-check) only the compared steps run, and their distances
+    from float64 steps are printed, not judged."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ldm3d_spatial_")
+    torch.cuda.empty_cache()
+    ports = []
+    while len(ports) < 2:
+        port = pdist.free_port()
+        ports += [] if port in ports else [port]
+    spec = dict(device=DDP_DEVICE, tiny=DDP_TINY, tmp=tmp, port=ports[0],
+                cli_port=ports[1], vq_flags=TRAIN_VQ_FLAGS,
+                vq_size=TRAIN_VQ_SIZE, check=check, seed=SEED)
+    path = os.path.join(tmp, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    try:
+        ranks = _run_workers("spatial", path, tmp, SPATIAL_PROCESSES,
+                             SPATIAL_TIMEOUT)
+        if check:
+            for key in ("stage1", "stage2"):
+                say("spatial_check", part=key, seed=SEED,
+                    result=ranks[0][key], card=card)
+            return {}
+        return _spatial_report(card, ranks, tmp,
+                               time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _spatial_report(card, ranks, tmp, wall_s) -> dict:
+    """The spatial phase's checks and lines; returns both processes'
+    launch counts."""
+    s1, s2 = [r["stage1"] for r in ranks], [r["stage2"] for r in ranks]
+    gen = [r["generate"] for r in ranks]
+    on_card = DDP_DEVICE == "cuda"
+    ckpt = os.path.join(tmp, "ckpt")
+    dirs = sorted(os.listdir(ckpt))
+    cli_cfg = cli.apply_overrides(get_preset(TRAIN_VQ_FLAGS[1]),
+                                  cli.build_parser().parse_args(
+                                      TRAIN_VQ_FLAGS))
+    tr_idx, va_idx = train_val_split(SPATIAL_CLI_VOLUMES, TRAIN_VQ_VAL,
+                                     cli_cfg.train.seed)
+    steps = len(tr_idx) // SPATIAL_VQ_BATCH
+    val_batches = len(va_idx) // SPATIAL_VQ_BATCH
+    want = {"stage1": {attn.KERNEL: 0, cbq.KERNEL: 1},
+            "stage2": {attn.KERNEL: s2[0]["attention_calls"],
+                       cbq.KERNEL: 0},
+            "generate": {attn.KERNEL: s2[0]["attention_calls"]
+                         * SPATIAL_GEN_STEPS, cbq.KERNEL: 0},
+            # a launch per train step, eval batch and montage
+            "cli": {attn.KERNEL: 0, cbq.KERNEL: steps + val_batches + 1}}
+    if not on_card:   # the plain versions run on the CPU: no launches
+        want = {k: {attn.KERNEL: 0, cbq.KERNEL: 0} for k in want}
+    got = {k: [r[k]["launches"] for r in ranks] for k in want}
+    launches_ok = all(g == want[k] for k, gs in got.items() for g in gs)
+    backend = sorted({r["backend"] for r in ranks})
+
+    s1_equal = all(s1[0][k] == s1[1][k] for k in ("usage", "codebook",
+                                                  "params", "loss"))
+    peak = max(r["peak_bytes"] for r in s1)
+    ratio = peak / s1[0]["peak_bytes_1p"] if on_card else None
+    memory_ok = not on_card or ratio < SPATIAL_MEMORY_RATIO
+    s1_ok = (s1_equal and s1[0]["loss_rel_err"] <= DDP_LOSS_RTOL
+             and s1[0]["grad_ok"]
+             and s1[0]["grad_model_rel_err"] <= DDP_MODEL_GRAD_RTOL)
+    say("spatial", step="stage1", processes=SPATIAL_PROCESSES,
+        mesh="data 1 x space 2", backend=backend,
+        devices=[r["device"] for r in ranks], batch=SPATIAL_VQ_BATCH,
+        volume=TRAIN_VQ_SIZE, slab=s1[0]["slab"], remat=s1[0]["remat"],
+        loss=s1[0]["loss"], loss_1p=s1[0]["loss_1p"],
+        loss_rel_err=s1[0]["loss_rel_err"], loss_tol=DDP_LOSS_RTOL,
+        grad_rel_err=s1[0]["grad_rel_err"], grad_worst=s1[0]["grad_worst"],
+        grad_groups=s1[0]["grad_groups"], grad_floor=DDP_GRAD_FLOOR,
+        grad_model_rel_err=s1[0]["grad_model_rel_err"],
+        grad_model_tol=DDP_MODEL_GRAD_RTOL,
+        grad_worst5=s1[0]["grad_worst5"],
+        usage_equal_to_one_process=s1[0]["usage_equal_1p"],
+        ranks_bitwise_equal=s1_equal,
+        first_step_ms=[r["first_step_ms"] for r in s1],
+        timing=[r["timing"] for r in s1],
+        peak_bytes_remat_off=[r["peak_bytes"] for r in s1],
+        peak_bytes_remat_off_one_process=s1[0].get("peak_bytes_1p"),
+        peak_ratio=ratio, peak_ratio_tol=SPATIAL_MEMORY_RATIO,
+        launches=got["stage1"], expected=want["stage1"], card=card)
+    s2_equal = all(s2[0][k] == s2[1][k] for k in ("params", "buffers", "ema",
+                                                  "loss", "noise_mse"))
+    s2_ok = (s2_equal and s2[0]["loss_rel_err"] <= DDP_LOSS_RTOL
+             and s2[0]["grad_ok"]
+             and s2[0]["grad_model_rel_err"] <= DDP_MODEL_GRAD_RTOL
+             and s2[0]["stats_rel_err"] <= DDP_LOSS_RTOL)
+    say("spatial", step="stage2", batch=DDP_BATCH,
+        loss=s2[0]["loss"], loss_1p=s2[0]["loss_1p"],
+        loss_rel_err=s2[0]["loss_rel_err"], loss_tol=DDP_LOSS_RTOL,
+        grad_rel_err=s2[0]["grad_rel_err"], grad_worst=s2[0]["grad_worst"],
+        grads_compared=s2[0]["grads_compared"],
+        grad_groups=s2[0]["grad_groups"],
+        grad_model_rel_err=s2[0]["grad_model_rel_err"],
+        grad_model_tol=DDP_MODEL_GRAD_RTOL,
+        grad_worst5=s2[0]["grad_worst5"],
+        stats_rel_err=s2[0]["stats_rel_err"], ranks_bitwise_equal=s2_equal,
+        first_step_ms=[r["first_step_ms"] for r in s2],
+        timing=[r["timing"] for r in s2],
+        launches=got["stage2"], expected=want["stage2"], card=card)
+    gen_ok = (gen[0]["volumes"] == gen[1]["volumes"] and gen[0]["finite"]
+              and gen[0]["rel_err"] <= SAMPLER_REL_TOL)
+    say("spatial", step="generate", sampler="ddim",
+        sample_steps=SPATIAL_GEN_STEPS, num=SPATIAL_GEN_NUM,
+        shape=gen[0]["shape"], decode="over depth slabs, gathered",
+        rel_err=gen[0]["rel_err"], tol=SAMPLER_REL_TOL,
+        ranks_bitwise_equal=gen[0]["volumes"] == gen[1]["volumes"],
+        generate_ms=[g["generate_ms"] for g in gen],
+        launches=got["generate"], expected=want["generate"], card=card)
+    log = _log_rows(os.path.join(ckpt, dirs[0], "training.log")) \
+        if len(dirs) == 1 else []
+    kept = CheckpointManager(os.path.join(ckpt, dirs[0])).all_epochs() \
+        if len(dirs) == 1 else []
+    cli_ok = (len(dirs) == 1 and kept == [1] and len(log) == 1
+              and all(np.isfinite(list(row.values())).all() for row in log))
+    say("spatial", step="cli", flags=TRAIN_VQ_FLAGS,
+        mesh={"data": 1, "space": SPATIAL_PROCESSES},
+        lbs=SPATIAL_VQ_BATCH // SPATIAL_PROCESSES,
+        volumes=SPATIAL_CLI_VOLUMES, steps=steps, val_batches=val_batches,
+        checkpoint_dirs=dirs, checkpoints=kept, log=log,
+        wall_s=[r["cli"]["wall_s"] for r in ranks], launches=got["cli"],
+        expected=want["cli"], card=card)
+    counts = {attn.KERNEL: 0, cbq.KERNEL: 0}
+    for gs in got.values():
+        for g in gs:
+            for k in counts:
+                counts[k] += g[k]
+    ok = s1_ok and memory_ok and s2_ok and gen_ok and cli_ok and launches_ok
+    say("spatial", backend=backend, launches=counts, wall_s=wall_s, ok=ok,
+        card=card)
+    if not ok:
+        raise RuntimeError(
+            f"spatial: stage1 {s1_ok}, memory {memory_ok} ({ratio}), "
+            f"stage2 {s2_ok}, generate {gen_ok}, cli {cli_ok}, launches "
+            f"{got} against {want}")
+    return counts
+
+
 def _kernel_line(name, source, replaces, counts, case, library):
     return {
         "name": name, "route": "cuda", "source": source,
@@ -3127,7 +3761,11 @@ def _kernel_line(name, source, replaces, counts, case, library):
 
 
 def main() -> None:
+    global SEED
     t_start = time.perf_counter()
+    argv = sys.argv[1:]
+    if "--seed" in argv:
+        SEED = int(argv[argv.index("--seed") + 1])
     card = phase_device()
     phase_build()
     if "--gan-compare-check" in sys.argv[1:]:
@@ -3136,6 +3774,10 @@ def main() -> None:
         return
     if "--ddp-check" in sys.argv[1:]:
         phase_ddp(card, {}, check=True)
+        say("done", wall_s=time.perf_counter() - t_start, card=card)
+        return
+    if "--spatial-check" in sys.argv[1:]:
+        phase_spatial(card, check=True)
         say("done", wall_s=time.perf_counter() - t_start, card=card)
         return
     if "--train-compare-check" in sys.argv[1:]:
@@ -3175,6 +3817,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     counts["ddp"] = phase_ddp(card, cli_run["train_log"])
     torch.cuda.empty_cache()
+    counts["spatial"] = phase_spatial(card)
+    torch.cuda.empty_cache()
     counts["train_gan"] = phase_train_gan(card)
     kernels = [
         _kernel_line(attn.KERNEL, "ldm3d_torch/csrc/voxel_attention.cu",
@@ -3197,5 +3841,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:
         ddp_worker(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--spatial-worker"]:
+        spatial_worker(*sys.argv[2:])
     else:
         main()

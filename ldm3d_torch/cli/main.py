@@ -60,13 +60,18 @@ LDM3D_COORDINATOR / LDM3D_NUM_PROCESSES / LDM3D_PROCESS_ID variables)
 join one process per device, process i on `cuda:(i % cards)`; with
 --platform cpu, --cpu_devices N starts N such processes of the command
 on a free localhost port and returns when all have ended. --lbs is then
-the batch of each process (global batch = lbs x processes); each process
-reads its rows of every global batch, process 0 alone writes logs,
-images, train_meta.json and checkpoints, and the modes that do not train
+the batch of each process (global batch = lbs x processes, as the JAX
+CLI's lbs x devices, whatever the mesh); each process reads its rows of
+every global batch, process 0 alone writes logs, images,
+train_meta.json and checkpoints, and the modes that do not train
 (--create_dataset, --test_vq, --test_dm, --fidelity_sweep) and the
 --fidelity_freq evaluation run on process 0 while the others wait. A
-mesh with a 'space' or 'model' axis, and --auto_resume, are refused with
-the ROADMAP item that brings them (queue 1 items 9(b), 9(c) and 9(d)).
+'space' axis S of the preset's mesh (`MeshConfig.space`) splits the
+depth of every volume over S processes (`ldm3d_torch.parallel.spatial`):
+each process reads and trains on its depth slab of its rows, and the
+processes form a (processes / S) x S data x space mesh. A mesh with a
+'model' axis, and --auto_resume over processes, are refused with the
+ROADMAP item that brings them (queue 1 items 9(c) and 9(d)).
 
     python -m ldm3d_torch.cli.main --preset smoke --platform cpu \
         --cpu_devices 2 --train_vq --synthetic --lbs 1
@@ -92,6 +97,7 @@ import torch
 from ldm3d_torch.core.config import replace
 from ldm3d_torch.core.device import resolve_device
 from ldm3d_torch.parallel import distributed as pdist
+from ldm3d_torch.parallel.spatial import gather_volume
 from ldm3d_torch.train.meta import adopt_meta, train_meta
 
 
@@ -242,18 +248,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _mesh(cfg):
     """The training mesh (`make_mesh` over the run's processes at the
-    global batch); SystemExit for the axes the port does not have yet."""
+    global batch); SystemExit for a 'model' axis, which the port does not
+    have yet."""
     from ldm3d_torch.parallel.mesh import make_mesh
-    refusals = [
-        (cfg.train.mesh.space > 1, "spatial sharding (a mesh 'space' axis)",
-         "queue 1 item 9(b)"),
-        (cfg.train.mesh.model > 1, "tensor parallelism (a mesh 'model' "
-         "axis)", "queue 1 item 9(c)"),
-    ]
-    for given, what, item in refusals:
-        if given:
-            raise SystemExit(f"ldm3d_torch: {what} is not ported yet; "
-                             f"see ROADMAP {item}")
+    if cfg.train.mesh.model > 1:
+        raise SystemExit("ldm3d_torch: tensor parallelism (a mesh 'model' "
+                         "axis) is not ported yet; see ROADMAP queue 1 "
+                         "item 9(c)")
     return make_mesh(cfg.train.mesh, batch_size=cfg.train.batch_size)
 
 
@@ -505,8 +506,10 @@ def run_train_vq(cfg, args):
 
         def render(tr):
             recon, _ = tr.reconstruct(vol, mask)
-            return {"original": vol[:2].float().cpu().numpy(),
-                    "reconstruction": recon[:2, ..., :1].float().cpu()
+            # over a space mesh, the whole volumes of the depth slabs
+            whole, rec = (gather_volume(mesh, v) for v in (vol, recon))
+            return {"original": whole[:2].float().cpu().numpy(),
+                    "reconstruction": rec[:2, ..., :1].float().cpu()
                     .numpy()}
 
         image_logger = ImageLogger(os.path.join(logdir, "images"), render,
@@ -590,9 +593,10 @@ def _adopt_dm_meta(cfg, args):
 
 def _encode_corpus(trainer, loader, t0: float, mesh=None):
     """(latents, contexts) of every batch of `loader`, on the device. With
-    a `mesh` each process encodes its rows of every batch and the rows
-    are gathered, so that every process holds the whole corpus in the
-    one-process order."""
+    a `mesh` each process encodes its rows (over a 'space' axis, its
+    depth slabs; `encode_latents` gathers the latents over the space
+    group) of every batch and the rows are gathered, so that every
+    process holds the whole corpus in the one-process order."""
     lats, ctxs = [], []
     for i, (vol, _mask, ctx) in enumerate(loader):
         lats.append(trainer.encode_latents(vol))

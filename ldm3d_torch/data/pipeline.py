@@ -39,6 +39,7 @@ import torch
 from ldm3d_torch.core.config import DataConfig
 from ldm3d_torch.core.device import resolve_device
 from ldm3d_torch.parallel.distributed import local_batch_rows
+from ldm3d_torch.parallel.mesh import local_depth
 
 MANIFEST = "manifest.json"
 
@@ -157,7 +158,9 @@ class DataLoader:
     "cpu" is given); drops the ragged tail. `reader` says what reads the
     files: "native" (the cache's `NativeReader`) or "numpy". `batch_size`
     is the global batch; with a `mesh` each batch holds this process's
-    rows of it."""
+    rows of it, and over a 'space' axis its depth slab of each volume
+    (the rows are read and augmented whole, since the contrast factor
+    reads each volume's mean, then sliced on the device)."""
 
     def __init__(self, cache: VolumeCache, batch_size: int, cfg: DataConfig,
                  seed: int = 0, train: bool = True,
@@ -166,6 +169,7 @@ class DataLoader:
         self.cache = cache
         self.batch_size = batch_size
         self.rows = local_batch_rows(mesh, batch_size)
+        self.depth = local_depth(mesh, cache.volume_size)
         self.cfg = cfg
         self.seed = seed
         self.train = train
@@ -243,7 +247,7 @@ class DataLoader:
                                               generator=aug_gen,
                                               rows=self.rows,
                                               batch=self.batch_size)
-                yield vol, mask, ctx
+                yield _slab(vol, self.depth), _slab(mask, self.depth), ctx
         finally:
             stop.set()
             t.join(timeout=10)
@@ -256,7 +260,7 @@ class DeviceSyntheticLoader:
     host), rounded to float16 and widened. Same order, split, per-epoch
     shuffle and augmentation as `DataLoader`, so the batches are equal to
     a `DataLoader`'s over that cache, bit for bit, on one device. With a
-    `mesh`, this process's rows, as `DataLoader`."""
+    `mesh`, this process's rows and depth slab, as `DataLoader`."""
 
     def __init__(self, num_volumes: int, batch_size: int, cfg: DataConfig,
                  corpus_seed: int = 0, seed: int = 0, train: bool = True,
@@ -266,6 +270,7 @@ class DeviceSyntheticLoader:
 
         self.batch_size = batch_size
         self.rows = local_batch_rows(mesh, batch_size)
+        self.depth = local_depth(mesh, cfg.volume_size)
         self.cfg = cfg
         self.seed = seed
         self.train = train
@@ -292,7 +297,7 @@ class DeviceSyntheticLoader:
                 vol, mask = augment_batch(vol, mask, self.cfg,
                                           generator=aug_gen, rows=self.rows,
                                           batch=bs)
-            yield vol, mask, ctx
+            yield _slab(vol, self.depth), _slab(mask, self.depth), ctx
 
 
 class LatentLoader:
@@ -325,6 +330,13 @@ class LatentLoader:
             idx = _rows_of(order, i, bs, self.rows)
             yield (self.latents.index_select(0, idx),
                    self.context.index_select(0, idx))
+
+
+def _slab(vol: torch.Tensor, depth: Optional[range]) -> torch.Tensor:
+    """The depth slab `depth` of NDHWC volumes (all of them without)."""
+    if depth is None:
+        return vol
+    return vol[:, :, :, depth.start:depth.stop].contiguous()
 
 
 def _rows_of(order, i: int, bs: int, rows: Optional[range]):

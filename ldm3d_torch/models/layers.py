@@ -8,6 +8,14 @@ public functions of the port convert from and to the JAX package's NDHWC.
 Parameter names mirror the flax tree (`kernel` becomes `weight`, `scale`
 becomes `weight`), so that `ldm3d_torch.convert` maps one onto the other
 by path.
+
+Under `parallel.spatial.spatial_sharding` every layer here takes and
+returns this process's depth slab (axis 4): the convolutions and the
+SYMMETRIC pad fetch their halo rows from the neighbouring slabs
+(`parallel.halo`), GroupNorm sums its statistics over the space group and
+BatchNorm over the data x space processes; an op whose slab cannot serve
+it (fewer rows than its halo, or not divisible by its stride) computes
+the whole volume and keeps its slab (`spatial.gathered`).
 """
 
 from __future__ import annotations
@@ -21,7 +29,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ldm3d_torch.models.quantizers import Quantizer
+from ldm3d_torch.parallel import spatial
 from ldm3d_torch.parallel.distributed import all_reduce_sum
+from ldm3d_torch.parallel.halo import (_halo_widths, halo_conv_slab,
+                                       halo_exchange, transposed_halo)
+from ldm3d_torch.parallel.mesh import SPACE_AXIS
 
 _Int3 = Union[int, Tuple[int, int, int]]
 
@@ -86,9 +98,20 @@ class Conv3d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.padding == "VALID":
+            # over slabs the caller has attached the halo (a SYMMETRIC
+            # pad, the space-to-depth stem): the conv is local
             return F.conv3d(x, self.weight, self.bias, self.stride)
-        return _same_conv(F.conv3d, x, self.weight, self.bias, self.kernel,
-                          self.stride)
+        mesh = spatial.sharded()
+        if mesh is None:
+            return _same_conv(F.conv3d, x, self.weight, self.bias,
+                              self.kernel, self.stride)
+        left, right = _halo_widths(self.kernel[2], self.stride[2])
+        if not spatial.fits(x.shape[4], left, right, self.stride[2]):
+            return spatial.gathered(self.forward, x)
+        pads = [same_pads(n, k, s) for n, k, s in zip(
+            x.shape[2:4], self.kernel, self.stride)]
+        return halo_conv_slab(x, self.weight, self.bias, left, right,
+                              self.stride, pads, mesh)
 
 
 def _same_conv(conv, x, weight, bias, kernel, stride) -> torch.Tensor:
@@ -132,11 +155,17 @@ def symmetric_pad3d(x: torch.Tensor, kernel: Tuple[int, int, int],
     TF `SYMMETRIC` (`jnp.pad(mode="symmetric")`), which repeats the edge
     voxel, unlike `F.pad(mode="reflect")`. Per spatial dim the total pad
     is k - s, split (p // 2, p - p // 2). Built from flipped slices, so a
-    pad wider than the dim is refused rather than wrapped."""
+    pad wider than the dim is refused rather than wrapped. Over depth
+    slabs the depth rows come from the neighbouring slabs, mirrored at
+    the two ends of the volume."""
+    mesh = spatial.sharded()
     for dim, (k, s) in enumerate(zip(kernel, stride), start=2):
         p = k - s
         lo, hi = p // 2, p - p // 2
         if not p:
+            continue
+        if dim == 4 and mesh is not None:
+            x = halo_exchange(x, lo, hi, 4, mesh, reflect=True)
             continue
         n = x.shape[dim]
         if lo > n or hi > n:
@@ -152,7 +181,10 @@ def symmetric_pad3d(x: torch.Tensor, kernel: Tuple[int, int, int],
 
 def avgpool3d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """Average pooling of an NCDHW volume, window = stride, VALID (flax
-    `nn.avg_pool`; Keras AveragePooling3D)."""
+    `nn.avg_pool`; Keras AveragePooling3D); local on a slab that divides
+    by the window."""
+    if spatial.sharded() is not None and x.shape[4] % window:
+        return spatial.gathered(avgpool3d, x, window)
     return F.avg_pool3d(x, window, window)
 
 
@@ -192,17 +224,33 @@ class ConvTranspose3d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.padding == "VALID":
+            # over slabs the caller padded and crops (a SYMMETRIC pad)
             return F.conv_transpose3d(x, self.weight, self.bias, self.stride)
         before = [max(k - s, 0) // 2 for k, s in zip(self.kernel, self.stride)]
         after = [max(k - s, 0) - b for k, s, b in
                  zip(self.kernel, self.stride, before)]
-        common = tuple(min(b, a) for b, a in zip(before, after))
-        y = F.conv_transpose3d(x, self.weight, self.bias, self.stride,
-                               padding=common)
-        if tuple(before) == tuple(after):
-            return y
+        common = [min(b, a) for b, a in zip(before, after)]
+        starts = [b - c for b, c in zip(before, common)]
         n_out = [n * s for n, s in zip(x.shape[2:], self.stride)]
-        sl = [slice(b - c, b - c + n) for b, c, n in zip(before, common, n_out)]
+        mesh = spatial.sharded()
+        if mesh is None:
+            y = F.conv_transpose3d(x, self.weight, self.bias, self.stride,
+                                   padding=tuple(common))
+            if tuple(before) == tuple(after):
+                return y
+        else:
+            # the slab's output needs `left` / `right` input rows of its
+            # neighbours; it starts at `start` of the padded slab's full
+            # transposed output
+            left, right, start = transposed_halo(self.kernel[2],
+                                                 self.stride[2])
+            if not spatial.fits(x.shape[4], left, right):
+                return spatial.gathered(self.forward, x)
+            y = halo_conv_slab(x, self.weight, self.bias, left, right,
+                               self.stride, [(c, c) for c in common[:2]],
+                               mesh, transposed=True)
+            starts[2] = start
+        sl = [slice(b, b + n) for b, n in zip(starts, n_out)]
         return y[:, :, sl[0], sl[1], sl[2]]
 
 
@@ -317,7 +365,8 @@ class _BatchNorm(nn.Module):
     mode normalises with the mean and biased variance of the group's
     global batch (two all-reduces, differentiable), as the JAX step does
     on a data-sharded batch; the running statistics then agree on every
-    process."""
+    process. Over depth slabs the statistics are those of the data x
+    space processes (`spatial.stats_group`)."""
 
     momentum = 0.99
     eps = 1e-3
@@ -335,7 +384,8 @@ class _BatchNorm(nn.Module):
 
     def __getstate__(self):
         # a process group neither pickles nor copies: a copy (the EMA
-        # U-Net) is not attached to it
+        # U-Net) is not attached to it (spatial sharding is not stored on
+        # modules: copies are sharded as the model is)
         return {**super().__getstate__(), "group": None}
 
     def _normalize(self, x, mean, var):
@@ -352,10 +402,11 @@ class _BatchNorm(nn.Module):
                                 self.weight, self.bias, training=False,
                                 eps=self.eps)
         dims = [0, *range(2, x.dim())]
-        if self.group is None:
+        group = spatial.stats_group(self.group)
+        if group is None:
             var, mean = torch.var_mean(x, dim=dims, correction=0)
         else:
-            var, mean = _global_var_mean(x, dims, self.group)
+            var, mean = _global_var_mean(x, dims, group)
         if self.update_stats:
             m = self.momentum
             new = (self.running_mean * m + mean * (1.0 - m),
@@ -369,7 +420,12 @@ class _BatchNorm(nn.Module):
 
 
 class _GroupNorm(nn.Module):
-    """flax GroupNorm(min(C, 32) groups, eps 1e-6)."""
+    """flax GroupNorm(min(C, 32) groups, eps 1e-6). Over depth slabs each
+    sample's group statistics are summed over the space group: the mean,
+    then the squared deviations from it (two all-reduces,
+    differentiable)."""
+
+    eps = 1e-6
 
     def __init__(self, channels: int, num_groups: int = 32):
         super().__init__()
@@ -378,7 +434,53 @@ class _GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x, self.groups, self.weight, self.bias, eps=1e-6)
+        mesh = spatial.sharded()
+        if mesh is None:
+            return F.group_norm(x, self.groups, self.weight, self.bias,
+                                eps=self.eps)
+        return _SlabGroupNorm.apply(x, self.weight, self.bias, self.groups,
+                                    self.eps, mesh.shape[SPACE_AXIS],
+                                    mesh.group(SPACE_AXIS))
+
+
+class _SlabGroupNorm(torch.autograd.Function):
+    """GroupNorm of a depth slab with each sample's group statistics
+    summed over the space group: the mean, then the squared deviations
+    from it (two all-reduces); the backward pass's two group sums in one
+    more. Keeps the input and the statistics for the backward pass, as
+    `F.group_norm` does, and builds the normalised slab again there."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups, eps, space, group):
+        b = x.shape[0]
+        xg = x.reshape(b, groups, -1)
+        count = xg.shape[-1] * space
+        mean = all_reduce_sum(xg.sum(-1, keepdim=True), group) / count
+        var = all_reduce_sum(torch.square(xg - mean).sum(-1, keepdim=True),
+                             group) / count
+        rstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.meta = (groups, count, group)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        y = ((xg - mean) * rstd).reshape(x.shape)
+        return y * weight.view(shape) + bias.view(shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, rstd = ctx.saved_tensors
+        groups, count, group = ctx.meta
+        b = x.shape[0]
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        dims = [0, *range(2, x.dim())]
+        xhat = (x.reshape(b, groups, -1) - mean) * rstd
+        dweight = (dy * xhat.reshape(x.shape)).sum(dims)
+        dbias = dy.sum(dims)
+        dxhat = (dy * weight.view(shape)).reshape(b, groups, -1)
+        sums = torch.stack([dxhat.sum(-1), (dxhat * xhat).sum(-1)])
+        dist.all_reduce(sums, group=group)
+        m1, m2 = (t.unsqueeze(-1) / count for t in sums)
+        dx = (rstd * (dxhat - m1 - xhat * m2)).reshape(x.shape)
+        return dx, dweight, dbias, None, None, None, None
 
 
 class LayerNorm(nn.Module):
@@ -428,7 +530,8 @@ class Norm(nn.Module):
 
 
 def upsample3d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
-    """Nearest-neighbour 3D upsample of an NCDHW volume."""
+    """Nearest-neighbour 3D upsample of an NCDHW volume (local on a
+    slab)."""
     return (x.repeat_interleave(factor, dim=2)
             .repeat_interleave(factor, dim=3)
             .repeat_interleave(factor, dim=4))

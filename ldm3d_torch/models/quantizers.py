@@ -37,6 +37,7 @@ from ldm3d_torch.ops.quantize import (codebook_gather, codebook_usage_counts,
                                       ema_statistics,
                                       nearest_codebook_indices,
                                       perplexity_from_counts)
+from ldm3d_torch.parallel import spatial
 from ldm3d_torch.parallel.distributed import all_gather_rows, all_reduce_sum
 
 
@@ -60,7 +61,11 @@ class Draws:
     `shape`). Under data parallelism `shard` is (index, count) along the
     data axis: such a draw is made (or injected) for the global batch,
     count x shape[0] rows, and this process takes its index-th block, so
-    that N processes draw what one process draws on the global batch."""
+    that N processes draw what one process draws on the global batch.
+    A per-voxel draw names its depth axis (`depth`): over depth slabs
+    (`parallel.spatial`) it is made for the whole depth, in the global
+    order, and this process takes its slab. Per-sample draws are equal on
+    every process of the space group."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  shard: Optional[Tuple[int, int]] = None,
@@ -69,17 +74,23 @@ class Draws:
         self.shard = shard
         self._injected = {k: list(v) for k, v in injected.items()}
 
-    def _global(self, shape, rows: bool):
-        if not rows or self.shard is None:
-            return tuple(shape)
-        return (shape[0] * self.shard[1],) + tuple(shape[1:])
+    def _global(self, shape, rows: bool, depth: Optional[int] = None):
+        shape = list(shape)
+        if rows and self.shard is not None:
+            shape[0] *= self.shard[1]
+        if depth is not None:
+            shape[depth] *= spatial.space_size()
+        return tuple(shape)
 
-    def _local(self, value: torch.Tensor, rows: bool) -> torch.Tensor:
-        if not rows or self.shard is None:
-            return value
-        i, n = self.shard
-        m = value.shape[0] // n
-        return value[i * m:(i + 1) * m]
+    def _local(self, value: torch.Tensor, rows: bool,
+               depth: Optional[int] = None) -> torch.Tensor:
+        if rows and self.shard is not None:
+            i, n = self.shard
+            m = value.shape[0] // n
+            value = value[i * m:(i + 1) * m]
+        if depth is not None:
+            value = spatial.scatter(value, depth)
+        return value
 
     def _take(self, kind: str, make, device):
         if kind in self._injected:
@@ -94,17 +105,20 @@ class Draws:
                              "injected value")
         return make(self.generator)
 
-    def bernoulli(self, p: float, shape, device, rows: bool = False
-                  ) -> torch.Tensor:
+    def bernoulli(self, p: float, shape, device, rows: bool = False,
+                  depth: Optional[int] = None) -> torch.Tensor:
         """bool [shape], True with probability p."""
-        full = self._global(shape, rows)
+        full = self._global(shape, rows, depth)
         return self._local(self._take("bernoulli", lambda g: torch.rand(
-            full, generator=g, device=device) < p, device).bool(), rows)
+            full, generator=g, device=device) < p, device).bool(), rows,
+            depth)
 
-    def normal(self, shape, device, rows: bool = False) -> torch.Tensor:
-        full = self._global(shape, rows)
+    def normal(self, shape, device, rows: bool = False,
+               depth: Optional[int] = None) -> torch.Tensor:
+        full = self._global(shape, rows, depth)
         return self._local(self._take("normal", lambda g: torch.randn(
-            full, generator=g, device=device), device).float(), rows)
+            full, generator=g, device=device), device).float(), rows,
+            depth)
 
     def permutation(self, n: int, device) -> torch.Tensor:
         return self._take("permutation", lambda g: torch.randperm(
@@ -140,7 +154,11 @@ class Quantizer(nn.Module):
     batch: the usage counts (and so the perplexity and `codebooks_used`)
     in every mode, and in training the EMA kinds' cluster statistics and
     their random rows, drawn from the group's rows in rank order. The
-    codebooks then stay equal on every process."""
+    codebooks then stay equal on every process. Over depth slabs
+    (`parallel.spatial`) the statistics are the data x space processes',
+    and the random rows are drawn from the global batch's rows in its own
+    order: each volume's depth gathered first, then the data group's
+    rows."""
 
     group = None
 
@@ -151,20 +169,25 @@ class Quantizer(nn.Module):
 
     def _counts(self, indices: torch.Tensor) -> torch.Tensor:
         counts = codebook_usage_counts(indices, self.num_embeddings)
-        return counts if self.group is None \
-            else all_reduce_sum(counts, self.group)
+        group = spatial.stats_group(self.group)
+        return counts if group is None else all_reduce_sum(counts, group)
 
     def _ema_statistics(self, flat, indices):
         counts, sums = ema_statistics(flat, indices, self.num_embeddings)
-        if self.group is not None:
-            counts = all_reduce_sum(counts, self.group)
+        group = spatial.stats_group(self.group)
+        if group is not None:
+            counts = all_reduce_sum(counts, group)
             if self.training:
-                sums = all_reduce_sum(sums, self.group)
+                sums = all_reduce_sum(sums, group)
         return counts, sums
 
-    def _global_rows(self, flat: torch.Tensor) -> torch.Tensor:
-        return flat if self.group is None \
-            else all_gather_rows(flat, self.group)
+    def _global_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch's rows [N, D] of x [..., D] in its order."""
+        if x.dim() == 5:
+            x = spatial.gather(x, spatial.SPATIAL_AXIS)
+        flat = x.reshape(-1, x.shape[-1]).float()
+        group = spatial.data_rows_group(self.group)
+        return flat if group is None else all_gather_rows(flat, group)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         raise NotImplementedError
@@ -276,7 +299,7 @@ class VectorQuantizerEMA(Quantizer):
         codebook = self.codebook
         if self.training:
             draws = _draws(draws, "VectorQuantizerEMA")
-            flat_all = self._global_rows(flat)
+            flat_all = self._global_rows(x)
             k_rand = random_rows(flat_all, k, draws)
             init = self.need_init.clone()   # saved for the backward
             codebook = torch.where(init, k_rand, self.codebook)
@@ -375,7 +398,9 @@ class VectorQuantizerEMASonnet(Quantizer):
 def _noise_substitute(x: torch.Tensor, hard: torch.Tensor, draws: Draws,
                       eps: float) -> torch.Tensor:
     """x + ||x - hard|| / (||noise|| + eps) * noise, norms per vector."""
-    noise = draws.normal(x.shape, x.device, rows=True).to(x.dtype)
+    noise = draws.normal(x.shape, x.device, rows=True,
+                         depth=spatial.SPATIAL_AXIS if x.dim() == 5
+                         else None).to(x.dtype)
     res_norm = torch.sqrt(torch.sum(torch.square(x - hard), dim=-1,
                                     keepdim=True))
     noise_norm = torch.sqrt(torch.sum(torch.square(noise), dim=-1,

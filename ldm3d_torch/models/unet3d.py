@@ -9,6 +9,15 @@ goes through `ldm3d_torch.ops.attention.voxel_attention`.
 
 flax infers layer input sizes at the first call; here they are computed at
 construction, so `UNet3D` takes the latent's channels and spatial size.
+
+Under `parallel.spatial.spatial_sharding` the U-Net runs on depth slabs
+(JAX's `shard_spatial` sites): a level whose depth divides by the space
+degree is held as slabs, any other runs whole on every process
+(`spatial.whole`), and the input is a slab when its depth divides
+(`spatial.shard_spatial`). The attention blocks attend this slab's
+voxels (queries) to the whole sequence (keys and values gathered over
+the space group, in the whole volume's order); the context grid of
+`ContextMLP` is whole.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from ldm3d_torch.core.config import UNetConfig
 from ldm3d_torch.models.layers import (Conv3d, LayerNorm, Norm, upsample3d,
                                        with_init)
 from ldm3d_torch.ops.attention import voxel_attention
+from ldm3d_torch.parallel import spatial
 
 
 def _to_seq(x: torch.Tensor) -> torch.Tensor:
@@ -35,6 +45,16 @@ def _from_seq(x: torch.Tensor, spatial) -> torch.Tensor:
     """[B, H*W*D, C] -> [B, C, H, W, D]."""
     b, _, c = x.shape
     return x.transpose(1, 2).reshape(b, c, *spatial)
+
+
+def _whole_seq(x: torch.Tensor, seq: torch.Tensor, fn=None) -> torch.Tensor:
+    """The whole volume's voxel sequence of the NCDHW `x` (through `fn`, a
+    per-voxel map) when `x` is a depth slab, gathered in the whole
+    volume's order; else `seq`, the same sequence of `x` itself."""
+    if spatial.sharded() is None:
+        return seq
+    whole = _to_seq(spatial.gather(x))
+    return whole if fn is None else fn(whole)
 
 
 class TimeEmbedding(nn.Module):
@@ -106,8 +126,9 @@ class AttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xn = self.norm(x)
         seq = _to_seq(xn)
-        out = voxel_attention(self.query(seq), self.key(seq),
-                              self.value(seq),
+        kv = _whole_seq(xn, seq)
+        out = voxel_attention(self.query(seq), self.key(kv),
+                              self.value(kv),
                               scale=float(self.units) ** -0.5)
         out = self.proj(out)
         return xn + _from_seq(out, x.shape[2:])
@@ -136,9 +157,9 @@ class CrossAttentionBlock(nn.Module):
         self.proj_out = Conv3d(units, units, 1)
 
     def _attend(self, x_seq: torch.Tensor,
-                ctx_seq: Optional[torch.Tensor]) -> torch.Tensor:
+                src: torch.Tensor) -> torch.Tensor:
+        """Attention of `x_seq`'s voxels to the sequence `src`."""
         b, n, _ = x_seq.shape
-        src = x_seq if ctx_seq is None else ctx_seq
         q, k, v = self.query(x_seq), self.key(src), self.value(src)
         if self.num_heads > 1:
             hd = self.units // self.num_heads
@@ -160,7 +181,9 @@ class CrossAttentionBlock(nn.Module):
         x_seq = _to_seq(xn)
         ctx_seq = context.reshape(x.shape[0], -1, context.shape[-1])
 
-        y = self._attend(self.norm1(x_seq), None) + x_seq
+        n1 = self.norm1(x_seq)
+        # over slabs the keys are the whole sequence's (norm1 is per voxel)
+        y = self._attend(n1, _whole_seq(xn, n1, self.norm1)) + x_seq
         y = self._attend(self.norm2(x_seq), ctx_seq) + y
         m = self.mlp2(F.relu(self.mlp1(self.norm3(x_seq))))
         y = m + y
@@ -222,8 +245,10 @@ class UNet3D(nn.Module):
         # Down path; the channel counts of the skips are tracked for the
         # up path's concatenations.
         size, ch = latent_size, stem
+        self.sizes: List[int] = []      # the depth of each level
         skips: List[int] = [ch]
         for i, w in enumerate(widths):
+            self.sizes.append(size)
             for j in range(nrb):
                 self.add_module(f"down_res_{i}_{j}",
                                 ResidualBlock(ch, w, temb_dim, cfg.norm))
@@ -263,13 +288,33 @@ class UNet3D(nn.Module):
             return getattr(self, f"xattn_{name}")(h, ctx)
         return getattr(self, f"attn_{name}")(h)
 
+    def _between(self, h: torch.Tensor, layer, sharded: List[bool],
+                 src: int, dst: int, up: bool = False) -> torch.Tensor:
+        """`layer` (a resampling conv, after a 2x upsample with `up`) from
+        level `src` to level `dst`, the activation moved between slabs and
+        the whole volume where the two levels differ."""
+        if sharded[src] and not sharded[dst]:
+            h = spatial.gather(h)
+        with spatial.whole(not (sharded[src] and sharded[dst])):
+            h = layer(upsample3d(h, 2) if up else h)
+        if sharded[dst] and not sharded[src]:
+            h = spatial.scatter(h)
+        return h
+
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 context: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, h, w, d, C] (NDHWC), t [B] int, context [B] int tokens.
-        Returns the prediction, NDHWC. Eval mode only."""
+        Returns the prediction, NDHWC. Over depth slabs x and the
+        prediction are this process's slabs when the latent depth divides
+        by the space degree."""
         cfg = self.cfg
         widths = cfg.widths
-        h = self.stem(x.permute(0, 4, 1, 2, 3).contiguous())
+        sharded = [spatial.shards(s) for s in self.sizes]
+
+        def level(i):
+            return spatial.whole(not sharded[i])
+        with level(0):
+            h = self.stem(x.permute(0, 4, 1, 2, 3).contiguous())
         temb = self.time_mlp(self.time_embedding(t))
 
         cemb = None
@@ -282,27 +327,33 @@ class UNet3D(nn.Module):
 
         skips = [h]
         for i, w in enumerate(widths):
-            for j in range(cfg.num_res_blocks):
-                h = getattr(self, f"down_res_{i}_{j}")(h, temb)
-                if cfg.has_attention[i]:
-                    h = self._attend(h, f"down_{i}_{j}", cemb)
-                skips.append(h)
+            with level(i):
+                for j in range(cfg.num_res_blocks):
+                    h = getattr(self, f"down_res_{i}_{j}")(h, temb)
+                    if cfg.has_attention[i]:
+                        h = self._attend(h, f"down_{i}_{j}", cemb)
+                    skips.append(h)
             if w != widths[-1]:
-                h = getattr(self, f"down_sample_{i}")(h)
+                h = self._between(h, getattr(self, f"down_sample_{i}"),
+                                  sharded, i, i + 1)
                 skips.append(h)
 
-        h = self.mid_res1(h, temb)
-        h = self._attend(h, "mid", cemb)
-        h = self.mid_res2(h, temb)
+        with level(len(widths) - 1):
+            h = self.mid_res1(h, temb)
+            h = self._attend(h, "mid", cemb)
+            h = self.mid_res2(h, temb)
 
         for i in reversed(range(len(widths))):
-            for j in range(cfg.num_res_blocks + 1):
-                h = torch.cat([h, skips.pop()], dim=1)
-                h = getattr(self, f"up_res_{i}_{j}")(h, temb)
-                if cfg.has_attention[i]:
-                    h = self._attend(h, f"up_{i}_{j}", cemb)
+            with level(i):
+                for j in range(cfg.num_res_blocks + 1):
+                    h = torch.cat([h, skips.pop()], dim=1)
+                    h = getattr(self, f"up_res_{i}_{j}")(h, temb)
+                    if cfg.has_attention[i]:
+                        h = self._attend(h, f"up_{i}_{j}", cemb)
             if i != 0:
-                h = getattr(self, f"up_sample_{i}")(upsample3d(h, 2))
+                h = self._between(h, getattr(self, f"up_sample_{i}"),
+                                  sharded, i, i - 1, up=True)
 
-        h = self.head(F.silu(self.head_norm(h)))
+        with level(0):
+            h = self.head(F.silu(self.head_norm(h)))
         return h.permute(0, 2, 3, 4, 1).contiguous()

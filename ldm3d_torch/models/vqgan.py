@@ -21,6 +21,12 @@ here; the two-optimizer step is `train.gan_trainer.GANTrainer`.
 Module names follow the flax tree, so `ldm3d_torch.convert` maps one onto
 the other. Volumes are NCDHW inside; `VQGANAutoencoder` takes and returns
 NDHWC as the JAX module does; the critics take channels-first tensors.
+
+Under `parallel.spatial.spatial_sharding` the "monai", "attn" and
+"attn_cp" autoencoders run on depth slabs (JAX's `shard_spatial` sites);
+the "stride" family, which JAX does not shard, runs on the gathered
+volume; the critics and LPIPS are given gathered volumes by
+`train.gan_trainer`.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from ldm3d_torch.models.layers import (Conv2d, Conv3d, ConvTranspose3d, Norm,
 from ldm3d_torch.models.quantizers import Draws, QuantAux, make_quantizer
 from ldm3d_torch.models.vqvae import (Decoder, Encoder, VQVAEResidualUnit,
                                       _dropout, _ncdhw, _ndhwc, _run_unit)
+from ldm3d_torch.parallel import spatial
 
 
 class GNResidualUnit(nn.Module):
@@ -126,6 +133,10 @@ class SamePadConv3D(nn.Module):
                            use_bias=use_bias, padding="VALID")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.kernel[2] - self.stride[2]
+        if spatial.sharded() is not None and not spatial.fits(
+                x.shape[4], p // 2, p - p // 2, self.stride[2]):
+            return spatial.gathered(self.forward, x)
         return self.conv(symmetric_pad3d(x, self.kernel, self.stride))
 
 
@@ -143,10 +154,16 @@ class SamePadConvTranspose3D(nn.Module):
                                      padding="VALID")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.convt(symmetric_pad3d(x, self.kernel, self.stride))
         k, s = self.kernel[0], self.stride[0]
         e = (k - s) * (s + 1)
         lo, hi = e // 2, e - e // 2
+        # a slab's crop is the whole volume's when its first output row
+        # reads rows of the padded slab only: lo >= k - 1 (k = 4, s = 2)
+        if spatial.sharded() is not None and not (
+                lo >= k - 1 and lo <= s * (k - s) and spatial.fits(
+                    x.shape[4], (k - s) // 2, k - s - (k - s) // 2)):
+            return spatial.gathered(self.forward, x)
+        x = self.convt(symmetric_pad3d(x, self.kernel, self.stride))
         if e:
             x = x[:, :, lo:-hi, lo:-hi, lo:-hi]
         return x
@@ -324,11 +341,24 @@ class VQGANAutoencoder(nn.Module):
     def encode_quantize(self, x: torch.Tensor,
                         draws: Optional[Draws] = None
                         ) -> Tuple[torch.Tensor, QuantAux]:
-        return self.quantizer(_ndhwc(self.encoder(_ncdhw(x), draws)), draws)
+        if self._whole():
+            x = spatial.gather(x, spatial.SPATIAL_AXIS)
+        with spatial.whole(self._whole()):
+            return self.quantizer(_ndhwc(self.encoder(_ncdhw(x), draws)),
+                                  draws)
 
     def decode(self, z: torch.Tensor, draws: Optional[Draws] = None
                ) -> torch.Tensor:
-        return _ndhwc(self.decoder(_ncdhw(z), draws))
+        whole = self._whole()
+        with spatial.whole(whole):
+            out = _ndhwc(self.decoder(_ncdhw(z), draws))
+        return spatial.scatter(out, spatial.SPATIAL_AXIS) if whole else out
+
+    def _whole(self) -> bool:
+        """The "stride" family runs on the gathered volume under spatial
+        sharding (JAX has no `shard_spatial` in it); its latents are then
+        whole on every process."""
+        return self.cfg.arch == "stride" and spatial.sharded() is not None
 
 
 class _Critic(nn.Module):

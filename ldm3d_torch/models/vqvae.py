@@ -33,6 +33,8 @@ from ldm3d_torch.core.config import VQVAEConfig
 from ldm3d_torch.models.layers import (Conv3d, ConvTranspose3d, Norm, PReLU,
                                        _BatchNorm, act_layer)
 from ldm3d_torch.models.quantizers import Draws, QuantAux, make_quantizer
+from ldm3d_torch.parallel import spatial
+from ldm3d_torch.parallel.halo import halo_exchange
 
 
 class VQVAEResidualUnit(nn.Module):
@@ -72,9 +74,17 @@ class S2DStemConv(nn.Module):
         self.conv = Conv3d(8 * in_channels, features, 2, padding="VALID")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if any(n % 2 for n in x.shape[2:]):
-            raise ValueError("S2DStemConv requires even spatial dims")
-        return self.conv(space_to_depth3d(F.pad(x, (1, 1) * 3), 2))
+        mesh = spatial.sharded()
+        if mesh is None:
+            if any(n % 2 for n in x.shape[2:]):
+                raise ValueError("S2DStemConv requires even spatial dims")
+            return self.conv(space_to_depth3d(F.pad(x, (1, 1) * 3), 2))
+        if x.shape[4] % 2:
+            # an odd slab: the parities of space-to-depth straddle slabs
+            return spatial.gathered(self.forward, x)
+        # the depth pad is the neighbours' rows (zeros at the ends)
+        x = halo_exchange(F.pad(x, (0, 0) + (1, 1) * 2), 1, 1, 4, mesh)
+        return self.conv(space_to_depth3d(x, 2))
 
 
 def _save_convolutions(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -86,21 +96,27 @@ def _save_convolutions(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 class _Recompute:
     """The recompute context of a checkpointed unit: its BatchNorms leave
-    their running statistics alone (the forward pass updated them)."""
+    their running statistics alone (the forward pass updated them), and
+    the unit runs under the spatial sharding of its forward pass (the
+    backward pass may run on another thread, which does not see the
+    forward's thread-local context)."""
 
     def __init__(self, unit: nn.Module, inner):
         self.norms = [m for m in unit.modules() if isinstance(m, _BatchNorm)]
         self.inner = inner
+        self.sharding = spatial.restoring(spatial.state())
 
     def __enter__(self):
         for m in self.norms:
             m.update_stats = False
+        self.sharding.__enter__()
         return self.inner.__enter__()
 
     def __exit__(self, *exc):
         try:
             return self.inner.__exit__(*exc)
         finally:
+            self.sharding.__exit__(None, None, None)
             for m in self.norms:
                 m.update_stats = True
 
@@ -129,7 +145,8 @@ def _dropout(x: torch.Tensor, rate: float, training: bool,
              draws: Optional[Draws]) -> torch.Tensor:
     """flax Dropout of an NCDHW volume: keep with probability 1 - rate and
     scale by 1 / (1 - rate). The keep mask is drawn in the JAX layout
-    (NDHWC), so that JAX's masks can be injected as they are."""
+    (NDHWC), so that JAX's masks can be injected as they are; over depth
+    slabs it is the global mask's slab."""
     if not rate or not training:
         return x
     if draws is None:
@@ -137,7 +154,8 @@ def _dropout(x: torch.Tensor, rate: float, training: bool,
                          "Draws with a generator)")
     keep = 1.0 - rate
     b, c, d, h, w = x.shape
-    mask = draws.bernoulli(keep, (b, d, h, w, c), x.device, rows=True)
+    mask = draws.bernoulli(keep, (b, d, h, w, c), x.device, rows=True,
+                           depth=spatial.SPATIAL_AXIS)
     return torch.where(mask.permute(0, 4, 1, 2, 3), x / keep,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ldm3d_torch.models.layers import Conv3d, ConvTranspose3d
 from ldm3d_torch.models.quantizers import Draws, QuantAux, VectorQuantizerSTE
 from ldm3d_torch.models.vqvae import _ncdhw, _ndhwc
+from ldm3d_torch.parallel import spatial
 
 
 def _layers(module: nn.Module, name: str, layer, specs) -> None:
@@ -122,8 +123,15 @@ class LegacyVQVAE(nn.Module):
 
     def forward(self, x: torch.Tensor, draws: Optional[Draws] = None
                 ) -> Tuple[torch.Tensor, QuantAux]:
-        q, aux = self.quantizer(_ndhwc(self.encoder(_ncdhw(x))))
-        return _ndhwc(self.decoder(_ncdhw(q))), aux
+        """Under spatial sharding the model runs on the gathered volume
+        (JAX has no `shard_spatial` in it) and returns this process's
+        slab of the reconstruction."""
+        axis = spatial.SPATIAL_AXIS
+        x = spatial.gather(x, axis)
+        with spatial.whole():
+            q, aux = self.quantizer(_ndhwc(self.encoder(_ncdhw(x))))
+            out = _ndhwc(self.decoder(_ncdhw(q)))
+        return spatial.scatter(out, axis), aux
 
 
 def test_loss(x: torch.Tensor, recon: torch.Tensor,

@@ -3,7 +3,10 @@
 One process per device, laid out data-major as a (data, space, model)
 mesh: process r sits at (r // (space * model), r // model % space,
 r % model). Each axis has a process group per line of the mesh along it;
-`Mesh.group(axis)` is this process's, None where the axis has size 1.
+`Mesh.group(axis)` is this process's, None where the axis has size 1;
+`Mesh.group(BATCH)` is the group of the processes that hold one global
+batch between them (data x space), over which gradients, metrics and
+BatchNorm / codebook statistics are reduced.
 
   - "data":  synchronous data parallelism. Each process holds its rows of
              every global batch (`shard_batch`, the loaders'
@@ -11,8 +14,11 @@ r % model). Each axis has a process group per line of the mesh along it;
              BatchNorm and codebook statistics and metrics over the data
              group, so that N processes compute what one process computes
              on the global batch.
-  - "space": a spatial axis of the volume, exchanged at conv edges by
-             `parallel.halo.halo_conv3d`.
+  - "space": the depth axis of every volume (JAX's axis 3 of NDHWC, the
+             port's axis 4 of NCDHW): each process holds a slab of it
+             (`shard_batch(..., spatial_axis=3)`, `local_depth`), and the
+             models exchange halo rows at conv edges under
+             `parallel.spatial.spatial_sharding` (`parallel.halo`).
   - "model": conv output channels (not ported yet).
 
 `mesh_shape` holds the decisions of `make_mesh` as a pure function of
@@ -34,6 +40,8 @@ DATA_AXIS = "data"
 SPACE_AXIS = "space"
 MODEL_AXIS = "model"
 AXES = (DATA_AXIS, SPACE_AXIS, MODEL_AXIS)
+# the group of `Mesh.group` over the data and space axes together
+BATCH = "batch"
 
 
 def mesh_shape(cfg: Optional[MeshConfig], n: int,
@@ -99,9 +107,14 @@ class Mesh:
     def data_index(self) -> int:
         return self.coord(DATA_AXIS)
 
+    @property
+    def space_index(self) -> int:
+        return self.coord(SPACE_AXIS)
+
     def group(self, axis: str):
-        """The process group of this process's line along `axis`; None
-        where the axis has size 1 (no collective)."""
+        """The process group of this process's line along `axis` (or, for
+        `BATCH`, its plane over data and space); None where it holds one
+        process (no collective)."""
         return self.groups.get(axis)
 
     def neighbour(self, axis: str, step: int) -> Optional[int]:
@@ -137,16 +150,32 @@ def make_mesh(cfg: Optional[MeshConfig] = None,
         if shape[axis] == 1:
             continue
         # every process creates every group, in one order
-        lines = {}
-        for r in range(n):
-            probe = Mesh(shape, rank=r)
-            key = tuple(probe.coord(a) for a in AXES if a != axis)
-            lines.setdefault(key, []).append(r)
-        for ranks in lines.values():
+        for ranks in _lines(shape, (axis,)):
             g = dist.new_group(ranks, backend=backend)
             if mesh.rank in ranks:
                 mesh.groups[axis] = g
+    if shape[DATA_AXIS] == 1 or shape[SPACE_AXIS] == 1:
+        # the plane is a line: its group is the data or the space group
+        if DATA_AXIS in mesh.groups or SPACE_AXIS in mesh.groups:
+            mesh.groups[BATCH] = mesh.groups.get(
+                DATA_AXIS, mesh.groups.get(SPACE_AXIS))
+    else:
+        for ranks in _lines(shape, (DATA_AXIS, SPACE_AXIS)):
+            g = dist.new_group(ranks, backend=backend)
+            if mesh.rank in ranks:
+                mesh.groups[BATCH] = g
     return mesh
+
+
+def _lines(shape: Dict[str, int], axes) -> list:
+    """The ranks of each line (plane) of the mesh along `axes`, in rank
+    order, the lines in the order of their first rank."""
+    lines: Dict[tuple, list] = {}
+    for r in range(math.prod(shape.values())):
+        probe = Mesh(shape, rank=r)
+        key = tuple(probe.coord(a) for a in AXES if a not in axes)
+        lines.setdefault(key, []).append(r)
+    return list(lines.values())
 
 
 def local_batch_size(mesh: Mesh, global_batch: int) -> int:
@@ -157,24 +186,56 @@ def local_batch_size(mesh: Mesh, global_batch: int) -> int:
     return global_batch // n
 
 
-def shard_batch(mesh: Optional[Mesh], batch):
+def local_depth(mesh: Optional[Mesh], depth: int) -> Optional[range]:
+    """This process's slab of a depth axis of length `depth` split over
+    the mesh's 'space' axis; None without one. Raises when the depth does
+    not split, as JAX's `device_put` of a depth-sharded batch does."""
+    if mesh is None or mesh.shape[SPACE_AXIS] == 1:
+        return None
+    n = mesh.shape[SPACE_AXIS]
+    if depth % n:
+        raise ValueError(f"depth {depth} not divisible by the mesh's "
+                         f"space axis ({n})")
+    rows = depth // n
+    return range(mesh.space_index * rows, (mesh.space_index + 1) * rows)
+
+
+def shard_batch(mesh: Optional[Mesh], batch,
+                spatial_axis: Optional[int] = None):
     """This process's rows of a global batch: a tensor, or a tuple, list
     or dict of them (None passes through); the whole batch in one
-    process. The counterpart of `device_put` with `batch_sharding`."""
+    process. With `spatial_axis` (3, the depth of NDHWC volumes), tensors
+    of 5 or more dims keep only this process's depth slab
+    (`local_depth`). The counterpart of `device_put` with
+    `batch_sharding(mesh, spatial_axis)`."""
     if isinstance(batch, (tuple, list)):
-        return type(batch)(shard_batch(mesh, b) for b in batch)
+        return type(batch)(shard_batch(mesh, b, spatial_axis)
+                           for b in batch)
     if isinstance(batch, dict):
-        return {k: shard_batch(mesh, v) for k, v in batch.items()}
+        return {k: shard_batch(mesh, v, spatial_axis)
+                for k, v in batch.items()}
     if batch is None or mesh is None or mesh.world_size == 1:
         return batch
     from ldm3d_torch.parallel.distributed import local_batch_rows
     rows = local_batch_rows(mesh, batch.shape[0])
-    return batch[rows.start:rows.stop]
+    batch = batch[rows.start:rows.stop]
+    if spatial_axis is not None and batch.dim() >= 5:
+        slab = local_depth(mesh, batch.shape[spatial_axis])
+        if slab is not None:
+            batch = batch.narrow(spatial_axis, slab.start, len(slab))
+    return batch
 
 
 def data_group(mesh: Optional[Mesh]):
     """The data-parallel group of `mesh`, None in one process."""
     return None if mesh is None else mesh.group(DATA_AXIS)
+
+
+def batch_group(mesh: Optional[Mesh]):
+    """The group of the processes that hold one global batch between them
+    (data x space): gradients and metrics are reduced over it. None in
+    one process."""
+    return None if mesh is None else mesh.group(BATCH)
 
 
 def data_shard(mesh: Optional[Mesh]) -> Optional[Tuple[int, int]]:
@@ -188,7 +249,9 @@ def data_shard(mesh: Optional[Mesh]) -> Optional[Tuple[int, int]]:
 def attach_data_group(module: torch.nn.Module, mesh: Optional[Mesh]) -> None:
     """Point every BatchNorm and quantizer of `module` at the mesh's data
     group, so that their training statistics are those of the global
-    batch (None: local)."""
+    batch (None: local). Under spatial sharding they take the
+    data x space group from `parallel.spatial` instead, where they see
+    depth slabs."""
     from ldm3d_torch.models.layers import _BatchNorm
     from ldm3d_torch.models.quantizers import Quantizer
     group = data_group(mesh)

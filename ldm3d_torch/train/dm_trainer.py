@@ -12,8 +12,14 @@ With a `mesh` of several processes (`parallel.mesh.make_mesh`), each
 process trains on its rows of every global batch: the draws are made for
 the global batch and sliced, the U-Net's BatchNorm normalises with the
 global batch's statistics, and the gradients and metrics are reduced
-over the data group, so that the processes take the step one process
-takes on the global batch.
+over the data x space group, so that the processes take the step one
+process takes on the global batch. With a 'space' axis the steps,
+`encode_latents` and `generate` run inside
+`parallel.spatial.spatial_sharding`: volumes arrive as depth slabs,
+latents whole (their rows of the batch), and the U-Net and the frozen
+VQ-VAE run on depth slabs; each process's loss is its slab's share.
+`encode_latents` and `generate` return whole latents and volumes, equal
+on every process of the space group.
 """
 
 from __future__ import annotations
@@ -39,10 +45,12 @@ from ldm3d_torch.models.unet3d import UNet3D
 from ldm3d_torch.models.vqvae import VQVAE
 from ldm3d_torch.ops.fid import (frechet_distance, latent_fidelity,
                                  pool_latent_features)
+from ldm3d_torch.parallel import spatial
 from ldm3d_torch.parallel.distributed import (reduce_gradients,
                                               reduce_metrics)
-from ldm3d_torch.parallel.mesh import (attach_data_group, data_group,
+from ldm3d_torch.parallel.mesh import (attach_data_group, batch_group,
                                        data_shard)
+from ldm3d_torch.parallel.spatial import spatial_sharding
 
 SAMPLERS = ("ddpm", "ddim", "dpmpp", "dpmpp_sde")
 
@@ -87,10 +95,17 @@ class LatentDiffusion(nn.Module):
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Latents in diffusion space (NDHWC) -> volumes (NDHWC); divides by
-        latent_scale first."""
+        latent_scale first. Under spatial sharding whole latents give the
+        whole volume: decoded over depth slabs when the latent depth
+        divides by the space degree, else whole on every process."""
         if self.cfg.latent_scale != 1.0:
             latents = latents / self.cfg.latent_scale
-        return self.vqvae.decode(latents)
+        axis = spatial.SPATIAL_AXIS
+        if spatial.shards(latents.shape[axis]):
+            return spatial.gather(
+                self.vqvae.decode(spatial.shard_spatial(latents)), axis)
+        with spatial.whole():
+            return self.vqvae.decode(latents)
 
 
 class DiffusionTrainer:
@@ -202,8 +217,12 @@ class DiffusionTrainer:
     def encode_latents(self, images: torch.Tensor) -> torch.Tensor:
         """Quantized latents of volumes (NDHWC) in diffusion space, under
         the frozen stage-1 in eval mode: deterministic, so they can be
-        computed once per corpus and trained on (`train_step_latents`)."""
-        return self.model.encode_latents(images.to(self.device).float())
+        computed once per corpus and trained on (`train_step_latents`).
+        Over a space mesh `images` are depth slabs and the latents are
+        gathered whole."""
+        with spatial_sharding(self.mesh):
+            lat = self.model.encode_latents(images.to(self.device).float())
+            return spatial.gather(lat, spatial.SPATIAL_AXIS)
 
     def _optimizer(self) -> torch.optim.Adam:
         """Adam over the U-Net only (optax `adam` math, eps 1e-8), and the
@@ -263,27 +282,34 @@ class DiffusionTrainer:
         else:
             context = None
 
-        unet.train()
-        try:
-            pred = unet(q_sample(self._sched_dev, latents, t, noise), t,
-                        context)
-        finally:
-            unet.eval()
         target = v_target(self._sched_dev, latents, t, noise) \
             if cfg.prediction_type == "v" else noise
-        err = torch.square(target - pred.float())
-        if cfg.min_snr_gamma is not None:
-            err = err * min_snr_weight(self._sched_dev, t, cfg.min_snr_gamma,
-                                       cfg.prediction_type)
-        # "loss" is always reported in the reference's SUM-MSE /
-        # (global batch * lc^4) scale; the gradient follows loss_reduction
-        ref_loss = err.sum() / (tc.batch_size * float(cfg.latent_channels)
-                                ** 4)
-        mse = err.mean()
-        opt.zero_grad(set_to_none=True)
-        (ref_loss if cfg.loss_reduction == "ref" else mse).backward()
+        x_t = q_sample(self._sched_dev, latents, t, noise)
+        unet.train()
+        try:
+            with spatial_sharding(self.mesh):
+                # over a space mesh the U-Net takes this process's depth
+                # slab of the noised latents; the loss is the slab's share
+                x_t, target = (spatial.shard_spatial(a)
+                               for a in (x_t, target))
+                pred = unet(x_t, t, context)
+                err = torch.square(target - pred.float())
+                if cfg.min_snr_gamma is not None:
+                    err = err * min_snr_weight(self._sched_dev, t,
+                                               cfg.min_snr_gamma,
+                                               cfg.prediction_type)
+                # "loss" is always reported in the reference's SUM-MSE /
+                # (global batch * lc^4) scale; the gradient follows
+                # loss_reduction
+                ref_loss = err.sum() / (tc.batch_size
+                                        * float(cfg.latent_channels) ** 4)
+                mse = err.mean()
+                opt.zero_grad(set_to_none=True)
+                (ref_loss if cfg.loss_reduction == "ref" else mse).backward()
+        finally:
+            unet.eval()
         metrics = {"loss": ref_loss.detach(), "noise_mse": mse.detach()}
-        group = data_group(self.mesh)
+        group = batch_group(self.mesh)
         if group is not None:
             # ref_loss is a share of the global sum, mse a local mean
             reduce_gradients(unet.parameters(), group,
@@ -359,7 +385,19 @@ class DiffusionTrainer:
         weights). Noise is drawn from `generator` (on this trainer's
         device) unless `init_noise` / `step_noise` inject it (see
         `ldm3d_torch.diffusion.ddpm`). Returns volumes [B, H, W, D, out]
-        (NDHWC), or with `decode=False` the latents in diffusion space."""
+        (NDHWC), or with `decode=False` the latents in diffusion space.
+        Over a space mesh every process samples the same whole latents,
+        each U-Net call and the decode run on depth slabs, and the whole
+        volume is returned on every process."""
+        with spatial_sharding(self.mesh):
+            return self._generate(
+                latent_shape, context, generator, init_noise, step_noise,
+                use_ema, sampler, sample_steps, eta, guidance_scale,
+                last_step, decode)
+
+    def _generate(self, latent_shape, context, generator, init_noise,
+                  step_noise, use_ema, sampler, sample_steps, eta,
+                  guidance_scale, last_step, decode) -> torch.Tensor:
         if sampler not in SAMPLERS:
             raise ValueError(f"unknown sampler {sampler!r}")
         if guidance_scale is not None:
@@ -382,15 +420,22 @@ class DiffusionTrainer:
             context = None
         ptype = self.cfg.prediction_type
         sched = self._sched_dev
+        axis = spatial.SPATIAL_AXIS
+
+        def net(x, t, c):
+            """The U-Net on whole latents, over slabs where they split."""
+            out = unet(spatial.shard_spatial(x), t, c)
+            return spatial.gather(out, axis) \
+                if spatial.shards(x.shape[axis]) else out
 
         def denoise(x, t):
             if guidance_scale is None:
-                return model_out_to_eps(sched, x, t, unet(x, t, context),
+                return model_out_to_eps(sched, x, t, net(x, t, context),
                                         ptype)
             null = torch.full_like(context, self.cfg.unet.context_dim + 1)
             x2, t2 = torch.cat([x, x]), torch.cat([t, t])
             out = model_out_to_eps(sched, x2, t2,
-                                   unet(x2, t2, torch.cat([context, null])),
+                                   net(x2, t2, torch.cat([context, null])),
                                    ptype)
             eps_c, eps_u = out.chunk(2)
             return eps_u + guidance_scale * (eps_c - eps_u)

@@ -31,7 +31,13 @@ batch's, sliced; BatchNorm (the critics' live statistics included) and
 the quantizer's statistics are the global batch's; both optimizers'
 gradients are averaged over the data group; the adaptive weight's
 gradient norms are those of the global batch's gradients; R1, a mean of
-per-sample terms, is averaged with the rest of the metrics.
+per-sample terms, is averaged with the rest of the metrics. With a
+'space' axis the autoencoder runs on depth slabs inside
+`parallel.spatial.spatial_sharding` (the L1 term is each process's slab
+mean), and everything after it (the frames, LPIPS, both critics, R1, the
+adaptive weight) on the gathered volumes inside `spatial.whole()`, whole
+on every process of the space group; both optimizers' gradients and the
+metrics are averaged over the data x space group.
 """
 
 from __future__ import annotations
@@ -57,11 +63,13 @@ from ldm3d_torch.models.vqgan import (Discriminator2D, Discriminator3D,
                                       VQGANAutoencoder, hinge_d_loss,
                                       vanilla_d_loss)
 from ldm3d_torch.ops.metrics import volume_psnr, volume_ssim
+from ldm3d_torch.parallel import spatial
 from ldm3d_torch.parallel.distributed import (all_reduce_sum,
                                               reduce_gradients,
                                               reduce_metrics)
-from ldm3d_torch.parallel.mesh import (attach_data_group, data_group,
-                                       data_shard)
+from ldm3d_torch.parallel.mesh import (attach_data_group, batch_group,
+                                       data_group, data_shard)
+from ldm3d_torch.parallel.spatial import spatial_sharding
 
 
 class VQGANModules(nn.Module):
@@ -232,16 +240,27 @@ class GANTrainer:
 
     def _forward_losses(self, vol, mask, draws: Draws, training: bool,
                         warm: bool = False):
-        """(total loss, metrics, reconstruction of the image channel), the
-        JAX `_forward_losses`. In training the networks must be in
-        training mode; in eval, under no_grad."""
-        cfg = self.cfg
-        b, h = vol.shape[0], vol.shape[1]
+        """(total loss, metrics, reconstruction of the image channel,
+        volume), the JAX `_forward_losses`; the last two whole. In
+        training the networks must be in training mode; in eval, under
+        no_grad. Runs inside `spatial_sharding(self.mesh)`."""
         x = torch.cat([vol, mask], dim=-1)
         recon, aux = self.ae(x, draws)
-        img_ch = vol.shape[-1]
-        img_recon = recon[..., :img_ch]
+        img_recon = recon[..., :vol.shape[-1]]
         recon_loss = torch.mean(torch.abs(img_recon - vol))
+        img_recon, vol = (spatial.gather(a, spatial.SPATIAL_AXIS)
+                          for a in (img_recon, vol))
+        with spatial.whole():
+            total, metrics = self._whole_losses(
+                vol, img_recon, recon_loss, aux, draws, training, warm)
+        return total, metrics, img_recon, vol
+
+    def _whole_losses(self, vol, img_recon, recon_loss, aux, draws,
+                      training: bool, warm: bool):
+        """The terms on whole volumes: LPIPS on the frames, the critics,
+        R1 and the adaptive weight."""
+        cfg = self.cfg
+        b, h = vol.shape[0], vol.shape[1]
 
         frame_idx = self._frame_indices(h, b, draws).long()
         rows = torch.arange(b, device=vol.device)
@@ -261,7 +280,7 @@ class GANTrainer:
                        "perplexity": aux.perplexity}
             if cfg.adaptive_g_weight:
                 metrics["adaptive_weight"] = zero
-            return ae_loss, metrics, img_recon
+            return ae_loss, metrics
 
         gate = float(self.epoch >= cfg.disc_threshold)
         g_gate = float(self.epoch >= cfg.disc_threshold + cfg.g_adv_delay)
@@ -321,7 +340,7 @@ class GANTrainer:
             metrics["adaptive_weight"] = g_gate * adv_w
         if cfg.r1_gamma > 0:
             metrics["r1_penalty"] = gate * r1
-        return ae_loss + disc_loss, metrics, img_recon
+        return ae_loss + disc_loss, metrics
 
     def _adaptive_lambda(self, img_recon, vol, f3, rows, frame_idx):
         """clip(||d nll / d r|| / (||d adv / d r|| + 1e-6), 0, max) at the
@@ -394,11 +413,12 @@ class GANTrainer:
         draws = draws or Draws(self.generator, shard=data_shard(self.mesh))
         self._networks(True)
         try:
-            total, metrics, _ = self._forward_losses(vol, mask, draws, True,
-                                                     warm=bool(warm))
-            self.optimizer.zero_grad(set_to_none=True)
-            self.disc_optimizer.zero_grad(set_to_none=True)
-            total.backward()
+            with spatial_sharding(self.mesh):
+                total, metrics, _, _ = self._forward_losses(
+                    vol, mask, draws, True, warm=bool(warm))
+                self.optimizer.zero_grad(set_to_none=True)
+                self.disc_optimizer.zero_grad(set_to_none=True)
+                total.backward()
         finally:
             self._networks(False)
             for m in self._critic_norms:
@@ -409,17 +429,17 @@ class GANTrainer:
             for p in group.param_groups[0]["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-        if data_group(self.mesh) is not None:
-            reduce_gradients(self.model.parameters(), data_group(self.mesh))
+        if batch_group(self.mesh) is not None:
+            reduce_gradients(self.model.parameters(), batch_group(self.mesh))
         self.optimizer.step()
         self.disc_optimizer.step()
         self.step += 1
         return self._global({k: v.detach() for k, v in metrics.items()})
 
     def _global(self, metrics: Dict) -> Dict:
-        """Metrics of the global batch: means over the data group; the
-        perplexity and the adaptive weight are already global."""
-        group = data_group(self.mesh)
+        """Metrics of the global batch: means over the data x space group;
+        the perplexity and the adaptive weight are already global."""
+        group = batch_group(self.mesh)
         if group is None:
             return metrics
         return reduce_metrics(metrics, group,
@@ -437,9 +457,12 @@ class GANTrainer:
         if draws is None:
             draws = Draws(torch.Generator(device=self.device)
                           .manual_seed(seed), shard=data_shard(self.mesh))
-        _, metrics, img_recon = self._forward_losses(vol, mask, draws, False)
-        metrics["ssim"] = volume_ssim(img_recon, vol)
-        metrics["psnr"] = volume_psnr(img_recon, vol)
+        with spatial_sharding(self.mesh):
+            _, metrics, img_recon, vol = self._forward_losses(
+                vol, mask, draws, False)
+            with spatial.whole():
+                metrics["ssim"] = volume_ssim(img_recon, vol)
+                metrics["psnr"] = volume_psnr(img_recon, vol)
         return self._global(metrics)
 
     def next_epoch(self) -> None:
@@ -449,6 +472,8 @@ class GANTrainer:
     @torch.no_grad()
     def reconstruct(self, vol: torch.Tensor, mask: torch.Tensor
                     ) -> Tuple[torch.Tensor, QuantAux]:
-        """(reconstruction [B, H, W, D, out], QuantAux) in eval mode."""
+        """(reconstruction [B, H, W, D, out], QuantAux) in eval mode (over
+        a space mesh, this process's depth slab)."""
         vol, mask = self._batch(vol, mask)
-        return self.ae(torch.cat([vol, mask], dim=-1))
+        with spatial_sharding(self.mesh):
+            return self.ae(torch.cat([vol, mask], dim=-1))

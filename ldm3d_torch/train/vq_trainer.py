@@ -15,10 +15,14 @@ The port has no compute-dtype field: it runs float32 (TF32 convolutions
 on the card), as `TrainConfig(dtype="float32")` does in JAX.
 
 With a `mesh` of several processes each holds its rows of every global
-batch: per-row draws (dropout, NSVQ noise) are the global batch's,
-sliced; BatchNorm and the quantizer's statistics are the global batch's;
-gradients are averaged and metrics reduced over the data group, so that
-the codebooks and weights stay equal on every process.
+batch, and with a 'space' axis its depth slab of each volume
+(`parallel.mesh.shard_batch(..., spatial_axis=3)`); the steps run inside
+`parallel.spatial.spatial_sharding`. Per-row and per-voxel draws
+(dropout, NSVQ noise) are the global batch's, sliced; BatchNorm and the
+quantizer's statistics are the global batch's; gradients are averaged
+and metrics reduced over the data x space group (each process's loss is
+its slab's mean), so that the codebooks and weights stay equal on every
+process. SSIM and PSNR are taken on the gathered volumes.
 """
 
 from __future__ import annotations
@@ -44,8 +48,9 @@ from ldm3d_torch.ops.metrics import volume_psnr, volume_ssim
 from ldm3d_torch.ops.quantize import perplexity_from_counts
 from ldm3d_torch.parallel.distributed import (reduce_gradients,
                                               reduce_metrics)
-from ldm3d_torch.parallel.mesh import (attach_data_group, data_group,
+from ldm3d_torch.parallel.mesh import (attach_data_group, batch_group,
                                        data_shard)
+from ldm3d_torch.parallel.spatial import SPATIAL_AXIS, gather, spatial_sharding
 
 def make_stage1(cfg: VQVAEConfig) -> nn.Module:
     """The model of `cfg.family`: "monai" (`VQVAE`), "ema_skip"
@@ -164,9 +169,9 @@ class VQTrainer:
         return loss, metrics
 
     def _global(self, metrics: Dict) -> Dict:
-        """Metrics of the global batch: means over the data group; the
-        perplexities already come from global counts."""
-        group = data_group(self.mesh)
+        """Metrics of the global batch: means over the data x space group;
+        the perplexities already come from global counts."""
+        group = batch_group(self.mesh)
         if group is None:
             return metrics
         return reduce_metrics(metrics, group, keep=[
@@ -186,19 +191,21 @@ class VQTrainer:
         vol, mask = self._batch(vol, mask)
         self.model.train()       # through the backward pass: remat
         try:                     # recomputes units in training mode
-            recon, aux = self.model(
-                self._model_input(vol, mask),
-                draws or Draws(self.generator, shard=data_shard(self.mesh)))
-            loss, metrics = self._losses(vol, recon, aux)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+            with spatial_sharding(self.mesh):
+                recon, aux = self.model(
+                    self._model_input(vol, mask),
+                    draws or Draws(self.generator,
+                                   shard=data_shard(self.mesh)))
+                loss, metrics = self._losses(vol, recon, aux)
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
         finally:
             self.model.eval()
         for p in self.model.parameters():
             if p.grad is None:    # optax updates every parameter
                 p.grad = torch.zeros_like(p)
-        if data_group(self.mesh) is not None:
-            reduce_gradients(self.model.parameters(), data_group(self.mesh))
+        if batch_group(self.mesh) is not None:
+            reduce_gradients(self.model.parameters(), batch_group(self.mesh))
         self.optimizer.step()
         self.step += 1
         return self._global({k: v.detach() for k, v in metrics.items()})
@@ -209,19 +216,24 @@ class VQTrainer:
         """The train metrics in eval mode (no state changes), plus the
         per-slice "ssim" and "psnr" of the image channel."""
         vol, mask = self._batch(vol, mask)
-        recon, aux = self.model(self._model_input(vol, mask))
-        _, metrics = self._losses(vol, recon, aux)
-        img = recon[..., :vol.shape[-1]].float()
-        metrics["ssim"] = volume_ssim(img, vol)
-        metrics["psnr"] = volume_psnr(img, vol)
+        with spatial_sharding(self.mesh):
+            recon, aux = self.model(self._model_input(vol, mask))
+            _, metrics = self._losses(vol, recon, aux)
+            # per-slice metrics along H: on the whole volumes of the slabs
+            img, whole = (gather(v, SPATIAL_AXIS) for v in
+                          (recon[..., :vol.shape[-1]].float(), vol))
+            metrics["ssim"] = volume_ssim(img, whole)
+            metrics["psnr"] = volume_psnr(img, whole)
         return self._global(metrics)
 
     @torch.no_grad()
     def reconstruct(self, vol: torch.Tensor, mask: torch.Tensor
                     ) -> Tuple[torch.Tensor, QuantAux]:
-        """(reconstruction [B, H, W, D, out], QuantAux) in eval mode."""
+        """(reconstruction [B, H, W, D, out], QuantAux) in eval mode (over
+        a space mesh, this process's depth slab)."""
         vol, mask = self._batch(vol, mask)
-        return self.model(self._model_input(vol, mask))
+        with spatial_sharding(self.mesh):
+            return self.model(self._model_input(vol, mask))
 
     @torch.no_grad()
     def recalibrate_batch_stats(self, loader, passes: int = 3) -> None:
@@ -242,8 +254,9 @@ class VQTrainer:
             for _ in range(passes):
                 for batch in loader:
                     vol, mask = self._batch(batch[0], batch[1])
-                    self.model(self._model_input(vol, mask),
-                               Draws(gen, shard=data_shard(self.mesh)))
+                    with spatial_sharding(self.mesh):
+                        self.model(self._model_input(vol, mask),
+                                   Draws(gen, shard=data_shard(self.mesh)))
                     for k, b in quantizer.named_buffers():
                         b.copy_(saved[k])
         finally:

@@ -458,33 +458,57 @@ def test_trained_state_samples_as_jax(against_jax):
 
 # a training mode and the mesh its preset would carry
 UNPORTED = [
-    (["--train_vq"], "item 9", MeshConfig(space=2)),
     (["--train_dm"], "item 9", MeshConfig(model=2)),
     (["--train_dm", "--cache_latents"], "item 9", MeshConfig(space=2,
                                                              model=2)),
 ]
 
 
-# the ids count from 6: cases 0 and 1, the VQ-GAN modes, run now
+# the ids count from 7: cases 0 and 1, the VQ-GAN modes, run now
 # (test_vqgan_modes_run_on_the_cpu); cases 2-5, --fidelity_sweep, --sweep,
-# --device_data and --profile, too (tests/test_torch_cli_modes.py); cases
-# 6-8 were the multi-process flags, which run now
-# (tests/test_torch_multiprocess.py): what is refused is a mesh with a
-# 'space' axis (item 9(b)) or a 'model' axis (item 9(c))
+# --device_data and --profile, too (tests/test_torch_cli_modes.py); case 6,
+# a mesh with a 'space' axis, too (test_train_vq_over_a_space_mesh); what
+# is refused is a mesh with a 'model' axis (item 9(c)), with a 'space'
+# axis or without
 @pytest.mark.parametrize("flags,item,mesh", UNPORTED, ids=[
-    f"flags{i}-{item}" for i, (_, item, _) in enumerate(UNPORTED, start=6)])
+    f"flags{i}-{item}" for i, (_, item, _) in enumerate(UNPORTED, start=7)])
 def test_unported_modes_exit_with_their_item(flags, item, mesh, tmp_path,
                                             monkeypatch):
     cfg = get_preset("smoke_cond")
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
                                                              mesh=mesh))
     monkeypatch.setattr(presets, "get_preset", lambda name: cfg)
-    sub = "(b)" if mesh.space > 1 else "(c)"
     with pytest.raises(SystemExit, match=re.escape(
-            f"not ported yet; see ROADMAP queue 1 {item}{sub}")):
+            f"not ported yet; see ROADMAP queue 1 {item}(c)")):
         cli.main(["--preset", "smoke_cond", "--platform", "cpu",
                   "--ckpt_dir", str(tmp_path)] + flags)
     assert not os.listdir(tmp_path)
+
+
+def test_train_vq_over_a_space_mesh(tmp_path):
+    """--train_vq in two processes (each calls the CLI's main with
+    --coordinator, as --cpu_devices 2 has them do) with a space = 2 preset
+    mesh: a data 1 x space 2 mesh, each process training on one depth slab
+    of every volume; process 0's training.log equals the one-process log
+    at the same global batch (--lbs is per process, as the JAX CLI's is
+    per device), at the data-parallel test's tolerance
+    (tests/test_torch_multiprocess.py)."""
+    from test_torch_multiprocess import _log, _rows_close
+    from torch_dist_workers import launch
+    common = ["--preset", "smoke", "--platform", "cpu", "--train_vq",
+              "--synthetic", "--num_synthetic", "12", "--volume_size", "16",
+              "--cache_dir", str(tmp_path / "cache"), "--val_perc", "0.34",
+              "--lr", "1e-5", "--epochs", "1"]
+    cli.main(common + ["--lbs", "4", "--ckpt_dir", str(tmp_path / "k1")])
+    torch.save({"mesh": {"data": 1, "space": 2}, "argv": common + [
+        "--lbs", "2", "--ckpt_dir", str(tmp_path / "k2")]},
+        tmp_path / "cli_in.pt")
+    ranks = launch("cli", tmp_path, timeout=180)
+    for i, r in enumerate(ranks):
+        assert f"multi-host: process {i}/2" in r["stdout"]
+        assert r["meshes"] and all(m == {"data": 1, "space": 2, "model": 1}
+                                   for m in r["meshes"])
+    _rows_close(_log(tmp_path / "k2"), _log(tmp_path / "k1"))
 
 
 @pytest.mark.parametrize("flags", [

@@ -13,7 +13,8 @@ at `vqgan_attn` on 16^3 volumes (--train_vq for a warm and an
 adversarial epoch, --test_vq), a --fidelity_sweep under --profile, a
 bayes --sweep of one --train_vq point on --device_data, the native
 reader, the profiling helpers, the offline plots, `parallel/` (a
-one-process mesh and halo conv) and a two-process --train_vq
+one-process mesh, halo conv and spatial context) and a two-process
+--train_vq
 (--cpu_devices 2, whose processes start afresh). The sources of the
 port (every module under `ldm3d_torch/`, `parallel/` included,
 so the CLI, data, checkpoint and export modules too) and of
@@ -140,6 +141,10 @@ with tempfile.TemporaryDirectory() as d:
     y = halo_conv3d(torch.ones(1, 4, 4, 4, 2), torch.ones(3, 3, 3, 2, 3),
                     None, 1, make_mesh())
     assert y.shape == (1, 4, 4, 4, 3) and float(y[0, 1, 1, 1, 0]) == 54.0
+    from ldm3d_torch.parallel.spatial import shard_spatial, spatial_sharding
+    with spatial_sharding(make_mesh()):
+        x = torch.ones(1, 4, 4, 4, 2)
+        assert shard_spatial(x) is x
     cli_main(s1 + ["--train_vq", "--epochs", "1", "--lbs", "1",
                    "--cpu_devices", "2", "--ckpt_dir", d + "/mp"])
     assert os.listdir(d + "/mp") == ["smoke_vq"]
@@ -179,7 +184,10 @@ def _port_sources():
 
 def test_port_sources_import_no_jax():
     hits = []
-    for path in _port_sources():
+    sources = list(_port_sources())
+    assert os.path.join(REPO, "ldm3d_torch", "parallel", "spatial.py") \
+        in sources
+    for path in sources:
         with open(path) as f:
             for m in _FORBIDDEN.finditer(f.read()):
                 hits.append(f"{os.path.relpath(path, REPO)}: {m.group(0)}")

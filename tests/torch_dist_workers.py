@@ -1,12 +1,14 @@
 """Worker processes of the port's multi-process tests
-(tests/test_torch_parallel.py, tests/test_torch_multiprocess.py).
+(tests/test_torch_parallel.py, tests/test_torch_multiprocess.py,
+tests/test_torch_spatial.py, tests/test_torch_cli.py).
 
     python tests/torch_dist_workers.py <job> <rank> <processes> <port> <dir>
 
 Each worker joins a gloo group on 127.0.0.1:<port> through
 `ldm3d_torch.parallel.distributed.initialize`, reads the job's inputs from
 `<dir>/<job>_in.pt` (written by the test), computes its share on the CPU
-and saves what it computed to `<dir>/<job>_out<rank>.pt`. It imports
+and saves what it computed to `<dir>/<job>_out<rank>.pt` (a job of
+`JOINING` joins the group through the code it runs instead). It imports
 nothing of JAX, so that it starts in the time torch takes to import.
 `launch` starts the workers of a job from a test and waits for them.
 """
@@ -16,6 +18,7 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -183,12 +186,202 @@ def job_steps(spec):
     return out
 
 
-JOBS = {"halo": job_halo, "steps": job_steps}
+class Apply(torch.nn.Module):
+    """A function of `ldm3d_torch.models.layers` as a module (a picklable
+    op case of `job_spatial`)."""
+
+    def __init__(self, name: str, **kw):
+        super().__init__()
+        self.name, self.kw = name, kw
+
+    def forward(self, x):
+        from ldm3d_torch.models import layers
+        return getattr(layers, self.name)(x, **self.kw)
+
+
+class First(torch.nn.Module):
+    """A model's first output (a reconstruction) as an op case."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x):
+        return self.model(x)[0]
+
+
+def _spatial_op(case, mesh):
+    """An op on this rank's depth slab (`axis` of x) under
+    `spatial_sharding`: its output slab, the input slab's gradient of
+    sum(out * g) and this rank's share of the parameters' gradients."""
+    from ldm3d_torch.parallel.mesh import local_depth
+    from ldm3d_torch.parallel.spatial import spatial_sharding
+
+    def slab(t, axis):
+        r = local_depth(mesh, t.shape[axis])
+        return t.narrow(axis, r.start, len(r))
+    m, axis = case["module"], case["axis"]
+    m.train(case.get("train", False))
+    x = slab(case["x"], axis).clone().requires_grad_(True)
+    with spatial_sharding(mesh):
+        y = m(x, *case.get("args", ()))
+        loss = (y * slab(case["g"], axis)).sum()
+        if case.get("thread"):
+            # the backward pass on a thread that does not see the context
+            # (as on the card, where autograd runs a thread per device)
+            t = threading.Thread(target=loss.backward)
+            t.start()
+            t.join()
+        else:
+            loss.backward()
+    assert x.grad is not None
+    return dict(y=y.detach(), dx=x.grad,
+                grads={n: p.grad.clone() for n, p in m.named_parameters()
+                       if p.grad is not None},
+                buffers={n: b.clone() for n, b in m.named_buffers()})
+
+
+def _state(module):
+    return {k: t.clone() for k, t in module.state_dict().items()}
+
+
+def _grads(module):
+    return {n: p.grad.clone() for n, p in module.named_parameters()
+            if p.grad is not None}
+
+
+def _spatial_step(case, mesh):
+    """One trainer step on this rank's depth slabs from the given state;
+    the diffusion case then samples from its EMA U-Net and decodes."""
+    from ldm3d_torch.core.config import TrainConfig
+    from ldm3d_torch.models.quantizers import Draws
+    from ldm3d_torch.parallel.mesh import data_shard, shard_batch
+    from ldm3d_torch.train.dm_trainer import DiffusionTrainer
+    from ldm3d_torch.train.gan_trainer import GANTrainer
+    from ldm3d_torch.train.vq_trainer import VQTrainer
+
+    kind, train = case["kind"], TrainConfig(**case["train"])
+    draws = Draws(shard=data_shard(mesh), **case["draws"]) \
+        if case.get("draws") else None
+    if kind in ("vq", "gan"):
+        if kind == "vq":
+            tr = VQTrainer(case["cfg"], train, device="cpu", mesh=mesh)
+        else:
+            tr = GANTrainer(case["cfg"], train, device="cpu",
+                            volume_size=case["size"], mesh=mesh)
+            tr.epoch = case["epoch"]
+        tr.model.load_state_dict(case["state"], strict=True)
+        vol, mask = shard_batch(mesh, (case["vol"], case["mask"]),
+                                spatial_axis=3)
+        res = {}
+        if kind == "vq":        # from the given state
+            res["eval"] = {k: float(v) for k, v in
+                           tr.eval_step(vol, mask).items()}
+        m = tr.train_step(vol, mask, draws)
+        res.update(metrics={k: float(v) for k, v in m.items()},
+                   grads=_grads(tr.model), state=_state(tr.model))
+        return res
+    tr = DiffusionTrainer(case["cfg"], device="cpu", train_cfg=train,
+                          mesh=mesh)
+    tr.load_state_dicts(case["state"], case["ema"])
+    lat, ctx = shard_batch(mesh, (case["lat"], case["ctx"]))
+    m = tr.train_step_latents(lat, ctx, **case["step_draws"])
+    res = dict(metrics={k: float(v) for k, v in m.items()},
+               grads=_grads(tr.model.unet), state=_state(tr.model),
+               ema=_state(tr.ema_unet))
+    gen = case["generate"]
+    res["volumes"] = tr.generate(
+        gen["shape"], gen["ctx"], init_noise=gen["init_noise"],
+        step_noise=gen["step_noise"].__getitem__, sampler="ddim",
+        sample_steps=gen["steps"], eta=gen["eta"], decode=True)
+    return res
+
+
+def _spatial_quantizer(case, mesh):
+    """Training passes of a quantizer on this rank's depth slabs of
+    [B, H, W, D, C] latents."""
+    from ldm3d_torch.models.quantizers import Draws, make_quantizer
+    from ldm3d_torch.parallel.mesh import shard_batch
+    from ldm3d_torch.parallel.spatial import spatial_sharding
+
+    q = make_quantizer(case["cfg"])
+    q.reset_parameters(torch.Generator().manual_seed(case["seed"]))
+    q.train()
+    gen = torch.Generator().manual_seed(case["seed"] + 1)
+    steps = []
+    for x in case["xs"]:
+        x = shard_batch(mesh, x, spatial_axis=3).clone().requires_grad_(True)
+        with spatial_sharding(mesh):
+            y, aux = q(x, Draws(gen))
+            (y.square().mean() + aux.loss).backward()
+        steps.append(dict(y=y.detach(), dx=x.grad,
+                          perplexity=float(aux.perplexity),
+                          counts=aux.usage_counts.clone(),
+                          buffers={k: b.clone()
+                                   for k, b in q.named_buffers()}))
+    return dict(steps=steps)
+
+
+def job_spatial(spec):
+    """Every case of `spec` on a data 1 x space 2 mesh: ops on depth
+    slabs, trainer steps, quantizer passes."""
+    from ldm3d_torch.core.config import MeshConfig
+    from ldm3d_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MeshConfig(data=1, space=2))
+    run = {"op": _spatial_op, "quantizer": _spatial_quantizer}
+    return {name: run.get(case["kind"], _spatial_step)(case, mesh)
+            for name, case in spec.items()}
+
+
+def job_cli(spec, rank, n, port):
+    """The command line's main with `spec["argv"]`, this process joining
+    the run through --coordinator as the CLI's own processes do, the
+    preset's mesh replaced by `MeshConfig(**spec["mesh"])`; returns what
+    it printed and the shapes of the meshes it made."""
+    import contextlib
+    import io
+
+    from ldm3d_torch.cli import main as cli
+    from ldm3d_torch.core import presets
+    from ldm3d_torch.core.config import MeshConfig, replace
+    from ldm3d_torch.parallel import mesh as pmesh
+
+    get_preset, make_mesh, shapes = presets.get_preset, pmesh.make_mesh, []
+
+    def preset(name):
+        cfg = get_preset(name)
+        return replace(cfg, train=replace(cfg.train,
+                                          mesh=MeshConfig(**spec["mesh"])))
+
+    def mesh(*args, **kwargs):
+        made = make_mesh(*args, **kwargs)
+        shapes.append(dict(made.shape))
+        return made
+
+    presets.get_preset, pmesh.make_mesh = preset, mesh
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(spec["argv"] + [
+            "--coordinator", f"127.0.0.1:{port}", "--num_processes", str(n),
+            "--process_id", str(rank)])
+    return dict(stdout=out.getvalue(), meshes=shapes)
+
+
+JOBS = {"halo": job_halo, "steps": job_steps, "spatial": job_spatial}
+# jobs that join the process group themselves (rank, processes, port)
+JOINING = {"cli": job_cli}
 
 
 def main(argv) -> None:
     job, rank, n, port, directory = argv
     torch.set_num_threads(2)
+    if job in JOINING:
+        spec = torch.load(os.path.join(directory, f"{job}_in.pt"),
+                          weights_only=False)
+        out = JOINING[job](spec, int(rank), int(n), port)
+        torch.save(out, os.path.join(directory, f"{job}_out{rank}.pt"))
+        return
     from ldm3d_torch.parallel import distributed as pdist
 
     pdist.initialize(f"127.0.0.1:{port}", int(n), int(rank),
