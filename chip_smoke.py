@@ -25,6 +25,12 @@
     python3 chip_smoke.py --spatial-check --seed 1   # the same from
                                                  # another seed (inputs and
                                                  # weights)
+    python3 chip_smoke.py --tp-check             # device, build, and the
+                                                 # tp phase's two steps
+                                                 # with their gates,
+                                                 # printed, not judged
+    python3 chip_smoke.py --seed 1               # every phase from
+                                                 # another seed
 
 Phases, one line each (flush=True); any failure raises and the exit code is
 not 0:
@@ -151,6 +157,26 @@ not 0:
                 against the twin's; then --train_vq at a space axis of 2 from
                 the command line, one epoch on 6 volumes (4 codebook
                 launches each)
+     tp         main path 10: tensor parallelism. Two processes of this
+                script (--tp-worker) on the one card, a data 1 x model 2
+                mesh over gloo, each holding half of every conv kernel and
+                vector of 64 or more channels of the trained networks and
+                every row: the flagship's latent step at global batch 8
+                (12 attention launches each) and its stage-1 at 128^3,
+                global batch 2 (remat full; one codebook launch each),
+                each against a one-process twin on process 0 (TF32 off,
+                cuDNN deterministic; stage 2 judged against a float64
+                step) and bitwise equal across the processes; step times
+                with the gathers' and sums' share, parameter + Adam bytes
+                and peak memory per process against one process's; then
+                from the command line with a model = 2 preset mesh:
+                --train_dm --cache_latents one epoch (a checkpoint of one
+                process's keys and shapes), --train_vq one epoch, and the
+                same with --auto_resume 1 and process 1 failing at the
+                epoch's end (both recover and resume at epoch 0; the log
+                equals the other run's)
+     ddp, spatial and tp judge stage 2 against a float64 step on the
+                card (S2_F64_FACTOR)
  14. train_gan  main path 7: the VQ-GAN. A warm and an adversarial step of
                 vqgan_attn at full width (R1 and the adaptive weight on,
                 32^3) on the card, f32 with TF32 off, against a float64
@@ -167,14 +193,14 @@ not 0:
                 and the adaptive weight each on and off, VGG16 alone)
  15. kernels    one JSON line with the whole run's kernel numbers
  16. last line  {"ok": true, "device": {...}}
-Sockets only on localhost, between the ddp and spatial phases' two
-processes, which end (or are killed at DDP_TIMEOUT / SPATIAL_TIMEOUT)
-before their phase does; one profiler
+Sockets only on localhost, between the ddp, spatial and tp phases' two
+processes, which end (or are killed at DDP_TIMEOUT / SPATIAL_TIMEOUT /
+TP_TIMEOUT) before their phase does; one profiler
 trace, written in the cli phase's temporary directory; the threads are
 the CLI's data loader prefetchers, joined when their epoch ends, and the
 native reader's pool. Nothing is written but the builds under
 ldm3d_torch/_build/ (the kernels and the native reader) and the cli,
-train_vq, ddp, spatial and train_gan phases' temporary directories.
+train_vq, ddp, spatial, tp and train_gan phases' temporary directories.
 Imports nothing of JAX.
 """
 
@@ -480,6 +506,42 @@ SPATIAL_GEN_NUM, SPATIAL_GEN_STEPS = 2, 3
 SPATIAL_CLI_VOLUMES = 6
 SPATIAL_MEMORY_RATIO = 0.9
 SPATIAL_TIMEOUT = 480             # seconds for the workers, all of them
+# The stage-2 gate of the ddp, spatial and tp phases: the sharded step
+# and the one-process float32 step are both held against a float64 step
+# of the same state and draws, taken on the card (`_float64_twin`, its
+# attention in float64: `_float64_attention`), and each group of
+# DDP_S2_GRAD_RTOL / SPATIAL_S2_GRAD_RTOL (and the whole model,
+# DDP_MODEL_GRAD_RTOL) passes when the sharded step lies at most the
+# larger of its bound and S2_F64_FACTOR times the one-process step's own
+# distance from float64. A sharded step sums the same float32 terms in
+# another order, so its error is of the one-process step's size, and that
+# size passes the bounds: on an H100 the one-process step lies 9.5e-2
+# (the other cross-attention tensors, bound 2e-2) and 3.1e-3 (the model,
+# bound 2e-3) from float64 at seed 0, 0.136 (the MLPs, bound 0.1) at seed
+# 1 (PERF.md §6), which a gate against the one-process step blamed on
+# the sharding.
+S2_F64_FACTOR = 2.0
+# Main path 10 (`tp`): tensor parallelism over TP_PROCESSES processes of
+# this script on the one card, a data 1 x model 2 mesh (the trained
+# networks' conv kernels and vectors of 64 or more channels split over
+# the two; gloo, through the host; each process holds every row).
+# Stage 2's latent step at DDP_BATCH under the float64 gate above (the
+# ddp phase's groups); stage 1 (TRAIN_VQ_FLAGS, TRAIN_VQ_SIZE^3, remat
+# full) at SPATIAL_VQ_BATCH against a one-process twin (TF32 off, cuDNN
+# deterministic on both; the loss DDP_LOSS_RTOL, each tensor
+# TP_S1_GRAD_RTOL, the model DDP_MODEL_GRAD_RTOL): the tensor-parallel
+# step convolves channel slabs and sums partial transposed convolutions,
+# other float32 sums than one process's (cuDNN picks other algorithms
+# for half-width convolutions): 4.6e-3 of a tensor's largest at seed 0,
+# 4.1e-3 at seed 1 (H100, PERF.md §6), held to about 3x that. Then, from
+# the command line with a model = 2 preset mesh: --train_dm --cache_latents
+# (the cli phase's flags and corpus, --lbs DDP_CLI_LBS per process), and
+# --train_vq on SPATIAL_CLI_VOLUMES volumes without and with
+# --auto_resume 1 and a failure on process 1 at the epoch's end (the
+# recovered run's log against the other's: DDP_CLI_LOSS_RTOL).
+TP_PROCESSES = 2
+TP_S1_GRAD_RTOL = ((None, 1.5e-2),)
+TP_TIMEOUT = 480                  # seconds for the workers, all of them
 
 
 _T0 = time.perf_counter()
@@ -629,6 +691,9 @@ def phase_kernel(card: str) -> Dict[str, dict]:
         # the spatial path: a 2-row slab's 32 queries of the 4^3 level
         # against its 64 keys (stage-2 step at batch 8)
         ("spatial_f32", 8, 32, 64, 512, torch.float32),
+        # the tp path: every row on each process (stage-2 step at batch
+        # 8, the CLI at --lbs 4 x 2 processes)
+        ("tp_f32", 8, 64, 64, 512, torch.float32),
         ("self_bf16", 16, 64, 64, 512, torch.bfloat16),
         ("cross_ragged_f32", 16, 64, 37, 512, torch.float32),
         ("cross_ragged_bf16", 16, 64, 37, 512, torch.bfloat16),
@@ -685,8 +750,8 @@ def phase_codebook(card: str) -> Dict[str, dict]:
     """Codebook kernel against `_nearest_indices_reference` at the train
     shape [4096, 256] x [1024, 256], in f32 and bf16, with a ragged N and
     with duplicated codes (which must give the first index exactly), at
-    the nsvqvae, rnsvqvae and vqgan_attn stage-1 shapes and at the ddp
-    path's and the spatial path's per-process shapes."""
+    the nsvqvae, rnsvqvae and vqgan_attn stage-1 shapes and at the ddp,
+    spatial and tp paths' per-process shapes."""
     cases = [  # name, N, K, D, dtype, duplicated codes
         ("train_f32", 4096, 1024, 256, torch.float32, False),  # train path
         ("train_bf16", 4096, 1024, 256, torch.bfloat16, False),
@@ -706,6 +771,10 @@ def phase_codebook(card: str) -> Dict[str, dict]:
         # the spatial path, per process: 2 volumes' 8 x 8 x 4 latent slabs
         # (the stage-1 step, the CLI's steps, eval and montage)
         ("spatial_f32", 512, 1024, 256, torch.float32, False),
+        # the tp path, per process: every row (the stage-1 step's 2
+        # volumes, the CLI's encode of 8)
+        ("tp_stage1_f32", 1024, 1024, 256, torch.float32, False),
+        ("tp_cli_f32", 4096, 1024, 256, torch.float32, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     results = {}
@@ -1343,14 +1412,16 @@ def _compare_inputs(trainer: DiffusionTrainer, lat: torch.Tensor):
     return x, torch.tensor([1, 0]), draws
 
 
-def _float64_twin(trainer: DiffusionTrainer,
-                  batch: int = 2) -> DiffusionTrainer:
-    """A CPU twin whose U-Net, Adam state and gradients are float64. The
-    step's inputs stay as the float32 runs make them (the noised latents,
-    the sinusoidal time embedding) and are widened where they enter; the
-    loss is formed in float32 (`pred.float()`), which rounds only the
-    upstream gradient's first factor, to 1e-7."""
-    twin = _twin(trainer, "cpu", batch)
+def _float64_twin(trainer: DiffusionTrainer, batch: int = 2,
+                  device: str = "cpu") -> DiffusionTrainer:
+    """A twin (on the CPU unless `device`) whose U-Net, Adam state and
+    gradients are float64. The step's inputs stay as the float32 runs
+    make them (the noised latents, the sinusoidal time embedding) and are
+    widened where they enter; the loss is formed in float32
+    (`pred.float()`), which rounds only the upstream gradient's first
+    factor, to 1e-7. On the card its step runs inside
+    `_float64_attention` (the kernel takes float32 and bfloat16)."""
+    twin = _twin(trainer, device, batch)
     unet = twin.model.unet.double()
     unet.register_forward_pre_hook(
         lambda m, args: (args[0].double(),) + tuple(args[1:]))
@@ -2665,26 +2736,32 @@ def _reset_launches() -> None:
     cbq.reset_launches()
 
 
+def _grad_dict(model) -> Dict[str, torch.Tensor]:
+    """{name: gradient} of a module's parameters (a dict passes as it
+    is: the whole gradients of a tensor-parallel module)."""
+    if isinstance(model, dict):
+        return model
+    return {n: p.grad for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
 def _grad_errors(model, ref_model, tols) -> dict:
-    """Each parameter's gradient against the one-process reference's:
-    max |a - b| over the larger of the reference tensor's largest |b| and
-    DDP_GRAD_FLOOR of the model's largest (a conv bias before BatchNorm
-    has an exact gradient of 0 and float32 noise on both sides). `tols`
-    is a sequence of (name pattern, bound): a tensor takes the bound of
-    the first pattern its name matches (None matches every name), and
-    each group's worst tensor is reported beside its bound."""
-    ref = dict(ref_model.named_parameters())
-    top = max(float(p.grad.abs().max()) for p in ref.values()
-              if p.grad is not None)
+    """Each parameter's gradient against the reference's (a module or a
+    `_grad_dict`): max |a - b| over the larger of the reference tensor's
+    largest |b| and DDP_GRAD_FLOOR of the model's largest (a conv bias
+    before BatchNorm has an exact gradient of 0 and float32 noise on both
+    sides). `tols` is a sequence of (name pattern, bound): a tensor takes
+    the bound of the first pattern its name matches (None matches every
+    name), and each group's worst tensor is reported beside its bound."""
+    ref = _grad_dict(ref_model)
+    top = max(float(g.abs().max()) for g in ref.values())
     groups = [dict(tensors=pat or "rest", tol=tol, rel_err=0.0, worst=None,
                    count=0) for pat, tol in tols]
     errs, rows = {}, []
-    for n, p in model.named_parameters():
-        if p.grad is None:
-            continue
-        b = ref[n].grad.double()
+    for n, grad in _grad_dict(model).items():
+        b = ref[n].double()
         own = float(b.abs().max())
-        err = float((p.grad.double().to(b.device) - b).abs().max())
+        err = float((grad.double().to(b.device) - b).abs().max())
         errs[n] = err / max(own, DDP_GRAD_FLOOR * top)
         rows.append((errs[n], n, err, own))
         g = next(g for g, (pat, _) in zip(groups, tols)
@@ -2711,6 +2788,50 @@ def _stats_error(model, ref_model) -> float:
                 / max(float(ref[n].abs().max()), 1e-30)
                 for n, b in model.named_buffers() if "running" in n],
                default=0.0)
+
+
+def _float64_attention_fn(q, k, v, scale=None):
+    """The plain attention in its inputs' type (float64 on the card for
+    the reference step; the kernel takes float32 and bfloat16)."""
+    scale = float(q.shape[-1]) ** -0.5 if scale is None else scale
+    return torch.softmax(q @ k.transpose(1, 2) * scale, dim=-1) @ v
+
+
+@contextlib.contextmanager
+def _float64_attention():
+    """The U-Net's attention as `_float64_attention_fn` inside the block
+    (the float64 reference step; no kernel launches)."""
+    real = unet3d.voxel_attention
+    unet3d.voxel_attention = _float64_attention_fn
+    try:
+        yield
+    finally:
+        unet3d.voxel_attention = real
+
+
+def _s2_gate(sharded, one, f64, tols) -> dict:
+    """The stage-2 gate (see S2_F64_FACTOR): the sharded step's gradients
+    (a module or a `_grad_dict`) and the one-process step's, each against
+    the float64 step's; per group and for the whole model, both
+    distances, the limit and the verdict."""
+    es, e1 = _grad_errors(sharded, f64, tols), _grad_errors(one, f64, tols)
+    groups = []
+    for gs, g1 in zip(es["grad_groups"], e1["grad_groups"]):
+        limit = max(gs["tol"], S2_F64_FACTOR * g1["rel_err"])
+        groups.append(dict(tensors=gs["tensors"], sharded=gs["rel_err"],
+                           one_process=g1["rel_err"], worst=gs["worst"],
+                           bound=gs["tol"], limit=limit,
+                           ok=gs["rel_err"] <= limit))
+    model_limit = max(DDP_MODEL_GRAD_RTOL,
+                      S2_F64_FACTOR * e1["grad_model_rel_err"])
+    model = dict(sharded=es["grad_model_rel_err"],
+                 one_process=e1["grad_model_rel_err"],
+                 bound=DDP_MODEL_GRAD_RTOL, limit=model_limit,
+                 ok=es["grad_model_rel_err"] <= model_limit)
+    return dict(reference="float64 step on the card", factor=S2_F64_FACTOR,
+                groups=groups, model=model,
+                sharded_worst5=es["grad_worst5"],
+                ok=model["ok"] and all(g["ok"] for g in groups))
 
 
 def _ddp_s2_inputs(spec: dict) -> dict:
@@ -2746,6 +2867,34 @@ def _ddp_s2_step(tr: DiffusionTrainer, inp: dict, dev: str) -> dict:
     return m
 
 
+def _s2_references(spec: dict, inp: dict, sharded) -> dict:
+    """On process 0: the one-process float32 step of a twin (TF32 off,
+    cuDNN as set) and the float64 step on the card, from the same init
+    and draws; the gate of `sharded` (the sharded trainer's U-Net or its
+    whole gradients) and the one-process step's loss and BatchNorm
+    statistics, and the process's peak device memory in the twin's step.
+    Returns the numbers and the twin."""
+    dev = spec["device"]
+    twin = _ddp_s2_one_process(spec, inp)
+    m1 = []
+    peak = _peak_step(dev, lambda: m1.append(_ddp_s2_step(twin, inp, dev)))
+    m1 = m1[0]
+    f64 = _float64_twin(_ddp_s2_one_process(spec, inp), DDP_BATCH, dev)
+    t0 = time.perf_counter()
+    with _float64_attention():
+        f64.train_step_latents(inp["lat"].to(dev), inp["ctx"].to(dev),
+                               **inp["on"])
+        _sync(dev)
+    out = dict(gate=_s2_gate(sharded, twin.model.unet, f64.model.unet,
+                             spec["s2_tols"]),
+               float64_step_s=time.perf_counter() - t0,
+               loss_1p=float(m1["loss"]), peak_bytes_1p=peak)
+    del f64
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out, twin
+
+
 def _ddp_stage2(spec: dict, rank: int) -> tuple:
     """The flagship's latent step at global batch DDP_BATCH over the
     mesh, each rank its rows, the draws the global batch's (injected);
@@ -2779,13 +2928,10 @@ def _ddp_stage2(spec: dict, rank: int) -> tuple:
                buffers=_digest(tr.model.unet.buffers()),
                ema=_digest(tr.ema_unet.parameters()))
     if rank == 0:
-        twin = _ddp_s2_one_process(spec, inp)
-        m1 = _ddp_s2_step(twin, inp, dev)
-        out.update(_grad_errors(tr.model.unet, twin.model.unet,
-                                DDP_S2_GRAD_RTOL),
-                   loss_1p=float(m1["loss"]),
-                   loss_rel_err=abs(float(m["loss"]) - float(m1["loss"]))
-                   / abs(float(m1["loss"])),
+        ref, twin = _s2_references(dict(spec, s2_tols=DDP_S2_GRAD_RTOL),
+                                   inp, tr.model.unet)
+        out.update(ref, loss_rel_err=abs(out["loss"] - ref["loss_1p"])
+                   / abs(ref["loss_1p"]),
                    stats_rel_err=_stats_error(tr.model.unet,
                                               twin.model.unet))
         del twin
@@ -2987,9 +3133,10 @@ def ddp_worker(spec_path: str, rank: str) -> None:
     """One process of the ddp phase: joins the others, runs stage 2,
     stage 1 and the command line (with --ddp-check: the check's steps
     alone), and writes its numbers as JSON."""
+    global SEED
     with open(spec_path) as f:
         spec = json.load(f)
-    rank = int(rank)
+    rank, SEED = int(rank), spec["seed"]
     if spec["device"] == "cuda":
         _build.load_all([attn.KERNEL, cbq.KERNEL])   # built by the parent
     out = {}
@@ -3035,7 +3182,7 @@ def phase_ddp(card: str, cli_row: dict, check: bool = False) -> dict:
                 ports=ports[:1],
                 cli_ports=ports[1:], cli_flags=CLI_FLAGSHIP,
                 cli_volumes=CLI_VOLUMES, vq_flags=TRAIN_VQ_FLAGS,
-                vq_size=TRAIN_VQ_SIZE)
+                vq_size=TRAIN_VQ_SIZE, seed=SEED)
     path = os.path.join(tmp, "spec.json")
     with open(path, "w") as f:
         json.dump(spec, f)
@@ -3124,8 +3271,7 @@ def _ddp_report(card, ranks, rank0_text, cli_row, cli_cfg, tmp,
     s2_equal = all(s2[0][k] == s2[1][k] for k in ("params", "buffers", "ema",
                                                   "loss", "noise_mse"))
     s2_ok = (s2_equal and s2[0]["loss_rel_err"] <= DDP_LOSS_RTOL
-             and s2[0]["grad_ok"]
-             and s2[0]["grad_model_rel_err"] <= DDP_MODEL_GRAD_RTOL
+             and s2[0]["gate"]["ok"]
              and s2[0]["stats_rel_err"] <= DDP_LOSS_RTOL)
     step_ms = max(r["step_ms"] for r in s2)
     ar_ms = max(r["grad_allreduce_ms"] for r in s2)
@@ -3134,12 +3280,8 @@ def _ddp_report(card, ranks, rank0_text, cli_row, cli_cfg, tmp,
         rows_per_process=DDP_BATCH // DDP_PROCESSES,
         loss=s2[0]["loss"], loss_1p=s2[0]["loss_1p"],
         loss_rel_err=s2[0]["loss_rel_err"], loss_tol=DDP_LOSS_RTOL,
-        grad_rel_err=s2[0]["grad_rel_err"], grad_worst=s2[0]["grad_worst"],
-        grads_compared=s2[0]["grads_compared"],
-        grad_groups=s2[0]["grad_groups"], grad_floor=DDP_GRAD_FLOOR,
-        grad_model_rel_err=s2[0]["grad_model_rel_err"],
-        grad_model_tol=DDP_MODEL_GRAD_RTOL,
-        grad_worst5=s2[0]["grad_worst5"],
+        grad_gate=s2[0]["gate"], grad_floor=DDP_GRAD_FLOOR,
+        float64_step_s=s2[0]["float64_step_s"], seed=SEED,
         stats_rel_err=s2[0]["stats_rel_err"], stats_tol=DDP_LOSS_RTOL,
         ranks_bitwise_equal=s2_equal, first_step_ms=s2[0]["first_step_ms"],
         step_ms=step_ms, grad_allreduce_ms=ar_ms,
@@ -3197,7 +3339,8 @@ def _ddp_report(card, ranks, rank0_text, cli_row, cli_cfg, tmp,
 class _CollectiveTimer:
     """Times every `torch.distributed.all_reduce` inside the block (the
     card synchronised before and after each), by caller: "halo" (the
-    exchanges of `parallel.halo`), "grads" (`reduce_gradients`),
+    exchanges of `parallel.halo`), "tp_gather" and "tp_sum" (the
+    gathers and the sums of `parallel.tp`), "grads" (`reduce_gradients`),
     "metrics" (`reduce_metrics`) and "stats" (the norms' and quantizers'
     sums, the gathers). The synchronisation costs time of its own: the
     shares are of the instrumented step."""
@@ -3211,6 +3354,9 @@ class _CollectiveTimer:
     def _kind(self, frame) -> str:
         if frame.f_code.co_filename.endswith("halo.py"):
             return "halo"
+        if frame.f_code.co_filename.endswith("tp.py"):
+            return "tp_gather" if frame.f_code.co_name == "_gather" \
+                else "tp_sum"
         return {"reduce_gradients": "grads",
                 "reduce_metrics": "metrics"}.get(frame.f_code.co_name,
                                                  "stats")
@@ -3371,16 +3517,12 @@ def _spatial_stage2(spec: dict, rank: int, mesh) -> tuple:
                ema=_digest(tr.ema_unet.parameters()))
     twin = None
     if rank == 0:
-        twin = _ddp_s2_one_process(spec, inp)
-        m1 = _ddp_s2_step(twin, inp, dev)
-        out.update(_grad_errors(tr.model.unet, twin.model.unet,
-                                SPATIAL_S2_GRAD_RTOL),
-                   loss_1p=float(m1["loss"]),
-                   loss_rel_err=abs(float(m["loss"]) - float(m1["loss"]))
-                   / abs(float(m1["loss"])),
+        ref, twin = _s2_references(dict(spec, s2_tols=SPATIAL_S2_GRAD_RTOL),
+                                   inp, tr.model.unet)
+        out.update(ref, loss_rel_err=abs(out["loss"] - ref["loss_1p"])
+                   / abs(ref["loss_1p"]),
                    stats_rel_err=_stats_error(tr.model.unet,
                                               twin.model.unet))
-        out.pop("grad_rel_errs")
     pdist.barrier()
     out["timing"] = _spatial_timing(
         lambda: tr.train_step_latents(x, c, **inp["on"]), dev)
@@ -3690,19 +3832,14 @@ def _spatial_report(card, ranks, tmp, wall_s) -> dict:
     s2_equal = all(s2[0][k] == s2[1][k] for k in ("params", "buffers", "ema",
                                                   "loss", "noise_mse"))
     s2_ok = (s2_equal and s2[0]["loss_rel_err"] <= DDP_LOSS_RTOL
-             and s2[0]["grad_ok"]
-             and s2[0]["grad_model_rel_err"] <= DDP_MODEL_GRAD_RTOL
+             and s2[0]["gate"]["ok"]
              and s2[0]["stats_rel_err"] <= DDP_LOSS_RTOL)
     say("spatial", step="stage2", batch=DDP_BATCH,
         loss=s2[0]["loss"], loss_1p=s2[0]["loss_1p"],
         loss_rel_err=s2[0]["loss_rel_err"], loss_tol=DDP_LOSS_RTOL,
-        grad_rel_err=s2[0]["grad_rel_err"], grad_worst=s2[0]["grad_worst"],
-        grads_compared=s2[0]["grads_compared"],
-        grad_groups=s2[0]["grad_groups"],
-        grad_model_rel_err=s2[0]["grad_model_rel_err"],
-        grad_model_tol=DDP_MODEL_GRAD_RTOL,
-        grad_worst5=s2[0]["grad_worst5"],
-        stats_rel_err=s2[0]["stats_rel_err"], ranks_bitwise_equal=s2_equal,
+        grad_gate=s2[0]["gate"], float64_step_s=s2[0]["float64_step_s"],
+        seed=SEED, stats_rel_err=s2[0]["stats_rel_err"],
+        ranks_bitwise_equal=s2_equal,
         first_step_ms=[r["first_step_ms"] for r in s2],
         timing=[r["timing"] for r in s2],
         launches=got["stage2"], expected=want["stage2"], card=card)
@@ -3744,6 +3881,463 @@ def _spatial_report(card, ranks, tmp, wall_s) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Main path 10: tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def _tp_mesh():
+    from ldm3d_torch.core.config import MeshConfig
+    from ldm3d_torch.parallel.mesh import make_mesh
+    return make_mesh(MeshConfig(data=1, space=1, model=TP_PROCESSES))
+
+
+def _tp_whole_grads(model, mesh) -> Dict[str, torch.Tensor]:
+    """Every gradient of a tensor-parallel module, whole (the sharded ones
+    gathered over the model group: a collective), on the CPU."""
+    from ldm3d_torch.parallel import tp
+    out = {}
+    for name, m in model.named_modules():
+        for n, p in m.named_parameters(recurse=False):
+            if p.grad is None:
+                continue
+            dim = tp.split_dim(m, n)
+            g = p.grad if dim is None else tp.gather_tensor(p.grad, dim,
+                                                            mesh)
+            out[f"{name}.{n}" if name else n] = g.cpu()
+    return out
+
+
+def _state_bytes(params, optimizer) -> int:
+    """Bytes of the parameters and of the optimizer's state."""
+    return sum(p.numel() * p.element_size() for p in params) + sum(
+        v.numel() * v.element_size() for st in optimizer.state.values()
+        for v in st.values() if torch.is_tensor(v))
+
+
+def _tp_counted(dev: str, step) -> dict:
+    """The main path's step (TF32 off, cuDNN as set), its launches, time
+    and the process's peak device memory."""
+    with _NoTF32():
+        _sync(dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _reset_launches()        # the main path's step starts here
+        t0 = time.perf_counter()
+        m = step()
+        _sync(dev)
+        out = dict(first_step_ms=1e3 * (time.perf_counter() - t0),
+                   launches=_launches())
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() \
+        if dev == "cuda" else 0
+    return m, out
+
+
+def _tp_stage2(spec: dict, rank: int, mesh) -> dict:
+    """The flagship's latent step at global batch DDP_BATCH on the data 1
+    x model 2 mesh (the whole batch on each process, the U-Net's wide
+    kernels split), the draws injected; its timing; then on rank 0 the
+    one-process twin and the float64 step of the stage-2 gate, and the
+    one-process step's peak and state bytes."""
+    from ldm3d_torch.parallel import tp
+    dev, inp = spec["device"], _ddp_s2_inputs(spec)
+    tr = DiffusionTrainer(inp["cfg"], device=dev, train_cfg=inp["tc"],
+                          mesh=mesh).init_random(SEED, "reach")
+    x, c = inp["lat"].to(dev), inp["ctx"].to(dev)
+    m, out = _tp_counted(dev, lambda: tr.train_step_latents(x, c,
+                                                            **inp["on"]))
+    unet = tr.model.unet
+    out.update(loss=float(m["loss"]), noise_mse=float(m["noise_mse"]),
+               attention_calls=attention_calls_per_step(unet),
+               sharded=len(tp.sharded_names(unet)),
+               state_bytes=_state_bytes(unet.parameters(), tr.optimizer),
+               ema_bytes=sum(p.numel() * p.element_size()
+                             for p in tr.ema_unet.parameters()))
+    grads = _tp_whole_grads(unet, mesh)
+    state = tr.state_dict()          # whole tensors: a collective
+    out.update(params=_digest(state["model"].values()),
+               ema=_digest(state["ema_unet"].values()))
+    del state
+    out["timing"] = _spatial_timing(
+        lambda: tr.train_step_latents(x, c, **inp["on"]), dev)
+    pdist.barrier()
+    del tr, unet
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    if rank == 0:
+        ref, twin = _s2_references(dict(spec, s2_tols=DDP_S2_GRAD_RTOL),
+                                   inp, grads)
+        out.update(ref, loss_rel_err=abs(out["loss"] - ref["loss_1p"])
+                   / abs(ref["loss_1p"]),
+                   state_bytes_1p=_state_bytes(
+                       twin.model.unet.parameters(), twin.optimizer))
+        del twin
+    del grads
+    pdist.barrier()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_stage1(spec: dict, rank: int, mesh) -> dict:
+    """The flagship's stage-1 (remat full) at global batch
+    SPATIAL_VQ_BATCH of 128^3 volumes on the mesh; its timing; then on
+    rank 0 the one-process twin (TF32 off, cuDNN deterministic) with its
+    peak and state bytes."""
+    from ldm3d_torch.parallel import tp
+    dev = spec["device"]
+    inp = _ddp_s1_inputs(spec, SPATIAL_VQ_BATCH)
+    tr = VQTrainer(inp["vcfg"], inp["tc"], device=dev,
+                   mesh=mesh).init_random(SEED)
+    v, mk = inp["vol"].to(dev), inp["mask"].to(dev)
+    m, out = _tp_counted(dev, lambda: tr.train_step(v, mk))
+    q = tr.model.quantizer
+    usage = q.codebooks_used.clone()
+    out.update(loss=float(m["loss"]), perplexity=float(m["perplexity"]),
+               remat=inp["vcfg"].remat, usage=_digest([q.codebooks_used]),
+               codebook=_digest([q.codebook]),
+               sharded=len(tp.sharded_names(tr.model)),
+               state_bytes=_state_bytes(tr.model.parameters(),
+                                        tr.optimizer))
+    grads = _tp_whole_grads(tr.model, mesh)
+    out["params"] = _digest(tr.state_dict()["model"].values())
+    out["timing"] = _spatial_timing(lambda: tr.train_step(v, mk), dev)
+    pdist.barrier()
+    del tr, q
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    if rank == 0:
+        twin, m1 = _ddp_s1_one_process(spec, inp), []
+        with _NoTF32():
+            out["peak_bytes_1p"] = _peak_step(
+                dev, lambda: m1.append(twin.train_step(v, mk)))
+        out.update(_grad_errors(grads, twin.model, TP_S1_GRAD_RTOL),
+                   loss_1p=float(m1[0]["loss"]),
+                   loss_rel_err=abs(out["loss"] - float(m1[0]["loss"]))
+                   / abs(float(m1[0]["loss"])),
+                   state_bytes_1p=_state_bytes(twin.model.parameters(),
+                                               twin.optimizer))
+        out.pop("grad_rel_errs")
+        out["usage_equal_1p"] = bool(torch.equal(
+            usage, twin.model.quantizer.codebooks_used))
+        del twin
+    del grads
+    pdist.barrier()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_cli(spec: dict, rank: int) -> dict:
+    """From the command line, each process calling the CLI's main with
+    --coordinator and the preset's mesh set to data 1 x model 2: one
+    --train_dm --cache_latents epoch of the flagship; one --train_vq epoch
+    of its stage-1; the same --train_vq epoch with --auto_resume 1, process
+    1 failing at the epoch's end (its plateau schedule raises once), its
+    agreements on failures timed. Each run counted."""
+    import ldm3d_torch.core.presets as presets
+    from ldm3d_torch.core.config import MeshConfig
+    from ldm3d_torch.train import callbacks, loop
+    tmp, dev = spec["tmp"], spec["device"]
+    common = ["--platform", "gpu" if dev == "cuda" else "cpu",
+              "--cache_dir", os.path.join(tmp, "cache"), "--synthetic",
+              "--num_processes", str(TP_PROCESSES), "--process_id",
+              str(rank)]
+    # the two --train_vq runs are compared: cuDNN deterministic for both
+    vq = spec["vq_flags"] + common + [
+        "--cache_dir", os.path.join(tmp, "vq_cache"), "--train_vq",
+        "--num_synthetic", str(SPATIAL_CLI_VOLUMES), "--volume_size",
+        str(spec["vq_size"]), "--val_perc", str(TRAIN_VQ_VAL), "--lbs",
+        str(SPATIAL_VQ_BATCH // TP_PROCESSES), "--epochs", "1"]
+    runs = {
+        "dm": spec["cli_flags"] + common + [
+            "--train_dm", "--cache_latents", "--num_synthetic",
+            str(spec["cli_volumes"]), "--lbs", str(DDP_CLI_LBS), "--epochs",
+            "1", "--ckpt_dir", os.path.join(tmp, "ckpt_dm")],
+        "vq": vq + ["--ckpt_dir", os.path.join(tmp, "ckpt_vq")],
+        "vq_recovered": vq + ["--ckpt_dir", os.path.join(tmp, "ckpt_rec"),
+                              "--auto_resume", "1"],
+    }
+    mesh = MeshConfig(data=1, space=1, model=TP_PROCESSES)
+
+    def preset(name):
+        cfg = get_preset(name)
+        return replace(cfg, train=replace(cfg.train, mesh=mesh))
+    real = callbacks.ReduceLROnPlateau.__call__
+
+    def failing(self, epoch, *a, **kw):
+        callbacks.ReduceLROnPlateau.__call__ = real     # once
+        raise RuntimeError("injected fault")
+    agree, agreed = loop._agree, []
+
+    def timed_agree(err):
+        t0 = time.perf_counter()
+        try:
+            agree(err)
+        finally:
+            agreed.append(time.perf_counter() - t0)
+    out = {}
+    presets.get_preset = preset
+    try:
+        for (name, argv), port in zip(runs.items(), spec["cli_ports"]):
+            if name == "vq_recovered":
+                loop._agree = timed_agree
+                if rank == 1:
+                    callbacks.ReduceLROnPlateau.__call__ = failing
+            printed = io.StringIO()
+            torch.backends.cudnn.deterministic = name != "dm"
+            _sync(dev)
+            _reset_launches()        # a run of the main path starts here
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                cli.main(argv + ["--coordinator", f"127.0.0.1:{port}"])
+            _sync(dev)
+            callbacks.ReduceLROnPlateau.__call__ = real
+            loop._agree = agree
+            print(printed.getvalue(), flush=True)
+            out[name] = dict(wall_s=time.perf_counter() - t0,
+                             launches=_launches(),
+                             recovered=[ln for ln in printed.getvalue()
+                                        .splitlines()
+                                        if ln.startswith("recovered from")])
+    finally:
+        presets.get_preset = get_preset
+        callbacks.ReduceLROnPlateau.__call__ = real
+        loop._agree = agree
+        torch.backends.cudnn.deterministic = False
+    out["vq_recovered"].update(agreements=len(agreed),
+                               agreement_ms=[1e3 * t for t in agreed])
+    return out
+
+
+def tp_worker(spec_path: str, rank: str) -> None:
+    """One process of the tp phase: joins the other on a data 1 x model 2
+    mesh, runs stage 2 and stage 1 and the command line (with --tp-check:
+    the steps alone), and writes its numbers as JSON."""
+    global SEED
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, SEED = int(rank), spec["seed"]
+    dev = spec["device"]
+    if dev == "cuda":
+        _build.load_all([attn.KERNEL, cbq.KERNEL])   # built by the parent
+    out = {}
+    pdist.initialize(f"127.0.0.1:{spec['port']}", TP_PROCESSES, rank,
+                     platform="gpu" if dev == "cuda" else "cpu")
+    try:
+        out["backend"] = pdist.collective_backend()
+        out["device"] = str(pdist.process_device())
+        mesh = _tp_mesh()
+        torch.backends.cudnn.deterministic = True
+        out["stage2"] = _tp_stage2(spec, rank, mesh)
+        out["stage1"] = _tp_stage1(spec, rank, mesh)
+        torch.backends.cudnn.deterministic = False
+    finally:
+        pdist.shutdown()
+    if not spec["check"]:
+        out["cli"] = _tp_cli(spec, rank)
+    with open(os.path.join(spec["tmp"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_tp(card: str, check: bool = False) -> dict:
+    """Main path 10: tensor parallelism. Two processes of this script on
+    the one card, a data 1 x model 2 mesh over gloo on localhost ports,
+    each holding half of every wide conv kernel and vector of the trained
+    networks: the flagship's latent step (global batch 8) under the
+    float64 gate and its stage-1 at 128^3 (global batch 2, remat full)
+    against a one-process twin; then --train_dm --cache_latents, and
+    --train_vq without and with --auto_resume and a failure on process 1,
+    from the command line. Each process zeroes its launch counters before
+    each run of the main path and reads them after; the phase adds both
+    processes'. With `check` (--tp-check) only the steps run and their
+    numbers are printed, not judged."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ldm3d_tp_")
+    torch.cuda.empty_cache()
+    ports = []
+    while len(ports) < 4:
+        port = pdist.free_port()
+        ports += [] if port in ports else [port]
+    spec = dict(device=DDP_DEVICE, tiny=DDP_TINY, tmp=tmp, port=ports[0],
+                cli_ports=ports[1:], cli_flags=CLI_FLAGSHIP,
+                cli_volumes=CLI_VOLUMES, vq_flags=TRAIN_VQ_FLAGS,
+                vq_size=TRAIN_VQ_SIZE, check=check, seed=SEED)
+    path = os.path.join(tmp, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    try:
+        cli_cfg = cli.apply_overrides(
+            get_preset(CLI_FLAGSHIP[1]),
+            cli.build_parser().parse_args(CLI_FLAGSHIP))
+        free = shutil.disk_usage(tmp).free
+        need = _checkpoint_bytes(cli_cfg) + 2 * 2 ** 30
+        if DDP_DEVICE == "cuda" and free < need and not check:
+            raise RuntimeError(f"tp: {free} bytes free in {tmp}, {need} "
+                               "needed")
+        ranks = _run_workers("tp", path, tmp, TP_PROCESSES, TP_TIMEOUT)
+        if check:
+            for key in ("stage2", "stage1"):
+                say("tp_check", part=key, seed=SEED, result=ranks[0][key],
+                    card=card)
+            return {}
+        return _tp_report(card, ranks, tmp, cli_cfg,
+                          time.perf_counter() - t_phase)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _tp_checkpoint_ok(path: str, cli_cfg) -> bool:
+    """The --train_dm checkpoint holds one process's model keys and
+    shapes (a state of `LatentDiffusion` built on the meta device)."""
+    state, _ = CheckpointManager(path).restore(1)
+    with torch.device("meta"):
+        want = LatentDiffusion(cli_cfg.diffusion).state_dict()
+    got = state["model"]
+    return got.keys() == want.keys() and all(
+        got[k].shape == t.shape for k, t in want.items())
+
+
+def _tp_report(card, ranks, tmp, cli_cfg, wall_s) -> dict:
+    """The tp phase's checks and lines; returns both processes' launch
+    counts."""
+    s2, s1 = [r["stage2"] for r in ranks], [r["stage1"] for r in ranks]
+    cli_runs = [r["cli"] for r in ranks]
+    on_card = DDP_DEVICE == "cuda"
+    tr_idx, _ = train_val_split(CLI_VOLUMES, cli_cfg.train.val_fraction,
+                                cli_cfg.train.seed)
+    batches = len(tr_idx) // (DDP_CLI_LBS * TP_PROCESSES)
+    vq_cfg = cli.apply_overrides(get_preset(TRAIN_VQ_FLAGS[1]),
+                                 cli.build_parser().parse_args(
+                                     TRAIN_VQ_FLAGS))
+    vtr, vva = train_val_split(SPATIAL_CLI_VOLUMES, TRAIN_VQ_VAL,
+                               vq_cfg.train.seed)
+    vq_launches = len(vtr) // SPATIAL_VQ_BATCH + len(vva) // SPATIAL_VQ_BATCH
+    calls = s2[0]["attention_calls"]
+    want = {"stage2": {attn.KERNEL: calls, cbq.KERNEL: 0},
+            "stage1": {attn.KERNEL: 0, cbq.KERNEL: 1},
+            # each process encodes and steps on every row (data 1)
+            "cli_dm": {attn.KERNEL: calls * batches, cbq.KERNEL: batches},
+            "cli_vq": {attn.KERNEL: 0, cbq.KERNEL: vq_launches},
+            # the failed epoch's steps and eval, then the epoch again
+            "cli_vq_recovered": {attn.KERNEL: 0,
+                                 cbq.KERNEL: 2 * vq_launches}}
+    if not on_card:   # the plain versions run on the CPU: no launches
+        want = {k: {attn.KERNEL: 0, cbq.KERNEL: 0} for k in want}
+    got = {"stage2": [r["launches"] for r in s2],
+           "stage1": [r["launches"] for r in s1]}
+    for run in ("dm", "vq", "vq_recovered"):
+        got[f"cli_{run}"] = [c[run]["launches"] for c in cli_runs]
+    launches_ok = all(g == want[k] for k, gs in got.items() for g in gs)
+    backend = sorted({r["backend"] for r in ranks})
+
+    def share(t):
+        ms = t["collective_ms"]
+        return (ms.get("tp_gather", 0.0) + ms.get("tp_sum", 0.0)) \
+            / t["instrumented_step_ms"]
+    s2_equal = all(s2[0][k] == s2[1][k] for k in ("params", "ema", "loss",
+                                                  "noise_mse"))
+    s2_ok = (s2_equal and s2[0]["sharded"] > 0
+             and s2[0]["loss_rel_err"] <= DDP_LOSS_RTOL
+             and s2[0]["gate"]["ok"])
+    say("tp", step="stage2", processes=TP_PROCESSES,
+        mesh="data 1 x model 2", backend=backend,
+        devices=[r["device"] for r in ranks], batch=DDP_BATCH,
+        sharded_tensors=s2[0]["sharded"], loss=s2[0]["loss"],
+        loss_1p=s2[0]["loss_1p"], loss_rel_err=s2[0]["loss_rel_err"],
+        loss_tol=DDP_LOSS_RTOL, grad_gate=s2[0]["gate"],
+        float64_step_s=s2[0]["float64_step_s"], seed=SEED,
+        ranks_bitwise_equal=s2_equal,
+        first_step_ms=[r["first_step_ms"] for r in s2],
+        step_ms=[r["timing"]["step_ms"] for r in s2],
+        timing=[r["timing"] for r in s2],
+        collective_share=[share(r["timing"]) for r in s2],
+        state_bytes=[r["state_bytes"] for r in s2],
+        state_bytes_one_process=s2[0]["state_bytes_1p"],
+        ema_bytes=[r["ema_bytes"] for r in s2],
+        peak_bytes=[r["peak_bytes"] for r in s2],
+        peak_bytes_one_process=s2[0]["peak_bytes_1p"],
+        launches=got["stage2"], expected=want["stage2"], card=card)
+    s1_equal = all(s1[0][k] == s1[1][k] for k in ("usage", "codebook",
+                                                  "params", "loss"))
+    s1_ok = (s1_equal and s1[0]["sharded"] > 0 and s1[0]["grad_ok"]
+             and s1[0]["loss_rel_err"] <= DDP_LOSS_RTOL
+             and s1[0]["grad_model_rel_err"] <= DDP_MODEL_GRAD_RTOL
+             and s1[0]["usage_equal_1p"])
+    say("tp", step="stage1", batch=SPATIAL_VQ_BATCH, volume=TRAIN_VQ_SIZE,
+        remat=s1[0]["remat"], sharded_tensors=s1[0]["sharded"],
+        loss=s1[0]["loss"], loss_1p=s1[0]["loss_1p"],
+        loss_rel_err=s1[0]["loss_rel_err"], loss_tol=DDP_LOSS_RTOL,
+        grad_rel_err=s1[0]["grad_rel_err"],
+        grad_worst=s1[0]["grad_worst"], grad_groups=s1[0]["grad_groups"],
+        grad_floor=DDP_GRAD_FLOOR,
+        grad_model_rel_err=s1[0]["grad_model_rel_err"],
+        grad_model_tol=DDP_MODEL_GRAD_RTOL,
+        grad_worst5=s1[0]["grad_worst5"],
+        usage_equal_to_one_process=s1[0]["usage_equal_1p"],
+        ranks_bitwise_equal=s1_equal,
+        first_step_ms=[r["first_step_ms"] for r in s1],
+        step_ms=[r["timing"]["step_ms"] for r in s1],
+        timing=[r["timing"] for r in s1],
+        collective_share=[share(r["timing"]) for r in s1],
+        state_bytes=[r["state_bytes"] for r in s1],
+        state_bytes_one_process=s1[0]["state_bytes_1p"],
+        peak_bytes=[r["peak_bytes"] for r in s1],
+        peak_bytes_one_process=s1[0]["peak_bytes_1p"],
+        launches=got["stage1"], expected=want["stage1"], card=card)
+    # the command line
+    dm_dir = os.path.join(tmp, "ckpt_dm", cli_cfg.name + "_dm")
+    dm_log = _log_rows(os.path.join(dm_dir, "training.log"))
+    dm_kept = CheckpointManager(dm_dir).all_epochs()
+    dm_ok = (dm_kept == [1] and len(dm_log) == 1
+             and all(np.isfinite(list(row.values())).all() for row in dm_log)
+             and _tp_checkpoint_ok(dm_dir, cli_cfg))
+    vq_dir, rec_dir = (os.path.join(tmp, d, vq_cfg.name + "_vq")
+                       for d in ("ckpt_vq", "ckpt_rec"))
+    vq_log, rec_log = (_log_rows(os.path.join(d, "training.log"))
+                       for d in (vq_dir, rec_dir))
+    rec_rel = max(abs(rec_log[0][k] - v) / max(abs(v), 1e-12)
+                  for k, v in vq_log[0].items()) if len(rec_log) == 1 \
+        and rec_log[0].keys() == vq_log[0].keys() else float("inf")
+    recovered = [c["vq_recovered"]["recovered"] for c in cli_runs]
+    rec_ok = (len(vq_log) == 1 and len(rec_log) == 1
+              and rec_rel <= DDP_CLI_LOSS_RTOL
+              and all(len(r) == 1 and "resuming at epoch 0" in r[0]
+                      for r in recovered)
+              and CheckpointManager(rec_dir).all_epochs() == [1])
+    agree_ms = [c["vq_recovered"]["agreement_ms"] for c in cli_runs]
+    say("tp", step="cli", dm_flags=CLI_FLAGSHIP, dm_lbs=DDP_CLI_LBS,
+        dm_global_batch=DDP_CLI_LBS * TP_PROCESSES,
+        dm_checkpoints=dm_kept, dm_log=dm_log,
+        dm_checkpoint_one_process_shapes=dm_ok, vq_flags=TRAIN_VQ_FLAGS,
+        vq_volumes=SPATIAL_CLI_VOLUMES, vq_log=vq_log,
+        recovered_log=rec_log, recovered_rel_err=rec_rel,
+        recovered_tol=DDP_CLI_LOSS_RTOL, recovered=recovered,
+        agreements=[len(a) for a in agree_ms],
+        agreement_bytes=4 * TP_PROCESSES,
+        agreement_median_ms=[float(np.median(a)) if a else None
+                             for a in agree_ms],
+        agreement_total_ms=[float(np.sum(a)) for a in agree_ms],
+        wall_s={run: [c[run]["wall_s"] for c in cli_runs]
+                for run in ("dm", "vq", "vq_recovered")},
+        launches={k: got[k] for k in got if k.startswith("cli")},
+        expected={k: want[k] for k in want if k.startswith("cli")},
+        card=card)
+    counts = {attn.KERNEL: 0, cbq.KERNEL: 0}
+    for gs in got.values():
+        for g in gs:
+            for k in counts:
+                counts[k] += g[k]
+    ok = s2_ok and s1_ok and dm_ok and rec_ok and launches_ok
+    say("tp", backend=backend, launches=counts, wall_s=wall_s, ok=ok,
+        card=card)
+    if not ok:
+        raise RuntimeError(
+            f"tp: stage2 {s2_ok}, stage1 {s1_ok}, cli dm {dm_ok}, "
+            f"auto_resume {rec_ok}, launches {got} against {want}")
+    return counts
+
+
 def _kernel_line(name, source, replaces, counts, case, library):
     return {
         "name": name, "route": "cuda", "source": source,
@@ -3778,6 +4372,10 @@ def main() -> None:
         return
     if "--spatial-check" in sys.argv[1:]:
         phase_spatial(card, check=True)
+        say("done", wall_s=time.perf_counter() - t_start, card=card)
+        return
+    if "--tp-check" in sys.argv[1:]:
+        phase_tp(card, check=True)
         say("done", wall_s=time.perf_counter() - t_start, card=card)
         return
     if "--train-compare-check" in sys.argv[1:]:
@@ -3819,6 +4417,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     counts["spatial"] = phase_spatial(card)
     torch.cuda.empty_cache()
+    counts["tp"] = phase_tp(card)
+    torch.cuda.empty_cache()
     counts["train_gan"] = phase_train_gan(card)
     kernels = [
         _kernel_line(attn.KERNEL, "ldm3d_torch/csrc/voxel_attention.cu",
@@ -3843,5 +4443,7 @@ if __name__ == "__main__":
         ddp_worker(*sys.argv[2:])
     elif sys.argv[1:2] == ["--spatial-worker"]:
         spatial_worker(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--tp-worker"]:
+        tp_worker(*sys.argv[2:])
     else:
         main()

@@ -65,13 +65,22 @@ CLI's lbs x devices, whatever the mesh); each process reads its rows of
 every global batch, process 0 alone writes logs, images,
 train_meta.json and checkpoints, and the modes that do not train
 (--create_dataset, --test_vq, --test_dm, --fidelity_sweep) and the
---fidelity_freq evaluation run on process 0 while the others wait. A
-'space' axis S of the preset's mesh (`MeshConfig.space`) splits the
+--fidelity_freq evaluation runs on every process (process 0 logs it).
+A 'space' axis S of the preset's mesh (`MeshConfig.space`) splits the
 depth of every volume over S processes (`ldm3d_torch.parallel.spatial`):
-each process reads and trains on its depth slab of its rows, and the
-processes form a (processes / S) x S data x space mesh. A mesh with a
-'model' axis, and --auto_resume over processes, are refused with the
-ROADMAP item that brings them (queue 1 items 9(c) and 9(d)).
+each process reads and trains on its depth slab of its rows. A 'model'
+axis M (`MeshConfig.model`) splits the wide conv kernels and vectors of
+the trained networks over M processes (`ldm3d_torch.parallel.tp`),
+which read the same rows and hold the same activations. The processes
+form a (processes / (S x M)) x S x M data x space x model mesh; as in
+the JAX CLI, the axes come from the preset's mesh and no flag sets
+them. Every process decides each save and takes the trainer's state
+(whole tensors, gathered over the model axis); process 0 writes it.
+--auto_resume works over processes: a failure that every process can
+see (a batch's fetch, the epoch's callbacks, logging or save) is agreed
+on, and all restore the epoch process 0 saved last; a failure inside a
+step on one process alone leaves the others waiting in the step's
+collective (see `ldm3d_torch.train.loop`).
 
     python -m ldm3d_torch.cli.main --preset smoke --platform cpu \
         --cpu_devices 2 --train_vq --synthetic --lbs 1
@@ -247,14 +256,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _mesh(cfg):
-    """The training mesh (`make_mesh` over the run's processes at the
-    global batch); SystemExit for a 'model' axis, which the port does not
-    have yet."""
+    """The training mesh: `make_mesh` of the preset's mesh (data, space
+    and model axes) over the run's processes at the global batch."""
     from ldm3d_torch.parallel.mesh import make_mesh
-    if cfg.train.mesh.model > 1:
-        raise SystemExit("ldm3d_torch: tensor parallelism (a mesh 'model' "
-                         "axis) is not ported yet; see ROADMAP queue 1 "
-                         "item 9(c)")
     return make_mesh(cfg.train.mesh, batch_size=cfg.train.batch_size)
 
 
@@ -495,7 +499,8 @@ def run_train_vq(cfg, args):
                                      patience=10)
     logdir = _ckpt_dir(cfg, "vq")
     ckpt = CheckpointManager(logdir, keep=cfg.train.keep_checkpoints,
-                             save_best_only=args.save_best_only)
+                             save_best_only=args.save_best_only,
+                             write=primary)
     initial_epoch = _maybe_resume(ckpt, trainer, args.resume_ckpt)
 
     image_logger = None
@@ -519,7 +524,7 @@ def run_train_vq(cfg, args):
         fit_with_recovery, max_restarts=args.auto_resume)
     metrics = fit_fn(
         trainer, train_loader, cfg.train.epochs, val_loader=val_loader,
-        ckpt=None if args.test_run or not primary else ckpt,
+        ckpt=None if args.test_run else ckpt,
         image_logger=image_logger,
         csv_logger=CSVLogger(os.path.join(logdir, "training.log"),
                              append=args.resume_ckpt is not None)
@@ -647,7 +652,7 @@ def run_train_dm(cfg, args):
         print(f"loaded stage-1 VQ-VAE weights from epoch {vq_epoch}")
 
     ckpt = CheckpointManager(_ckpt_dir(cfg, "dm"),
-                             keep=cfg.train.keep_checkpoints)
+                             keep=cfg.train.keep_checkpoints, write=primary)
     initial_epoch = _maybe_resume(ckpt, trainer, args.resume_ckpt)
     # a checkpoint carries its latent scale: encode and record with it
     cfg = replace(cfg, diffusion=trainer.cfg)
@@ -690,16 +695,14 @@ def run_train_dm(cfg, args):
             feats.append(trainer.latent_features(batch[0]))
             ctx_rows.append(batch[2].cpu().numpy().reshape(-1))
         if pdist.process_count() > 1:
-            # every process's rows to process 0, batch by batch in the
-            # one-process order: process 0 alone evaluates (the U-Net is
-            # in eval mode there, so the others need not run with it;
-            # they wait at the loop's end-of-epoch barrier)
-            parts = [None] * pdist.process_count() if primary else None
-            torch.distributed.gather_object((feats, ctx_rows), parts, dst=0)
-            if primary:
-                feats = [p[0][i] for i in range(len(feats)) for p in parts]
-                ctx_rows = [p[1][i] for i in range(len(ctx_rows))
-                            for p in parts]
+            # every process's rows to every process, batch by batch in the
+            # one-process order: every process evaluates the same samples
+            # (a sharded U-Net samples with collectives on all of them)
+            parts = [None] * pdist.process_count()
+            torch.distributed.all_gather_object(parts, (feats, ctx_rows))
+            feats = [p[0][i] for i in range(len(feats)) for p in parts]
+            ctx_rows = [p[1][i] for i in range(len(ctx_rows))
+                        for p in parts]
         real_feats = np.concatenate(feats, axis=0)
         real_ctx = (np.concatenate(ctx_rows, axis=0)
                     if args.fidelity_by_class and trainer.conditional
@@ -710,7 +713,7 @@ def run_train_dm(cfg, args):
                   f"split)")
 
         def epoch_callback(epoch, tr):
-            if (epoch + 1) % args.fidelity_freq != 0 or not primary:
+            if (epoch + 1) % args.fidelity_freq != 0:
                 return {}
             gen = torch.Generator(device=device).manual_seed(
                 cfg.train.seed + 5000 + epoch)
@@ -799,7 +802,7 @@ def run_train_dm(cfg, args):
         fit_with_recovery, max_restarts=args.auto_resume)
     metrics = fit_fn(
         trainer, train_loader, cfg.train.epochs,
-        ckpt=None if args.test_run or not primary else ckpt,
+        ckpt=None if args.test_run else ckpt,
         image_logger=image_logger,
         epoch_callback=epoch_callback,
         csv_logger=CSVLogger(os.path.join(logdir, "training.log"),
@@ -1083,16 +1086,6 @@ def run_create_dataset(cfg, args):
         print(f"cache at {cfg.data.cache_dir}")
 
 
-def _refuse_auto_resume(args, processes: int) -> None:
-    """--auto_resume restores on process 0 alone (the only one with a
-    checkpoint manager), so a failure on one process would leave the
-    others waiting in a collective: refused over several processes."""
-    if args.auto_resume and processes > 1:
-        raise SystemExit("ldm3d_torch: --auto_resume over several "
-                         "processes is not ported yet; see ROADMAP queue 1 "
-                         "item 9(d)")
-
-
 def _local_process(index: int, argv, n: int, port: int) -> None:
     """Process `index` of a --cpu_devices run."""
     main(list(argv) + ["--cpu_devices", "0", "--coordinator",
@@ -1121,7 +1114,6 @@ def main(argv=None):
             raise SystemExit("ldm3d_torch: --cpu_devices starts local "
                              "processes on the CPU: pass --platform cpu and "
                              "no coordinator")
-        _refuse_auto_resume(args, args.cpu_devices)
         _run_local_processes(argv, args.cpu_devices)
         return
     if pdist.initialize(args.coordinator, args.num_processes,
@@ -1130,7 +1122,6 @@ def main(argv=None):
               f"{pdist.process_count()}, backend "
               f"{pdist.collective_backend()}, device {pdist.process_device()}")
     try:
-        _refuse_auto_resume(args, pdist.process_count())
         from ldm3d_torch.core.presets import get_preset
         cfg = apply_overrides(get_preset(args.preset), args)
         _device(args)       # no GPU and no --platform cpu: raise before work

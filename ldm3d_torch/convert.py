@@ -168,10 +168,13 @@ def flax_state(module: nn.Module, prefix: str = ""
     """The inverse of `convert_state` for one module: its parameters and
     buffers as {collection: {flax path: array}} in the flax layout, paths
     '/'-joined under `prefix` (e.g. "unet"). For an EMA copy of the U-Net,
-    take the "params" collection."""
+    take the "params" collection. A tensor-parallel module's shards are
+    gathered whole (inside `parallel.tp.model_sharding`; a collective)."""
+    from ldm3d_torch.parallel import tp
     out: Dict[str, Dict[str, np.ndarray]] = {}
     for mod_name, mod in module.named_modules():
-        items = list(mod.named_parameters(recurse=False)) \
+        items = [(n, tp.full(mod, n))
+                 for n, _ in mod.named_parameters(recurse=False)] \
             + list(mod.named_buffers(recurse=False))
         for name, t in items:
             coll, leaf, arr = _flax_leaf(mod, name, t)

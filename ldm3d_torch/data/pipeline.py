@@ -142,8 +142,8 @@ def _epoch_plan(loader) -> Tuple[np.ndarray, torch.Generator]:
     """The next epoch of a volume loader: its visiting order (shuffled
     with `np.random.default_rng(seed + epoch)` when training) and its
     augmentation generator, seeded from that generator's next draw."""
-    rng = np.random.default_rng(loader.seed + loader._epoch)
-    loader._epoch += 1
+    rng = np.random.default_rng(loader.seed + loader.epoch)
+    loader.epoch += 1
     order = np.array(loader.indices)
     if loader.train:
         rng.shuffle(order)
@@ -178,7 +178,12 @@ class DataLoader:
         self.prefetch = prefetch
         self.device = resolve_device(device)
         self.reader = "native" if cache.reader is not None else "numpy"
-        self._epoch = 0
+        self.epoch = 0
+
+    def seek(self, epoch: int) -> None:
+        """Make the next pass the loader's `epoch`-th (0 is the first):
+        its order and augmentation (a recovered run replays an epoch)."""
+        self.epoch = epoch
 
     def __len__(self) -> int:
         return len(self.indices) // self.batch_size
@@ -279,7 +284,12 @@ class DeviceSyntheticLoader:
         self.device = resolve_device(device)
         self.corpus = corpus_draws(corpus_seed, num_volumes,
                                    num_classes=cfg.num_classes)
-        self._epoch = 0
+        self.epoch = 0
+
+    def seek(self, epoch: int) -> None:
+        """Make the next pass the loader's `epoch`-th (0 is the first):
+        its order and augmentation (a recovered run replays an epoch)."""
+        self.epoch = epoch
 
     def __len__(self) -> int:
         return len(self.indices) // self.batch_size
@@ -313,7 +323,9 @@ class LatentLoader:
         self.context = context
         self.batch_size = int(batch_size)
         self.rows = local_batch_rows(mesh, self.batch_size)
+        self.seed = seed
         self._rng = np.random.default_rng(seed)
+        self.epoch = 0
         self.n = int(latents.shape[0])
         if self.n < self.batch_size:
             raise ValueError(
@@ -322,9 +334,17 @@ class LatentLoader:
     def __len__(self):
         return self.n // self.batch_size
 
+    def seek(self, epoch: int) -> None:
+        """Make the next pass the loader's `epoch`-th (0 is the first)."""
+        self._rng = np.random.default_rng(self.seed)
+        for _ in range(epoch):
+            self._rng.permutation(self.n)
+        self.epoch = epoch
+
     def __iter__(self):
         order = torch.from_numpy(self._rng.permutation(self.n)).to(
             self.latents.device)
+        self.epoch += 1
         bs = self.batch_size
         for i in range(self.n // bs):
             idx = _rows_of(order, i, bs, self.rows)

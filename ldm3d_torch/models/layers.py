@@ -16,6 +16,13 @@ SYMMETRIC pad fetch their halo rows from the neighbouring slabs
 BatchNorm over the data x space processes; an op whose slab cannot serve
 it (fewer rows than its halo, or not divisible by its stride) computes
 the whole volume and keeps its slab (`spatial.gathered`).
+
+Under `parallel.tp.model_sharding` a layer whose parameters
+`tp.shard_module` split computes with its shards: a conv its slab of
+output channels, gathered along C; a transposed conv a partial sum over
+its slice of input channels, summed over the model group; a split vector
+(a bias, a norm's scale or offset, a PReLU slope) is gathered where it
+is used. Inputs and outputs are whole channels either way.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ldm3d_torch.models.quantizers import Quantizer
-from ldm3d_torch.parallel import spatial
+from ldm3d_torch.parallel import spatial, tp
 from ldm3d_torch.parallel.distributed import all_reduce_sum
 from ldm3d_torch.parallel.halo import (_halo_widths, halo_conv_slab,
                                        halo_exchange, transposed_halo)
@@ -55,8 +62,17 @@ def _check_init(kind: str) -> str:
     return kind
 
 
+class Dense(nn.Linear):
+    """flax `nn.Dense` (`nn.Linear`, weight (out, in)); under
+    `parallel.tp.model_sharding` its bias may be split, and is gathered
+    here (the kernel is 2-D: whole on every process, as in JAX)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, tp.full(self, "bias"))
+
+
 def with_init(module: nn.Module, kernel_init: str) -> nn.Module:
-    """`module` (an `nn.Linear`, whose default under `init_jax_` is
+    """`module` (a `Dense`, whose default under `init_jax_` is
     glorot-uniform) with the kernel init `kernel_init`."""
     module.kernel_init = _check_init(kernel_init)
     return module
@@ -97,6 +113,12 @@ class Conv3d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if tp.split_dim(self, "weight") is None:
+            return self._conv(x)
+        # split on its output channels: this process's slab, gathered
+        return tp.gather_channels(self._conv(tp.column(x)))
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
         if self.padding == "VALID":
             # over slabs the caller has attached the halo (a SYMMETRIC
             # pad, the space-to-depth stem): the conv is local
@@ -107,7 +129,7 @@ class Conv3d(nn.Module):
                               self.kernel, self.stride)
         left, right = _halo_widths(self.kernel[2], self.stride[2])
         if not spatial.fits(x.shape[4], left, right, self.stride[2]):
-            return spatial.gathered(self.forward, x)
+            return spatial.gathered(self._conv, x)
         pads = [same_pads(n, k, s) for n, k, s in zip(
             x.shape[2:4], self.kernel, self.stride)]
         return halo_conv_slab(x, self.weight, self.bias, left, right,
@@ -145,8 +167,8 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _same_conv(F.conv2d, x, self.weight, self.bias, self.kernel,
-                          self.stride)
+        return _same_conv(F.conv2d, x, self.weight, tp.full(self, "bias"),
+                          self.kernel, self.stride)
 
 
 def symmetric_pad3d(x: torch.Tensor, kernel: Tuple[int, int, int],
@@ -223,9 +245,19 @@ class ConvTranspose3d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = tp.full(self, "bias")
+        if tp.split_dim(self, "weight") is None:
+            return self._conv(x, self.weight, bias)
+        # split on its input channels: a partial sum over this process's
+        # slice of them, summed over the model group
+        y = tp.sum_partials(self._conv(tp.input_slice(x), self.weight, None))
+        return y if bias is None else y + bias.view(1, -1, 1, 1, 1)
+
+    def _conv(self, x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
         if self.padding == "VALID":
             # over slabs the caller padded and crops (a SYMMETRIC pad)
-            return F.conv_transpose3d(x, self.weight, self.bias, self.stride)
+            return F.conv_transpose3d(x, weight, bias, self.stride)
         before = [max(k - s, 0) // 2 for k, s in zip(self.kernel, self.stride)]
         after = [max(k - s, 0) - b for k, s, b in
                  zip(self.kernel, self.stride, before)]
@@ -234,7 +266,7 @@ class ConvTranspose3d(nn.Module):
         n_out = [n * s for n, s in zip(x.shape[2:], self.stride)]
         mesh = spatial.sharded()
         if mesh is None:
-            y = F.conv_transpose3d(x, self.weight, self.bias, self.stride,
+            y = F.conv_transpose3d(x, weight, bias, self.stride,
                                    padding=tuple(common))
             if tuple(before) == tuple(after):
                 return y
@@ -245,8 +277,9 @@ class ConvTranspose3d(nn.Module):
             left, right, start = transposed_halo(self.kernel[2],
                                                  self.stride[2])
             if not spatial.fits(x.shape[4], left, right):
-                return spatial.gathered(self.forward, x)
-            y = halo_conv_slab(x, self.weight, self.bias, left, right,
+                return spatial.gathered(
+                    lambda v: self._conv(v, weight, bias), x)
+            y = halo_conv_slab(x, weight, bias, left, right,
                                self.stride, [(c, c) for c in common[:2]],
                                mesh, transposed=True)
             starts[2] = start
@@ -289,7 +322,7 @@ class PReLU(nn.Module):
         self.alpha = nn.Parameter(torch.full((channels,), negative_slope_init))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        alpha = self.alpha.to(x.dtype).view(1, -1, 1, 1, 1)
+        alpha = tp.full(self, "alpha").to(x.dtype).view(1, -1, 1, 1, 1)
         return torch.where(x >= 0, x, alpha * x)
 
 
@@ -390,16 +423,17 @@ class _BatchNorm(nn.Module):
 
     def _normalize(self, x, mean, var):
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(var + self.eps) * self.weight
+        mul = torch.rsqrt(var + self.eps) * tp.full(self, "weight")
         return (x - mean.view(shape)) * mul.view(shape) \
-            + self.bias.view(shape)
+            + tp.full(self, "bias").view(shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             if self.live_stats is not None:
                 return self._normalize(x, *self.live_stats)
             return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, training=False,
+                                tp.full(self, "weight"),
+                                tp.full(self, "bias"), training=False,
                                 eps=self.eps)
         dims = [0, *range(2, x.dim())]
         group = spatial.stats_group(self.group)
@@ -435,11 +469,11 @@ class _GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mesh = spatial.sharded()
+        weight, bias = tp.full(self, "weight"), tp.full(self, "bias")
         if mesh is None:
-            return F.group_norm(x, self.groups, self.weight, self.bias,
-                                eps=self.eps)
-        return _SlabGroupNorm.apply(x, self.weight, self.bias, self.groups,
-                                    self.eps, mesh.shape[SPACE_AXIS],
+            return F.group_norm(x, self.groups, weight, bias, eps=self.eps)
+        return _SlabGroupNorm.apply(x, weight, bias, self.groups, self.eps,
+                                    mesh.shape[SPACE_AXIS],
                                     mesh.group(SPACE_AXIS))
 
 
@@ -497,7 +531,8 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.channels_first:
             x = x.movedim(1, -1)
-        y = F.layer_norm(x, (x.shape[-1],), self.weight, self.bias, eps=1e-6)
+        y = F.layer_norm(x, (x.shape[-1],), tp.full(self, "weight"),
+                         tp.full(self, "bias"), eps=1e-6)
         return y.movedim(-1, 1) if self.channels_first else y
 
 

@@ -30,8 +30,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ldm3d_torch.core.config import UNetConfig
-from ldm3d_torch.models.layers import (Conv3d, LayerNorm, Norm, upsample3d,
-                                       with_init)
+from ldm3d_torch.models.layers import (Conv3d, Dense, LayerNorm, Norm,
+                                       upsample3d, with_init)
 from ldm3d_torch.ops.attention import voxel_attention
 from ldm3d_torch.parallel import spatial
 
@@ -77,8 +77,8 @@ class TimeEmbedding(nn.Module):
 class TimeMLP(nn.Module):
     def __init__(self, in_features: int, units: int):
         super().__init__()
-        self.Dense_0 = nn.Linear(in_features, units)
-        self.Dense_1 = nn.Linear(units, units)
+        self.Dense_0 = Dense(in_features, units)
+        self.Dense_1 = Dense(units, units)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         return self.Dense_1(F.silu(self.Dense_0(t)))
@@ -95,7 +95,7 @@ class ResidualBlock(nn.Module):
             self.skip_proj = Conv3d(in_channels, width, 1)
         else:
             self.skip_proj = None
-        self.temb_proj = nn.Linear(temb_dim, width)
+        self.temb_proj = Dense(temb_dim, width)
         self.norm1 = Norm(norm, in_channels)
         self.conv1 = Conv3d(in_channels, width, 3)
         self.norm2 = Norm(norm, width)
@@ -118,10 +118,10 @@ class AttentionBlock(nn.Module):
         super().__init__()
         self.units = units
         self.norm = Norm(norm, units)
-        self.query = nn.Linear(units, units)
-        self.key = nn.Linear(units, units)
-        self.value = nn.Linear(units, units)
-        self.proj = with_init(nn.Linear(units, units), "zeros")
+        self.query = Dense(units, units)
+        self.key = Dense(units, units)
+        self.value = Dense(units, units)
+        self.proj = with_init(Dense(units, units), "zeros")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xn = self.norm(x)
@@ -146,14 +146,14 @@ class CrossAttentionBlock(nn.Module):
         self.norm = Norm(norm, units)
         self.proj_in = Conv3d(units, units, 1)
         # flax's default Dense init: lecun normal
-        self.query = with_init(nn.Linear(units, units), "lecun_normal")
-        self.key = with_init(nn.Linear(units, units), "lecun_normal")
-        self.value = with_init(nn.Linear(units, units), "lecun_normal")
+        self.query = with_init(Dense(units, units), "lecun_normal")
+        self.key = with_init(Dense(units, units), "lecun_normal")
+        self.value = with_init(Dense(units, units), "lecun_normal")
         self.norm1 = LayerNorm(units)
         self.norm2 = LayerNorm(units)
         self.norm3 = LayerNorm(units)
-        self.mlp1 = with_init(nn.Linear(units, units * 4), "lecun_normal")
-        self.mlp2 = with_init(nn.Linear(units * 4, units), "lecun_normal")
+        self.mlp1 = with_init(Dense(units, units * 4), "lecun_normal")
+        self.mlp2 = with_init(Dense(units * 4, units), "lecun_normal")
         self.proj_out = Conv3d(units, units, 1)
 
     def _attend(self, x_seq: torch.Tensor,
@@ -201,7 +201,7 @@ class ContextMLP(nn.Module):
         self.spatial = tuple(spatial)
         self.channels = channels
         self.Dense_0 = with_init(
-            nn.Linear(in_features, math.prod(spatial) * channels),
+            Dense(in_features, math.prod(spatial) * channels),
             "lecun_normal")
 
     def forward(self, cemb: torch.Tensor) -> torch.Tensor:

@@ -38,9 +38,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ldm3d_torch.core.config import DiscriminatorConfig, VQVAEConfig
-from ldm3d_torch.models.layers import (Conv2d, Conv3d, ConvTranspose3d, Norm,
-                                       act_layer, avgpool3d, symmetric_pad3d,
-                                       upsample3d, with_init)
+from ldm3d_torch.models.layers import (Conv2d, Conv3d, ConvTranspose3d, Dense,
+                                       Norm, act_layer, avgpool3d,
+                                       symmetric_pad3d, upsample3d, with_init)
 from ldm3d_torch.models.quantizers import Draws, QuantAux, make_quantizer
 from ldm3d_torch.models.vqvae import (Decoder, Encoder, VQVAEResidualUnit,
                                       _dropout, _ncdhw, _ndhwc, _run_unit)
@@ -413,9 +413,9 @@ class Discriminator3D(_Critic):
             for _ in cfg.num_channels:
                 side = -(-side // 2)
             self.dense1 = with_init(
-                nn.Linear(cfg.num_channels[-1] * side ** 3, 64),
+                Dense(cfg.num_channels[-1] * side ** 3, 64),
                 "lecun_normal")
-            self.dense2 = with_init(nn.Linear(64, 1), "lecun_normal")
+            self.dense2 = with_init(Dense(64, 1), "lecun_normal")
         else:
             ch = cfg.num_channels[-1]
             self.head = Conv3d(ch, 1, 4)

@@ -33,7 +33,7 @@ from ldm3d_torch.core.config import VQVAEConfig
 from ldm3d_torch.models.layers import (Conv3d, ConvTranspose3d, Norm, PReLU,
                                        _BatchNorm, act_layer)
 from ldm3d_torch.models.quantizers import Draws, QuantAux, make_quantizer
-from ldm3d_torch.parallel import spatial
+from ldm3d_torch.parallel import spatial, tp
 from ldm3d_torch.parallel.halo import halo_exchange
 
 
@@ -97,26 +97,29 @@ def _save_convolutions(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 class _Recompute:
     """The recompute context of a checkpointed unit: its BatchNorms leave
     their running statistics alone (the forward pass updated them), and
-    the unit runs under the spatial sharding of its forward pass (the
-    backward pass may run on another thread, which does not see the
-    forward's thread-local context)."""
+    the unit runs under the spatial and tensor-parallel sharding of its
+    forward pass (the backward pass may run on another thread, which does
+    not see the forward's thread-local contexts)."""
 
     def __init__(self, unit: nn.Module, inner):
         self.norms = [m for m in unit.modules() if isinstance(m, _BatchNorm)]
         self.inner = inner
-        self.sharding = spatial.restoring(spatial.state())
+        self.saved = (spatial.state(), tp.state())
+        self.sharding = None
 
     def __enter__(self):
         for m in self.norms:
             m.update_stats = False
-        self.sharding.__enter__()
+        self.sharding = contextlib.ExitStack()
+        self.sharding.enter_context(spatial.restoring(self.saved[0]))
+        self.sharding.enter_context(tp.restoring(self.saved[1]))
         return self.inner.__enter__()
 
     def __exit__(self, *exc):
         try:
             return self.inner.__exit__(*exc)
         finally:
-            self.sharding.__exit__(None, None, None)
+            self.sharding.close()
             for m in self.norms:
                 m.update_stats = True
 

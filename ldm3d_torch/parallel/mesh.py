@@ -19,7 +19,11 @@ BatchNorm / codebook statistics are reduced.
              (`shard_batch(..., spatial_axis=3)`, `local_depth`), and the
              models exchange halo rows at conv edges under
              `parallel.spatial.spatial_sharding` (`parallel.halo`).
-  - "model": conv output channels (not ported yet).
+  - "model": tensor parallelism. The wide conv kernels and vectors of
+             the trained networks are split over it (`parallel.tp`):
+             each process of a model line holds its slices, the same
+             rows and depth slab as the others, and the whole
+             activations; gradients are reduced over `BATCH` alone.
 
 `mesh_shape` holds the decisions of `make_mesh` as a pure function of
 the device and process counts.

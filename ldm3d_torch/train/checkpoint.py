@@ -12,6 +12,10 @@ synchronous: `wait` and `close` have nothing to wait for.
 Retention keeps the newest `keep` epochs and every pinned epoch (the
 best-metric epochs of `loop.fit`, recorded in `pinned.json`, which a new
 manager on the same directory honours).
+
+Across processes each holds a manager on the one directory; process 0's
+writes (`write=True`) and the others' only read: their `save` takes the
+same decisions (save_best_only, pins) and writes nothing.
 """
 
 from __future__ import annotations
@@ -30,9 +34,11 @@ class CheckpointManager:
     """Epoch-indexed checkpoints with retention and pinning."""
 
     def __init__(self, directory: str, keep: int = 5,
-                 save_best_only: bool = False):
+                 save_best_only: bool = False, write: bool = True):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(self.directory, exist_ok=True)
         self.save_best_only = save_best_only
         self.keep = keep
         self._best = float("inf")
@@ -50,6 +56,8 @@ class CheckpointManager:
         return os.path.join(self.directory, f"{epoch}.pt")
 
     def all_epochs(self) -> list[int]:
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(m.group(1)) for m in map(
             _FILE.match, os.listdir(self.directory)) if m)
 
@@ -60,11 +68,16 @@ class CheckpointManager:
         `metric` improved. `pin` names a best-metric slot: this epoch
         replaces the slot's previous holder and is kept whatever `keep`
         says until a better epoch takes the slot. Returns whether it
-        saved."""
+        saved (a manager that does not write returns what one that
+        writes would, and writes nothing)."""
         if self.save_best_only and metric is not None:
             if metric >= self._best:
                 return False
             self._best = metric
+        if not self.write:
+            if pin is not None:
+                self._pinned[pin] = epoch
+            return True
         final = self.path(epoch)
         tmp = final + ".tmp"
         torch.save(state, tmp)

@@ -19,7 +19,12 @@ process takes on the global batch. With a 'space' axis the steps,
 latents whole (their rows of the batch), and the U-Net and the frozen
 VQ-VAE run on depth slabs; each process's loss is its slab's share.
 `encode_latents` and `generate` return whole latents and volumes, equal
-on every process of the space group.
+on every process of the space group. With a 'model' axis the U-Net's
+wide conv kernels and vectors (and so Adam's moments and the EMA copy's)
+are split over the model group (`parallel.tp`; the steps and `generate`
+run inside `tp.mesh_sharding`); the frozen VQ-VAE stays whole on every
+process. `state_dict` / `load_state_dict` hold whole tensors, one
+process's.
 """
 
 from __future__ import annotations
@@ -45,12 +50,13 @@ from ldm3d_torch.models.unet3d import UNet3D
 from ldm3d_torch.models.vqvae import VQVAE
 from ldm3d_torch.ops.fid import (frechet_distance, latent_fidelity,
                                  pool_latent_features)
-from ldm3d_torch.parallel import spatial
+from ldm3d_torch.parallel import spatial, tp
 from ldm3d_torch.parallel.distributed import (reduce_gradients,
                                               reduce_metrics)
 from ldm3d_torch.parallel.mesh import (attach_data_group, batch_group,
                                        data_shard)
 from ldm3d_torch.parallel.spatial import spatial_sharding
+from ldm3d_torch.parallel.tp import mesh_sharding
 
 SAMPLERS = ("ddpm", "ddim", "dpmpp", "dpmpp_sde")
 
@@ -134,15 +140,18 @@ class DiffusionTrainer:
         self.optimizer: Optional[torch.optim.Adam] = None
         self.step = 0
         self.mesh = mesh
-        # the frozen stage-1 runs in eval mode only: no global statistics
+        # the frozen stage-1 runs in eval mode only: no global statistics,
+        # and whole on every process
         attach_data_group(self.model.unet, mesh)
+        tp.shard_module(self.model.unet, mesh)
 
     def init_random(self, seed: int, scheme: str = "jax"
                     ) -> "DiffusionTrainer":
         """Seeded random weights: the JAX package's init (`layers.init_jax_`)
         or, with scheme "reach", `layers.init_params_`."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        INIT_SCHEMES[scheme](self.model, gen)
+        with tp.whole_parameters(self.model, self.mesh):
+            INIT_SCHEMES[scheme](self.model, gen)
         return self
 
     def snapshot_modules(self) -> Tuple[nn.Module, Optional[nn.Module]]:
@@ -159,11 +168,18 @@ class DiffusionTrainer:
                          ema_unet_state: Optional[Dict] = None) -> None:
         """Load `convert.convert_state`'s output: the model state, strict,
         and the U-Net's EMA state when the checkpoint has one."""
-        self.model.load_state_dict(model_state, strict=True)
+        self.model.load_state_dict(
+            tp.sliced_state(self.model, model_state, self.mesh), strict=True)
+        self._load_ema(ema_unet_state)
+
+    def _load_ema(self, ema_unet_state: Optional[Dict]) -> None:
+        """The EMA U-Net of a whole state, or None; a copy of the U-Net,
+        sharded as it is."""
         self.ema_unet = None
         if ema_unet_state is not None:
             ema = copy.deepcopy(self.model.unet)
-            ema.load_state_dict(ema_unet_state, strict=True)
+            ema.load_state_dict(tp.sliced_state(ema, ema_unet_state,
+                                                self.mesh), strict=True)
             self.ema_unet = ema.eval().requires_grad_(False)
 
     def state_dict(self) -> dict:
@@ -172,13 +188,18 @@ class DiffusionTrainer:
         included), the EMA U-Net, Adam's state (moments, step count,
         learning rate), the step, the generator's state and the latent
         scale. Tensors are the live ones (as `nn.Module.state_dict`):
-        serialise or copy before the next step."""
+        serialise or copy before the next step. Under a 'model' axis the
+        sharded tensors are gathered whole (a collective)."""
         return {
-            "model": self.model.state_dict(),
+            "model": tp.whole_state(self.model, self.model.state_dict(),
+                                    self.mesh),
             "ema_unet": None if self.ema_unet is None
-            else self.ema_unet.state_dict(),
+            else tp.whole_state(self.ema_unet, self.ema_unet.state_dict(),
+                                self.mesh),
             "optimizer": None if self.optimizer is None
-            else self.optimizer.state_dict(),
+            else tp.whole_optimizer_state(
+                self.optimizer, self.optimizer.state_dict(),
+                tp.param_dims(self.model), self.mesh),
             "step": self.step,
             "generator": self.generator.get_state(),
             "latent_scale": self.cfg.latent_scale,
@@ -192,15 +213,15 @@ class DiffusionTrainer:
         no optimizer is built."""
         self.set_latent_scale(float(state["latent_scale"]),
                               float(state["clip_sample_range"]))
-        self.model.load_state_dict(state["model"], strict=True)
-        self.ema_unet = None
-        if state["ema_unet"] is not None:
-            ema = copy.deepcopy(self.model.unet)
-            ema.load_state_dict(state["ema_unet"], strict=True)
-            self.ema_unet = ema.eval().requires_grad_(False)
+        self.model.load_state_dict(
+            tp.sliced_state(self.model, state["model"], self.mesh),
+            strict=True)
+        self._load_ema(state["ema_unet"])
         self.optimizer = None
         if optimizer and state["optimizer"] is not None:
-            self._optimizer().load_state_dict(state["optimizer"])
+            self._optimizer().load_state_dict(tp.sliced_optimizer_state(
+                self.optimizer, state["optimizer"],
+                tp.param_dims(self.model), self.mesh))
         self.step = int(state["step"])
         self.generator.set_state(state["generator"].cpu())
 
@@ -287,7 +308,7 @@ class DiffusionTrainer:
         x_t = q_sample(self._sched_dev, latents, t, noise)
         unet.train()
         try:
-            with spatial_sharding(self.mesh):
+            with mesh_sharding(self.mesh):
                 # over a space mesh the U-Net takes this process's depth
                 # slab of the noised latents; the loss is the slab's share
                 x_t, target = (spatial.shard_spatial(a)
@@ -389,7 +410,7 @@ class DiffusionTrainer:
         Over a space mesh every process samples the same whole latents,
         each U-Net call and the decode run on depth slabs, and the whole
         volume is returned on every process."""
-        with spatial_sharding(self.mesh):
+        with mesh_sharding(self.mesh):
             return self._generate(
                 latent_shape, context, generator, init_noise, step_noise,
                 use_ema, sampler, sample_steps, eta, guidance_scale,

@@ -37,7 +37,11 @@ per-sample terms, is averaged with the rest of the metrics. With a
 mean), and everything after it (the frames, LPIPS, both critics, R1, the
 adaptive weight) on the gathered volumes inside `spatial.whole()`, whole
 on every process of the space group; both optimizers' gradients and the
-metrics are averaged over the data x space group.
+metrics are averaged over the data x space group. With a 'model' axis
+the autoencoder's and both critics' wide conv kernels and vectors (and
+both optimizers' moments) are split over the model group
+(`parallel.tp`; the steps run inside `tp.mesh_sharding`), LPIPS stays
+whole; `state_dict` / `load_state_dict` hold whole tensors.
 """
 
 from __future__ import annotations
@@ -63,13 +67,13 @@ from ldm3d_torch.models.vqgan import (Discriminator2D, Discriminator3D,
                                       VQGANAutoencoder, hinge_d_loss,
                                       vanilla_d_loss)
 from ldm3d_torch.ops.metrics import volume_psnr, volume_ssim
-from ldm3d_torch.parallel import spatial
+from ldm3d_torch.parallel import spatial, tp
 from ldm3d_torch.parallel.distributed import (all_reduce_sum,
                                               reduce_gradients,
                                               reduce_metrics)
 from ldm3d_torch.parallel.mesh import (attach_data_group, batch_group,
                                        data_group, data_shard)
-from ldm3d_torch.parallel.spatial import spatial_sharding
+from ldm3d_torch.parallel.tp import mesh_sharding
 
 
 class VQGANModules(nn.Module):
@@ -129,6 +133,8 @@ class GANTrainer:
         attach_data_group(self.model, mesh)
         self.ae, self.disc3d = self.model.ae, self.model.disc3d
         self.disc2d, self.lpips = self.model.disc2d, self.model.lpips
+        for m in (self.ae, self.disc3d, self.disc2d):   # LPIPS: frozen
+            tp.shard_module(m, mesh)
         # the critics' fake, R1 and adaptive forwards read the statistics
         # of their real forward as JAX does, gradients included
         self._critic_norms = [m for d in (self.disc3d, self.disc2d)
@@ -160,7 +166,8 @@ class GANTrainer:
         $LDM3D_LPIPS_WEIGHTS, or else the self-calibrated random-feature
         surrogate over the random trunk (with a warning)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        INIT_SCHEMES[scheme](self.model, gen)
+        with tp.whole_parameters(self.model, self.mesh):
+            INIT_SCHEMES[scheme](self.model, gen)
         flat = load_lpips_params()
         self.lpips_pretrained = flat is not None
         if flat is not None:
@@ -184,11 +191,18 @@ class GANTrainer:
         """The whole training state: the four networks (weights,
         BatchNorm statistics, quantizer buffers), both optimizers, the
         step, the epoch, the generator's state and the config. Tensors
-        are the live ones."""
+        are the live ones. Under a 'model' axis the sharded tensors are
+        gathered whole (a collective)."""
+        dims = tp.param_dims(self.model)
         return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "disc_optimizer": self.disc_optimizer.state_dict(),
+            "model": tp.whole_state(self.model, self.model.state_dict(),
+                                    self.mesh),
+            "optimizer": tp.whole_optimizer_state(
+                self.optimizer, self.optimizer.state_dict(), dims,
+                self.mesh),
+            "disc_optimizer": tp.whole_optimizer_state(
+                self.disc_optimizer, self.disc_optimizer.state_dict(), dims,
+                self.mesh),
             "step": self.step,
             "epoch": self.epoch,
             "generator": self.generator.get_state(),
@@ -197,11 +211,17 @@ class GANTrainer:
 
     def load_state_dict(self, state: dict, optimizer: bool = True) -> None:
         """Restore `state_dict()`'s output onto this trainer's device; with
-        `optimizer=False` (evaluation only) both Adams are left."""
-        self.model.load_state_dict(state["model"], strict=True)
+        `optimizer=False` (evaluation only) both Adams are left. The state
+        holds whole tensors; this process keeps its shards."""
+        self.model.load_state_dict(
+            tp.sliced_state(self.model, state["model"], self.mesh),
+            strict=True)
         if optimizer:
-            self.optimizer.load_state_dict(state["optimizer"])
-            self.disc_optimizer.load_state_dict(state["disc_optimizer"])
+            dims = tp.param_dims(self.model)
+            for opt, key in ((self.optimizer, "optimizer"),
+                             (self.disc_optimizer, "disc_optimizer")):
+                opt.load_state_dict(tp.sliced_optimizer_state(
+                    opt, state[key], dims, self.mesh))
         self.step = int(state["step"])
         self.epoch = int(state["epoch"])
         self.generator.set_state(state["generator"].cpu())
@@ -220,7 +240,8 @@ class GANTrainer:
         """Load `convert_snapshot`'s output (strict)."""
         if ema_state is not None:
             raise ValueError("a VQ-GAN snapshot has no ema_params")
-        self.model.load_state_dict(model_state, strict=True)
+        self.model.load_state_dict(
+            tp.sliced_state(self.model, model_state, self.mesh), strict=True)
 
     # -- the losses -------------------------------------------------------
 
@@ -243,7 +264,7 @@ class GANTrainer:
         """(total loss, metrics, reconstruction of the image channel,
         volume), the JAX `_forward_losses`; the last two whole. In
         training the networks must be in training mode; in eval, under
-        no_grad. Runs inside `spatial_sharding(self.mesh)`."""
+        no_grad. Runs inside `mesh_sharding(self.mesh)`."""
         x = torch.cat([vol, mask], dim=-1)
         recon, aux = self.ae(x, draws)
         img_recon = recon[..., :vol.shape[-1]]
@@ -413,7 +434,7 @@ class GANTrainer:
         draws = draws or Draws(self.generator, shard=data_shard(self.mesh))
         self._networks(True)
         try:
-            with spatial_sharding(self.mesh):
+            with mesh_sharding(self.mesh):
                 total, metrics, _, _ = self._forward_losses(
                     vol, mask, draws, True, warm=bool(warm))
                 self.optimizer.zero_grad(set_to_none=True)
@@ -457,7 +478,7 @@ class GANTrainer:
         if draws is None:
             draws = Draws(torch.Generator(device=self.device)
                           .manual_seed(seed), shard=data_shard(self.mesh))
-        with spatial_sharding(self.mesh):
+        with mesh_sharding(self.mesh):
             _, metrics, img_recon, vol = self._forward_losses(
                 vol, mask, draws, False)
             with spatial.whole():
@@ -475,5 +496,5 @@ class GANTrainer:
         """(reconstruction [B, H, W, D, out], QuantAux) in eval mode (over
         a space mesh, this process's depth slab)."""
         vol, mask = self._batch(vol, mask)
-        with spatial_sharding(self.mesh):
+        with mesh_sharding(self.mesh):
             return self.ae(torch.cat([vol, mask], dim=-1))

@@ -11,20 +11,36 @@ validation pass, the VQ-GAN's epoch counter, unused-code replacement, the
 plateau schedule, the epoch callback, logging and the checkpoint.
 
 Across processes every process runs the loop (the trainers reduce each
-step's metrics, so every process sees the global ones), the caller gives
-the loggers and the checkpoint manager to process 0 only, and the others
-wait at a barrier at the end of each epoch while it writes.
+step's metrics, so every process sees the global ones) and decides each
+save (the best-metric pins included): every process takes the trainer's
+state, which under tensor parallelism gathers its shards, and process 0
+alone writes it (its `CheckpointManager` writes, the others' only read)
+and the loggers' files. The epoch ends with one small all-reduce over
+the processes, which also waits for process 0's writes.
+
+`fit_with_recovery` makes failures collective: each process holds an
+exception raised where every process stands outside a collective (while
+a batch is fetched, in the epoch's own work, its logging and its save)
+until the next agreement, one all-reduce of a flag per process, after
+the fetch and before the step, and twice at the epoch's end. Then every
+process raises, and every process restores the epoch process 0 saved
+last. A failure inside a step on one process alone, between two of the
+step's collectives, is not caught so: the others wait in the collective.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ldm3d_torch.parallel.distributed import barrier, is_primary
+from ldm3d_torch.parallel.distributed import (barrier, is_initialized,
+                                              is_primary, process_count,
+                                              process_index)
 from ldm3d_torch.train.callbacks import (CSVLogger, MetricsLogger,
                                          ReduceLROnPlateau, get_learning_rate)
 from ldm3d_torch.train.checkpoint import CheckpointManager
@@ -38,6 +54,69 @@ def eval_seed(epoch: int, batch: int) -> int:
     """The seed of a VQ-GAN validation batch's frames: one per epoch and
     batch, so that the validation frames move between epochs."""
     return ((1000 + epoch) << 20) + batch
+
+
+class PeerFailure(RuntimeError):
+    """Raised by `fit`, with agreement on, on the processes that did not
+    fail when another did."""
+
+
+def _agree(err: Optional[BaseException]) -> None:
+    """One all-reduce over every process of a flag each: raises `err` on
+    the process that failed and `PeerFailure` on the others when any
+    did; a barrier otherwise. Without a process group, raises `err`."""
+    if is_initialized():
+        flags = torch.zeros(process_count(), dtype=torch.int32)
+        flags[process_index()] = err is not None
+        dist.all_reduce(flags)
+        failed = flags.nonzero().flatten().tolist()
+        if failed and err is None:
+            raise PeerFailure(f"process {failed} failed")
+    if err is not None:
+        raise err
+
+
+class _Held:
+    """The exceptions of blocks that every process runs (`hold`), kept
+    until `agree` when `on`, else raised at once. A process whose block
+    failed goes on with the blocks after it, so that it joins their
+    collectives."""
+
+    def __init__(self, on: bool):
+        self.on, self.err = on, None
+
+    @contextlib.contextmanager
+    def hold(self):
+        if not self.on:
+            yield
+            return
+        try:
+            yield
+        except Exception as e:       # held: raised by `agree`
+            self.err = self.err or e
+
+    def agree(self) -> None:
+        err, self.err = self.err, None
+        if self.on:
+            _agree(err)
+
+
+def _batches(loader, agree: bool):
+    """The batches of `loader`; with `agree`, each fetch (its failure or
+    its end) agreed on by every process before the step."""
+    it = iter(loader)
+    while True:
+        held = _Held(agree)
+        batch = end = None
+        with held.hold():
+            try:
+                batch = next(it)
+            except StopIteration:
+                end = True
+        held.agree()
+        if end:
+            return
+        yield batch
 
 
 def _mean_metrics(history: List[Dict[str, torch.Tensor]]
@@ -65,7 +144,7 @@ def fit(trainer, train_loader, epochs: int,
         image_logger=None,
         epoch_callback: Optional[Callable] = None,
         is_gan: bool = False,
-        verbose: bool = True) -> Dict[str, float]:
+        verbose: bool = True, agree: bool = False) -> Dict[str, float]:
     """Train `trainer` from `initial_epoch` to `epochs`; returns the last
     epoch's metrics.
 
@@ -87,7 +166,9 @@ def fit(trainer, train_loader, epochs: int,
       reports (pinned: retention never drops it); its metric for
       save_best_only is val_loss, else loss.
     - Across processes, only process 0 prints; every process waits for
-      the others at the end of each epoch.
+      the others at the end of each epoch. With `agree` (from
+      `fit_with_recovery`) failures are agreed on by every process (see
+      the module docstring).
     """
     verbose = verbose and is_primary()
     last_metrics: Dict[str, float] = {}
@@ -95,7 +176,7 @@ def fit(trainer, train_loader, epochs: int,
     for epoch in range(initial_epoch, epochs):
         t0 = time.time()
         history = []
-        for batch in train_loader:
+        for batch in _batches(train_loader, agree):
             if step_fn is not None:
                 metrics = step_fn(batch)
             else:
@@ -114,29 +195,36 @@ def fit(trainer, train_loader, epochs: int,
             if vh:
                 last_metrics.update({f"val_{k}": v for k, v in
                                      _mean_metrics(vh).items()})
-        if is_gan:
-            trainer.next_epoch()
-        if (replace_codebook_freq
-                and (epoch + 1) % replace_codebook_freq == 0):
-            last_metrics["codebooks_replaced"] = float(
-                trainer.replace_unused(num_batches))
-        if lr_schedule is not None:
-            _, reduced = lr_schedule(epoch, last_metrics, trainer.optimizer)
-            if reduced and verbose:
-                print(f"epoch {epoch + 1}: lr -> "
-                      f"{get_learning_rate(trainer.optimizer):.2e}")
+        held = _Held(agree)
+        with held.hold():
+            if is_gan:
+                trainer.next_epoch()
+            if (replace_codebook_freq
+                    and (epoch + 1) % replace_codebook_freq == 0):
+                last_metrics["codebooks_replaced"] = float(
+                    trainer.replace_unused(num_batches))
+            if lr_schedule is not None:
+                _, reduced = lr_schedule(epoch, last_metrics,
+                                         trainer.optimizer)
+                if reduced and verbose:
+                    print(f"epoch {epoch + 1}: lr -> "
+                          f"{get_learning_rate(trainer.optimizer):.2e}")
+            if epoch_callback is not None:
+                extra = epoch_callback(epoch, trainer)
+                if extra:
+                    last_metrics.update({k: float(v)
+                                         for k, v in extra.items()})
+        # the epoch's rows are written only once it stands on every process
+        held.agree()
 
-        if epoch_callback is not None:
-            extra = epoch_callback(epoch, trainer)
-            if extra:
-                last_metrics.update({k: float(v) for k, v in extra.items()})
-
-        if csv_logger is not None:
-            csv_logger(epoch, last_metrics)
-        if metrics_logger is not None:
-            metrics_logger(epoch, last_metrics)
-        if image_logger is not None:
-            image_logger(epoch, trainer)
+        with held.hold():
+            if csv_logger is not None:
+                csv_logger(epoch, last_metrics)
+            if metrics_logger is not None:
+                metrics_logger(epoch, last_metrics)
+        with held.hold():
+            if image_logger is not None:
+                image_logger(epoch, trainer)
         pin = None
         if ckpt is not None:
             for name, mode in _PIN_RULES:
@@ -151,16 +239,24 @@ def fit(trainer, train_loader, epochs: int,
         if ckpt is not None and (pin is not None
                                  or (epoch + 1) % max(ckpt_freq, 1) == 0
                                  or epoch + 1 == epochs):
-            ckpt.save(epoch + 1, trainer.state_dict(),
-                      metric=last_metrics.get("val_loss",
-                                              last_metrics.get("loss")),
-                      pin=pin)
-            if pin is not None:
-                last_metrics["pinned_best"] = 1.0
-                if metrics_logger is not None:
-                    metrics_logger(epoch, {pin: best_pin[name],
-                                           "pinned_epoch": epoch + 1})
-        barrier()
+            # every process: the state gathers tensor-parallel shards
+            state = trainer.state_dict()
+            with held.hold():
+                ckpt.save(epoch + 1, state,
+                          metric=last_metrics.get("val_loss",
+                                                  last_metrics.get("loss")),
+                          pin=pin)
+                if pin is not None:
+                    last_metrics["pinned_best"] = 1.0
+                    if metrics_logger is not None:
+                        metrics_logger(epoch, {pin: best_pin[name],
+                                               "pinned_epoch": epoch + 1})
+            del state
+        # every process waits here for process 0's writes
+        if agree:
+            held.agree()
+        else:
+            barrier()
         if verbose:
             dt = time.time() - t0
             msg = " ".join(f"{k}={v:.5f}" for k, v in last_metrics.items()
@@ -188,24 +284,46 @@ def fit_with_recovery(trainer, train_loader, epochs: int,
                       ) -> Dict[str, float]:
     """`fit`, restarted after an exception from the latest checkpoint (or,
     with none yet, from the state the trainer had when this was called),
-    up to `max_restarts` times."""
+    up to `max_restarts` times. Across processes the failures are agreed
+    on (`fit`'s `agree`), every process restores the epoch process 0
+    saved last, and each prints its recovery. `train_loader` goes back to
+    the restored epoch's order when it can (`seek`)."""
     start = _cpu_copy(trainer.state_dict())
+    first = initial_epoch
+    seek = getattr(train_loader, "seek", None)
+    base = getattr(train_loader, "epoch", 0)
     restarts = 0
     while True:
         try:
             return fit(trainer, train_loader, epochs, ckpt=ckpt,
                        initial_epoch=initial_epoch, verbose=verbose,
-                       **fit_kwargs)
+                       agree=True, **fit_kwargs)
         except Exception as e:   # any failure of a step or a callback
             restarts += 1
             if restarts > max_restarts or ckpt is None:
                 raise
-            try:
-                state, initial_epoch = ckpt.restore()
-            except FileNotFoundError:
-                state, initial_epoch = start, 0
+            latest = _latest_saved(ckpt)
+            if latest is None:
+                state, initial_epoch = start, first
+            else:
+                state, initial_epoch = ckpt.restore(latest)
             trainer.load_state_dict(state)
+            if seek is not None:
+                seek(base + initial_epoch - first)
             if verbose:
-                print(f"recovered from '{type(e).__name__}: {e}' — "
+                where = f" (process {process_index()})" \
+                    if process_count() > 1 else ""
+                print(f"recovered from '{type(e).__name__}: {e}'{where} — "
                       f"resuming at epoch {initial_epoch} "
-                      f"(restart {restarts}/{max_restarts})")
+                      f"(restart {restarts}/{max_restarts})", flush=True)
+
+
+def _latest_saved(ckpt: CheckpointManager) -> Optional[int]:
+    """The latest epoch in `ckpt`'s directory as process 0 sees it,
+    broadcast to every process (None: nothing saved)."""
+    latest = ckpt.latest_epoch() if is_primary() else None
+    if is_initialized():
+        got = [latest]
+        dist.broadcast_object_list(got, src=0)
+        latest = got[0]
+    return latest

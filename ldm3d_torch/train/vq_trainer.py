@@ -22,7 +22,11 @@ batch, and with a 'space' axis its depth slab of each volume
 quantizer's statistics are the global batch's; gradients are averaged
 and metrics reduced over the data x space group (each process's loss is
 its slab's mean), so that the codebooks and weights stay equal on every
-process. SSIM and PSNR are taken on the gathered volumes.
+process. SSIM and PSNR are taken on the gathered volumes. With a 'model'
+axis the model's wide conv kernels and vectors are split over the model
+group (`parallel.tp`; the steps run inside `tp.mesh_sharding`); Adam's
+moments follow them, and `state_dict` / `load_state_dict` hold whole
+tensors, one process's.
 """
 
 from __future__ import annotations
@@ -46,11 +50,13 @@ from ldm3d_torch.models.vqvae import VQVAE
 from ldm3d_torch.models.vqvae_legacy import LegacyVQVAE
 from ldm3d_torch.ops.metrics import volume_psnr, volume_ssim
 from ldm3d_torch.ops.quantize import perplexity_from_counts
+from ldm3d_torch.parallel import tp
 from ldm3d_torch.parallel.distributed import (reduce_gradients,
                                               reduce_metrics)
 from ldm3d_torch.parallel.mesh import (attach_data_group, batch_group,
                                        data_shard)
-from ldm3d_torch.parallel.spatial import SPATIAL_AXIS, gather, spatial_sharding
+from ldm3d_torch.parallel.spatial import SPATIAL_AXIS, gather
+from ldm3d_torch.parallel.tp import mesh_sharding
 
 def make_stage1(cfg: VQVAEConfig) -> nn.Module:
     """The model of `cfg.family`: "monai" (`VQVAE`), "ema_skip"
@@ -88,6 +94,7 @@ class VQTrainer:
         self.model = make_stage1(cfg).to(self.device).eval()
         self.mesh = mesh
         attach_data_group(self.model, mesh)
+        tp.shard_module(self.model, mesh)
         self.generator = torch.Generator(device=self.device).manual_seed(
             self.train_cfg.seed)
         tc = self.train_cfg
@@ -102,7 +109,8 @@ class VQTrainer:
         """Seeded random weights: the JAX package's init (`layers.init_jax_`)
         or, with scheme "reach", `layers.init_params_`."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        INIT_SCHEMES[scheme](self.model, gen)
+        with tp.whole_parameters(self.model, self.mesh):
+            INIT_SCHEMES[scheme](self.model, gen)
         return self
 
     # -- state ------------------------------------------------------------
@@ -112,10 +120,14 @@ class VQTrainer:
         statistics, quantizer buffers), Adam's state (moments, step
         counts, learning rate), the step, the generator's state and the
         model's config. Tensors are the live ones: serialise or copy
-        before the next step."""
+        before the next step. Under a 'model' axis the sharded tensors
+        are gathered whole (a collective)."""
         return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "model": tp.whole_state(self.model, self.model.state_dict(),
+                                    self.mesh),
+            "optimizer": tp.whole_optimizer_state(
+                self.optimizer, self.optimizer.state_dict(),
+                tp.param_dims(self.model), self.mesh),
             "step": self.step,
             "generator": self.generator.get_state(),
             "vqvae_cfg": dataclasses.asdict(self.cfg),
@@ -132,14 +144,20 @@ class VQTrainer:
         snapshot has no EMA collection."""
         if ema_state is not None:
             raise ValueError("a VQ-VAE snapshot has no ema_params")
-        self.model.load_state_dict(model_state, strict=True)
+        self.model.load_state_dict(
+            tp.sliced_state(self.model, model_state, self.mesh), strict=True)
 
     def load_state_dict(self, state: dict, optimizer: bool = True) -> None:
         """Restore `state_dict()`'s output onto this trainer's device; with
-        `optimizer=False` (reconstruction only) Adam's state is left."""
-        self.model.load_state_dict(state["model"], strict=True)
+        `optimizer=False` (reconstruction only) Adam's state is left. The
+        state holds whole tensors; this process keeps its shards."""
+        self.model.load_state_dict(
+            tp.sliced_state(self.model, state["model"], self.mesh),
+            strict=True)
         if optimizer:
-            self.optimizer.load_state_dict(state["optimizer"])
+            self.optimizer.load_state_dict(tp.sliced_optimizer_state(
+                self.optimizer, state["optimizer"],
+                tp.param_dims(self.model), self.mesh))
         self.step = int(state["step"])
         self.generator.set_state(state["generator"].cpu())
 
@@ -191,7 +209,7 @@ class VQTrainer:
         vol, mask = self._batch(vol, mask)
         self.model.train()       # through the backward pass: remat
         try:                     # recomputes units in training mode
-            with spatial_sharding(self.mesh):
+            with mesh_sharding(self.mesh):
                 recon, aux = self.model(
                     self._model_input(vol, mask),
                     draws or Draws(self.generator,
@@ -216,7 +234,7 @@ class VQTrainer:
         """The train metrics in eval mode (no state changes), plus the
         per-slice "ssim" and "psnr" of the image channel."""
         vol, mask = self._batch(vol, mask)
-        with spatial_sharding(self.mesh):
+        with mesh_sharding(self.mesh):
             recon, aux = self.model(self._model_input(vol, mask))
             _, metrics = self._losses(vol, recon, aux)
             # per-slice metrics along H: on the whole volumes of the slabs
@@ -232,7 +250,7 @@ class VQTrainer:
         """(reconstruction [B, H, W, D, out], QuantAux) in eval mode (over
         a space mesh, this process's depth slab)."""
         vol, mask = self._batch(vol, mask)
-        with spatial_sharding(self.mesh):
+        with mesh_sharding(self.mesh):
             return self.model(self._model_input(vol, mask))
 
     @torch.no_grad()
@@ -254,7 +272,7 @@ class VQTrainer:
             for _ in range(passes):
                 for batch in loader:
                     vol, mask = self._batch(batch[0], batch[1])
-                    with spatial_sharding(self.mesh):
+                    with mesh_sharding(self.mesh):
                         self.model(self._model_input(vol, mask),
                                    Draws(gen, shard=data_shard(self.mesh)))
                     for k, b in quantizer.named_buffers():

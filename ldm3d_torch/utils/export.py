@@ -27,9 +27,11 @@ import json
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 import torch.nn as nn
 
 from ldm3d_torch.convert import convert_state, flax_state
+from ldm3d_torch.parallel.tp import model_sharding
 
 _COLLECTIONS = ("params", "ema_params", "vq_stats", "batch_stats")
 
@@ -46,13 +48,15 @@ def _arrays(module: nn.Module, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def state_arrays(trainer) -> Dict[str, np.ndarray]:
     """A trainer's sampling state (`trainer.snapshot_modules()`: the model
-    and an EMA U-Net or None) in the snapshot layout, float32."""
+    and an EMA U-Net or None) in the snapshot layout, float32; whole
+    arrays under tensor parallelism (a collective over the model group)."""
     model, ema = trainer.snapshot_modules()
-    out = _arrays(model)
-    if ema is not None:
-        out.update({"ema_params/" + k.split("/", 1)[1]: a
-                    for k, a in _arrays(ema).items()
-                    if k.startswith("params/")})
+    with torch.no_grad(), model_sharding(getattr(trainer, "mesh", None)):
+        out = _arrays(model)
+        if ema is not None:
+            out.update({"ema_params/" + k.split("/", 1)[1]: a
+                        for k, a in _arrays(ema).items()
+                        if k.startswith("params/")})
     return out
 
 

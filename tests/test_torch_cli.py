@@ -16,16 +16,16 @@
   port samples from the same snapshot, with JAX's draws injected.
 - Every preset equals the JAX package's; the VQ-GAN modes run on the
   CPU from the same argv as JAX's at 16^3.
-- The refusals: each unported mode exits with its ROADMAP item, and
-  without `--platform cpu` every entry point raises on a machine with no
-  GPU, the samplers' default device included.
+- The modes once refused: --train_vq over a space mesh and --train_dm
+  over a model mesh, in two processes, as one process trains.
+- The refusals: without `--platform cpu` every entry point raises on a
+  machine with no GPU, the samplers' default device included.
 """
 
 import argparse
 import dataclasses
 import json
 import os
-import re
 import threading
 import urllib.request
 
@@ -456,33 +456,54 @@ def test_trained_state_samples_as_jax(against_jax):
         <= SAMPLE_REL_TOL
 
 
-# a training mode and the mesh its preset would carry
+# a training mode and the mesh its preset carries: a 'model' axis of 2
+# (refused, as ROADMAP queue 1 item 9(c), until tensor parallelism was
+# ported), over two processes
 UNPORTED = [
     (["--train_dm"], "item 9", MeshConfig(model=2)),
-    (["--train_dm", "--cache_latents"], "item 9", MeshConfig(space=2,
-                                                             model=2)),
+    (["--train_dm", "--cache_latents"], "item 9", MeshConfig(model=2)),
 ]
+# the smoke U-Net's widths (8, 16) are too narrow for the rule to split
+# anything (64 at least): these make it split the U-Net's convs
+TP_WIDTHS = (64, 128)
 
 
 # the ids count from 7: cases 0 and 1, the VQ-GAN modes, run now
 # (test_vqgan_modes_run_on_the_cpu); cases 2-5, --fidelity_sweep, --sweep,
 # --device_data and --profile, too (tests/test_torch_cli_modes.py); case 6,
-# a mesh with a 'space' axis, too (test_train_vq_over_a_space_mesh); what
-# is refused is a mesh with a 'model' axis (item 9(c)), with a 'space'
-# axis or without
+# a mesh with a 'space' axis, too (test_train_vq_over_a_space_mesh); cases
+# 7 and 8, a mesh with a 'model' axis, too (below)
 @pytest.mark.parametrize("flags,item,mesh", UNPORTED, ids=[
     f"flags{i}-{item}" for i, (_, item, _) in enumerate(UNPORTED, start=7)])
 def test_unported_modes_exit_with_their_item(flags, item, mesh, tmp_path,
                                             monkeypatch):
-    cfg = get_preset("smoke_cond")
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
-                                                             mesh=mesh))
+    """--train_dm on volumes and on cached latents with a model = 2
+    preset mesh, in two processes (each calls the CLI's main with
+    --coordinator): a data 1 x model 2 mesh, the U-Net's convs split over
+    it; process 0's training.log equals the one-process log at the same
+    global batch, at the data-parallel test's tolerance
+    (tests/test_torch_multiprocess.py)."""
+    from test_torch_multiprocess import _log, _rows_close
+    from torch_dist_workers import launch, widened
+    common = ["--preset", "smoke_cond", "--platform", "cpu", "--synthetic",
+              "--num_synthetic", "6", "--volume_size", "16", "--cache_dir",
+              str(tmp_path / "cache"), "--val_perc", "0.34", "--lr", "1e-5",
+              "--epochs", "1"] + flags
+    cfg = widened(get_preset("smoke_cond"), widths=TP_WIDTHS)
     monkeypatch.setattr(presets, "get_preset", lambda name: cfg)
-    with pytest.raises(SystemExit, match=re.escape(
-            f"not ported yet; see ROADMAP queue 1 {item}(c)")):
-        cli.main(["--preset", "smoke_cond", "--platform", "cpu",
-                  "--ckpt_dir", str(tmp_path)] + flags)
-    assert not os.listdir(tmp_path)
+    cli.main(common + ["--lbs", "4", "--ckpt_dir", str(tmp_path / "k1")])
+    torch.save({"mesh": dataclasses.asdict(mesh), "widths": TP_WIDTHS,
+                "argv": common + ["--lbs", "2", "--ckpt_dir",
+                                  str(tmp_path / "k2")]},
+               tmp_path / "cli_in.pt")
+    ranks = launch("cli", tmp_path, timeout=180)
+    for i, r in enumerate(ranks):
+        assert f"multi-host: process {i}/2" in r["stdout"]
+        assert r["meshes"] and all(m == {"data": 1, "space": 1, "model": 2}
+                                   for m in r["meshes"])
+    run = "smoke_cond_dm"
+    _rows_close(_log(tmp_path / "k2", run), _log(tmp_path / "k1", run))
+    assert CheckpointManager(str(tmp_path / "k2" / run)).all_epochs() == [1]
 
 
 def test_train_vq_over_a_space_mesh(tmp_path):

@@ -18,8 +18,9 @@ four:
 - `--train_vq --platform cpu --cpu_devices 2`: process 0's training.log
   equals the one-process log at the same global batch, one checkpoint is
   written, and a checkpoint resumes in one and in two processes as in one;
-  `--train_dm --fidelity_freq` scores on process 0 as in one process;
-  --auto_resume over several processes is refused.
+  `--train_dm --fidelity_freq` scores as in one process; --auto_resume
+  over two processes recovers from a failure on process 1 and logs what
+  an uninterrupted run logs.
 
 Every rank ends each step with parameters, statistics and codebooks
 bitwise equal to the other's.
@@ -29,7 +30,6 @@ import copy
 import csv
 import dataclasses
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -595,9 +595,10 @@ def test_train_vq_over_two_processes_logs_checkpoints_and_resumes(
 
 def test_fidelity_freq_over_two_processes_evaluates_on_process_0(tmp_path):
     """--train_dm --cache_latents --fidelity_freq 1 over two processes:
-    the real features are gathered to process 0, which alone samples and
-    scores; its training.log row (loss and the fidelity metrics) equals
-    the one-process run's at the same global batch."""
+    the real features are gathered to every process, each samples and
+    scores the same (a sharded U-Net would sample with collectives on
+    all), and process 0 logs; its training.log row (loss and the fidelity
+    metrics) equals the one-process run's at the same global batch."""
     common = [sys.executable, "-m", "ldm3d_torch.cli.main", "--preset",
               "smoke_cond", "--platform", "cpu", "--synthetic",
               "--num_synthetic", "12", "--volume_size", "16", "--val_perc",
@@ -626,19 +627,37 @@ def test_fidelity_freq_over_two_processes_evaluates_on_process_0(tmp_path):
 
 @pytest.mark.parametrize("launch_by", ["cpu_devices", "coordinator"])
 def test_auto_resume_is_refused_over_processes(launch_by, tmp_path,
-                                               monkeypatch):
-    """--auto_resume restores on process 0 alone, so over several
-    processes it is refused before any work, with its ROADMAP item: with
-    --cpu_devices before the processes start, and with a coordinator in
-    each process once it has joined (the process count stubbed to 2)."""
-    argv = ["--preset", "smoke", "--platform", "cpu", "--train_vq",
-            "--synthetic", "--auto_resume", "1", "--ckpt_dir", str(tmp_path)]
+                                               monkeypatch, capfd):
+    """--auto_resume over two processes (refused, as ROADMAP queue 1 item
+    9(d), until it was made collective), launched by --cpu_devices 2 and
+    by hand with a coordinator: process 1's plateau schedule fails at the
+    end of epoch 2; both processes agree on it, print their recovery,
+    restore epoch 1 (process 0's last save) and train epoch 2 again in
+    its own order; training.log equals an uninterrupted one-process run's
+    at the same global batch."""
+    from torch_dist_workers import launch, local_process_failing
+    common = ["--preset", "smoke", "--platform", "cpu", "--train_vq",
+              "--synthetic", "--num_synthetic", "12", "--volume_size", "16",
+              "--cache_dir", str(tmp_path / "cache"), "--val_perc", "0.34",
+              "--lr", "1e-5", "--epochs", "2"]
+    cli.main(common + ["--lbs", "4", "--ckpt_dir", str(tmp_path / "k1")])
+    argv = common + ["--lbs", "2", "--auto_resume", "1", "--ckpt_dir",
+                     str(tmp_path / "k2")]
+    capfd.readouterr()
     if launch_by == "cpu_devices":
-        argv += ["--cpu_devices", "2"]
+        monkeypatch.setattr(cli, "_local_process", local_process_failing)
+        cli.main(argv + ["--cpu_devices", "2"])
+        outs = [capfd.readouterr().out]      # both processes' output
     else:
-        monkeypatch.setattr(cli.pdist, "process_count", lambda: 2)
-    with pytest.raises(SystemExit, match=re.escape(
-            "--auto_resume over several processes is not ported yet; see "
-            "ROADMAP queue 1 item 9(d)")):
-        cli.main(argv)
-    assert not os.listdir(tmp_path)
+        torch.save({"mesh": {}, "argv": argv, "fail": (1, 1)},
+                   tmp_path / "cli_in.pt")
+        outs = [r["stdout"] for r in launch("cli", tmp_path, timeout=180)]
+    out = "".join(outs)
+    assert out.count("recovered from") == 2, out
+    assert "recovered from 'RuntimeError: injected fault' (process 1)" in out
+    assert "recovered from 'PeerFailure: process [1] failed' (process 0)" \
+        in out
+    assert out.count("resuming at epoch 1 (restart 1/1)") == 2
+    _rows_close(_log(tmp_path / "k2"), _log(tmp_path / "k1"))
+    assert CheckpointManager(str(tmp_path / "k2" / "smoke_vq")) \
+        .all_epochs() == [1, 2]

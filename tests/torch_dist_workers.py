@@ -1,6 +1,7 @@
 """Worker processes of the port's multi-process tests
 (tests/test_torch_parallel.py, tests/test_torch_multiprocess.py,
-tests/test_torch_spatial.py, tests/test_torch_cli.py).
+tests/test_torch_spatial.py, tests/test_torch_tp.py,
+tests/test_torch_cli.py).
 
     python tests/torch_dist_workers.py <job> <rank> <processes> <port> <dir>
 
@@ -334,25 +335,67 @@ def job_spatial(spec):
             for name, case in spec.items()}
 
 
+def fail_at_epoch_end(epoch: int) -> None:
+    """Make this process's plateau schedule raise once, when it is called
+    at the end of epoch `epoch` (0-based): a failure at the epoch's end
+    on this process alone."""
+    from ldm3d_torch.train import callbacks
+
+    real = callbacks.ReduceLROnPlateau.__call__
+    done = []
+
+    def call(self, e, *args, **kwargs):
+        if e == epoch and not done:
+            done.append(e)
+            raise RuntimeError("injected fault")
+        return real(self, e, *args, **kwargs)
+    callbacks.ReduceLROnPlateau.__call__ = call
+
+
+def local_process_failing(index, argv, n, port) -> None:
+    """Process `index` of a --cpu_devices run (`cli._local_process`),
+    process 1 failing at the end of its second epoch."""
+    from ldm3d_torch.cli import main as cli
+    if index == 1:
+        fail_at_epoch_end(1)
+    cli._local_process(index, argv, n, port)
+
+
+def widened(cfg, mesh=None, widths=None):
+    """`cfg` with its mesh and, given `widths`, its U-Net's widths (wide
+    enough for the model axis to split something) replaced."""
+    from ldm3d_torch.core.config import replace
+    if mesh is not None:
+        cfg = replace(cfg, train=replace(cfg.train, mesh=mesh))
+    if widths is not None:
+        cfg = replace(cfg, diffusion=replace(cfg.diffusion, unet=replace(
+            cfg.diffusion.unet, widths=tuple(widths))))
+    return cfg
+
+
 def job_cli(spec, rank, n, port):
     """The command line's main with `spec["argv"]`, this process joining
     the run through --coordinator as the CLI's own processes do, the
-    preset's mesh replaced by `MeshConfig(**spec["mesh"])`; returns what
+    preset's mesh replaced by `MeshConfig(**spec["mesh"])` (and its
+    U-Net's widths by `spec["widths"]`, when given; with `spec["fail"]`
+    = (rank, epoch), that rank fails at that epoch's end); returns what
     it printed and the shapes of the meshes it made."""
     import contextlib
     import io
 
     from ldm3d_torch.cli import main as cli
     from ldm3d_torch.core import presets
-    from ldm3d_torch.core.config import MeshConfig, replace
+    from ldm3d_torch.core.config import MeshConfig
     from ldm3d_torch.parallel import mesh as pmesh
 
     get_preset, make_mesh, shapes = presets.get_preset, pmesh.make_mesh, []
 
     def preset(name):
-        cfg = get_preset(name)
-        return replace(cfg, train=replace(cfg.train,
-                                          mesh=MeshConfig(**spec["mesh"])))
+        return widened(get_preset(name), MeshConfig(**spec["mesh"]),
+                       spec.get("widths"))
+
+    if spec.get("fail") and spec["fail"][0] == rank:
+        fail_at_epoch_end(spec["fail"][1])
 
     def mesh(*args, **kwargs):
         made = make_mesh(*args, **kwargs)
@@ -368,7 +411,120 @@ def job_cli(spec, rank, n, port):
     return dict(stdout=out.getvalue(), meshes=shapes)
 
 
-JOBS = {"halo": job_halo, "steps": job_steps, "spatial": job_spatial}
+def _whole_grads(module, mesh):
+    """Every parameter's gradient, whole: a sharded one gathered over the
+    model group."""
+    from ldm3d_torch.parallel import tp
+    out = {}
+    for name, m in module.named_modules():
+        for n, p in m.named_parameters(recurse=False):
+            if p.grad is None:
+                continue
+            dim = tp.split_dim(m, n)
+            g = p.grad if dim is None else tp.gather_tensor(p.grad, dim,
+                                                            mesh)
+            out[f"{name}.{n}" if name else n] = g.clone()
+    return out
+
+
+def _tp_op(case, mesh):
+    """A module sharded over the model group under `mesh_sharding`: its
+    output, the input's gradient of sum(out * g) and the parameters'
+    gradients (whole), on this rank's rows and depth slab."""
+    import copy as copy_mod
+
+    from ldm3d_torch.parallel import tp
+    from ldm3d_torch.parallel.mesh import local_depth, shard_batch
+    m = tp.shard_module(copy_mod.deepcopy(case["module"]), mesh)
+    x, g = shard_batch(mesh, (case["x"], case["g"]))
+    r = local_depth(mesh, x.shape[4])
+    if r is not None:
+        x, g = (t.narrow(4, r.start, len(r)) for t in (x, g))
+    x = x.clone().requires_grad_(True)
+    with tp.mesh_sharding(mesh):
+        y = m(x)
+        (y * g).sum().backward()
+    return dict(y=y.detach(), dx=x.grad, grads=_whole_grads(m, mesh),
+                sharded=tp.sharded_names(m))
+
+
+def _tp_trainer(case, mesh):
+    from ldm3d_torch.core.config import TrainConfig
+    from ldm3d_torch.train.dm_trainer import DiffusionTrainer
+    from ldm3d_torch.train.gan_trainer import GANTrainer
+    from ldm3d_torch.train.vq_trainer import VQTrainer
+    train = TrainConfig(**case["train"])
+    if case["kind"] == "vq":
+        return VQTrainer(case["cfg"], train, device="cpu", mesh=mesh)
+    if case["kind"] == "gan":
+        return GANTrainer(case["cfg"], train, device="cpu",
+                          volume_size=case["size"], mesh=mesh)
+    return DiffusionTrainer(case["cfg"], device="cpu", train_cfg=train,
+                            mesh=mesh)
+
+
+def _tp_step(case, mesh):
+    """A trainer's step on a tensor-parallel mesh from the whole state the
+    test gives (`load_state_dict`): its metrics, whole gradients, whole
+    state (`state_dict`), the sharded names and this rank's shards; with
+    "again",
+    a second step. The diffusion case first samples from the EMA U-Net
+    it was given."""
+    import copy
+
+    from ldm3d_torch.parallel import tp
+    from ldm3d_torch.parallel.mesh import shard_batch
+    tr = _tp_trainer(case, mesh)
+    tr.load_state_dict(case["state"])
+    model = tr.model.unet if case["kind"] == "dm" else tr.model
+    volumes = None
+    if case["kind"] == "dm":
+        gen = case["generate"]
+        volumes = tr.generate(
+            gen["shape"], gen["ctx"], init_noise=gen["init_noise"],
+            step_noise=gen["step_noise"].__getitem__, sampler="ddim",
+            sample_steps=gen["steps"], eta=gen["eta"], decode=True)
+        lat, ctx = shard_batch(mesh, (case["lat"], case["ctx"]))
+
+        def step():
+            return tr.train_step_latents(lat, ctx, **case["draws"])
+    else:
+        vol, mask = shard_batch(mesh, (case["vol"], case["mask"]))
+
+        def step():
+            return tr.train_step(vol, mask)
+    m = step()
+    res = dict(metrics={k: float(v) for k, v in m.items()},
+               grads=_whole_grads(model, mesh),
+               state=copy.deepcopy(tr.state_dict()),
+               sharded=tp.sharded_names(tr.model),
+               local={k: t.clone() for k, t in tr.model.state_dict().items()})
+    if case.get("again"):
+        res["again"] = {k: float(v) for k, v in step().items()}
+    if volumes is not None:
+        res["volumes"] = volumes
+    return res
+
+
+def job_tp(spec):
+    """Every case of `spec` on a data 1 x model 2 mesh (or the mesh a case
+    names): sharded ops and trainer steps."""
+    from ldm3d_torch.core.config import MeshConfig
+    from ldm3d_torch.parallel.mesh import make_mesh
+
+    meshes = {}
+    out = {}
+    for name, case in spec.items():
+        shape = tuple(case.get("mesh", (1, 1, 2)))
+        if shape not in meshes:      # every rank makes them in one order
+            meshes[shape] = make_mesh(MeshConfig(*shape))
+        run = _tp_op if case["kind"] == "op" else _tp_step
+        out[name] = run(case, meshes[shape])
+    return out
+
+
+JOBS = {"halo": job_halo, "steps": job_steps, "spatial": job_spatial,
+        "tp": job_tp}
 # jobs that join the process group themselves (rank, processes, port)
 JOINING = {"cli": job_cli}
 
