@@ -29,6 +29,14 @@
                                                  # tp phase's two steps
                                                  # with their gates,
                                                  # printed, not judged
+    python3 chip_smoke.py --bf16-check           # device, build, and the
+                                                 # bf16 phase (a)-(f)
+    python3 chip_smoke.py --bf16-gate-faults     # device, build, and the
+                                                 # bf16 phase's (g) step
+                                                 # over space and model
+                                                 # meshes, clean and with
+                                                 # faults planted: each
+                                                 # fault must fail its gate
     python3 chip_smoke.py --seed 1               # every phase from
                                                  # another seed
 
@@ -76,6 +84,20 @@ not 0:
                 defaults (64 samples, batch 16, 4 contexts, DDIM 25 steps)
                 with per-class splits; the counters are zeroed before and
                 read after
+     bf16       main path 11: the JAX default compute dtype, bfloat16
+                activations over float32 parameters (every other phase
+                runs float32). The bf16 attention kernel at the paths'
+                shapes; (a) the full-width U-Net at batch 16 against the
+                card's float32 forward, and its dtype census; (b) a
+                served T=500 DDPM request and its repeat (6,000 bf16
+                attention launches each, no codebook launch) and the
+                serve step's profile; (c) a guided DDIM 50 request; (d)
+                three latent steps beside a float32 twin of the same
+                weights; (e) the stage-1 step with remat full and off
+                (codebook launches float32); (f) both vqgan_attn programs
+                (train_vq and train_gan time their float32 steps). (g),
+                a sharded bf16 latent step against one process, runs in
+                the spatial and tp workers
   8. encode     the full-width encoder + STE quantizer on the card against
                 the CPU, f32 with TF32 off
   9. train      main path 2: a seeded full-width DiffusionTrainer encodes two
@@ -193,8 +215,8 @@ not 0:
                 and the adaptive weight each on and off, VGG16 alone)
  15. kernels    one JSON line with the whole run's kernel numbers
  16. last line  {"ok": true, "device": {...}}
-Sockets only on localhost, between the ddp, spatial and tp phases' two
-processes, which end (or are killed at DDP_TIMEOUT / SPATIAL_TIMEOUT /
+Sockets only on localhost, between the ddp, spatial and tp phases' (and
+--bf16-gate-faults') two processes, which end (or are killed at DDP_TIMEOUT / SPATIAL_TIMEOUT /
 TP_TIMEOUT) before their phase does; one profiler
 trace, written in the cli phase's temporary directory; the threads are
 the CLI's data loader prefetchers, joined when their epoch ends, and the
@@ -256,6 +278,16 @@ from ldm3d_torch.utils import profiling  # noqa: E402
 # Published H100 SXM peaks (NVIDIA data sheet, dense), at a 700 W limit:
 # the tensor cores' rate for each input type (float32 at the TF32 rate,
 # the fastest units that can do the work), and float32 FMA outside them.
+# Every phase but bf16 computes in float32, the dtype its gate and its
+# timed figures were set for (they stay comparable across PRs); the bf16
+# phase runs the JAX default, TrainConfig().dtype.
+F32, BF16 = "float32", "bfloat16"
+
+
+def _f32(tc: TrainConfig) -> TrainConfig:
+    return replace(tc, dtype=F32)
+
+
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12}
 FMA_FLOPS = 67e12
@@ -345,7 +377,7 @@ INIT_MIN_N, INIT_STD_RTOL = 4096, 0.10
 CLI_FLAGSHIP = ["--preset", "conditional_dm3d", "--norm", "group",
                 "--num_classes", "4", "--cfg_dropout", "0.1", "--ema_decay",
                 "0.999", "--latent_scale", "20.834", "--clip_sample_range",
-                "0"]
+                "0", "--dtype", F32]
 CLI_DEVICE = "cuda"
 CLI_VOLUMES, CLI_LBS = 24, 8   # the synthetic corpus, the batch
 CLI_KEEP = 2                   # checkpoints kept: at most two saves
@@ -383,7 +415,8 @@ QUANT_SHAPE, QUANT_K = (2, 8, 8, 8, 32), 64
 QUANT_REL_TOL = 1e-5
 # Main path 6 (`train_vq`): the flagship's stage-1 from the command line.
 # vqvae_dm_stage1 --norm group is flagship_cfg().vqvae with remat on.
-TRAIN_VQ_FLAGS = ["--preset", "vqvae_dm_stage1", "--norm", "group"]
+TRAIN_VQ_FLAGS = ["--preset", "vqvae_dm_stage1", "--norm", "group",
+                  "--dtype", F32]
 TRAIN_VQ_VOLUMES, TRAIN_VQ_LBS = 24, 8
 TRAIN_VQ_VAL = 0.34        # 8 held-out volumes: one validation batch
 TRAIN_VQ_SIZE = 128        # the volume of the direct steps (nsvq, rnsvq,
@@ -409,16 +442,22 @@ SSIM_ATOL, PSNR_RTOL = 1e-5, 1e-5
 # CPU about 25 s. Tolerances:
 #  - every metric to 1e-4 relative (a float32 step is a few 1e-8 from
 #    float64 at 32^3; the adaptive weight, a ratio of two gradient norms,
-#    1e-5);
+#    1e-5 at seed 0), or, where the card's metric lies past that, to
+#    GAN_F64_FACTOR times the distance of a float32 CPU step of the same
+#    state and draws from float64: the adaptive weight's conditioning
+#    follows the weights (at seed 1 the card lay 2.33e-4 from float64,
+#    PERF.md §6), and a card step whose float32 sums are in other orders
+#    lies as far as the CPU's;
 #  - each subtree's gradients (ae, disc3d, disc2d) to 1e-3 of the
 #    subtree's largest, as the diffusion step's (TRAIN_GRAD_RTOL); a
 #    float32 CPU step is within 1e-4 of float64 here;
 #  - the critics' BatchNorm statistics and the EMA quantizer's buffers to
 #    1e-4 of each tensor's largest value.
-GAN_FLAGS = ["--preset", "vqgan_attn"]
+GAN_FLAGS = ["--preset", "vqgan_attn", "--dtype", F32]
 GAN_COMPARE_SIZE, GAN_BATCH = 32, 2
 GAN_CHECK_SIZE = 64          # --gan-compare-check: the card at 64^3
 GAN_METRIC_RTOL, GAN_GRAD_RTOL, GAN_STATS_RTOL = 1e-4, 1e-3, 1e-4
+GAN_F64_FACTOR = 2.0
 # the command line at 128^3: 6 volumes, --val_perc 0.34 -> 4 training
 # volumes (2 steps at the preset's batch 2) and one validation batch;
 # --disc_threshold 1: epoch 1 warm, epoch 2 adversarial
@@ -431,6 +470,51 @@ GAN_OTHERS = [("vqgan_attn_sym", [], True), ("vqgan_baseline", [], True),
               ("vqgan_gnorm", [], True), ("vqgan_stride", [], True),
               ("emavqvae", [], False), ("vqvae_legacy", [], False),
               ("vqvae_legacy", ["--vqvae_mode", "2"], False)]
+# Main path 11 (`bf16`): the JAX default compute dtype, bfloat16
+# activations over float32 parameters (TrainConfig().dtype), on the paths
+# the float32 phases above time. Its attention kernel cases at the main
+# path's shapes, bfloat16 in and out (ATTN_TOL's 3e-2 against the plain
+# version): served [16, 64, 64, 512], guided [32, ...], train [8, ...].
+BF16_ATTN_SHAPES = [("self_bf16", 16, 64, 64, 512, torch.bfloat16),
+                    ("guided_bf16", 32, 64, 64, 512, torch.bfloat16),
+                    ("train_bf16", 8, 64, 64, 512, torch.bfloat16)]
+# (a) The full-width U-Net at batch 16, bfloat16 against the card's own
+# float32 forward (TF32 off) from the same weights: max |difference| over
+# max |float32|. JAX's bfloat16 U-Net lies 1.0e-2 of that from its float32
+# one at the tiny config on the CPU; the deeper and wider flagship rounds
+# more often, and 5e-2 bounds it.
+BF16_UNET_REL_TOL = 5e-2
+# (c) A guided request: DDIM 50 at scale 3 (the U-Net at 2 x num).
+BF16_GUIDED = dict(num=16, context=1, sampler="ddim", sample_steps=50,
+                   guidance_scale=3.0, seed=19)
+# (d) The latent step's loss, bfloat16 against float32 from one state with
+# one set of draws: a mean over 8 x 8^3 x 256 squared errors of a bfloat16
+# U-Net, measured 5.8e-5 and 6.8e-5 relative (seeds 0 and 1, PERF.md §5);
+# 1e-3, about 15 times that.
+BF16_TRAIN_LOSS_RTOL = 1e-3
+BF16_TRAIN_STEPS = 3
+# (g) The spatial and tp phases' workers each take one more latent step at
+# global batch DDP_BATCH in bfloat16 over their mesh, held against a
+# one-process bfloat16 step of the same init and draws (TF32 off, cuDNN
+# deterministic on both). Both round bfloat16 activations, in other
+# orders (slab convolutions, other algorithms, the model group's float32
+# sum of partials), so the sharded step is judged against bfloat16, not
+# float64: the loss to BF16_S2_LOSS_RTOL relative, and the U-Net's
+# gradients (their L2 distance over the one-process norm) to
+# BF16_S2_GRAD_FACTOR times bfloat16's own rounding at this step, the
+# one-process bfloat16 step's distance from the one-process float32 step.
+# A fixed 5e-2 was predicted; the sharded step lay 6.0e-2 / 6.7e-2 (seeds
+# 1 / 0, PERF.md §6) from one process, the stem's kernel the worst, and
+# bfloat16's own rounding sets that scale.
+BF16_S2_LOSS_RTOL, BF16_S2_GRAD_FACTOR = 5e-3, 2.0
+# --bf16-gate-faults: (g)'s step alone over each mesh, clean and with one
+# fault planted at run time in both workers; every fault must fail the
+# gate. tp.sum_partials is not on the latent step's path (only
+# ConvTranspose3d sums partials), so the model mesh's fault is in the
+# gradient of a column-split conv's input.
+BF16_GATE_FAULTS = [("spatial", None), ("spatial", "drop_halo_grad"),
+                    ("spatial", "zero_halo"), ("tp", None),
+                    ("tp", "column_grad_unsummed")]
 # Main path 8 (`ddp`): data parallelism over DDP_PROCESSES processes of
 # this script on the one card (gloo, through the host: NCCL needs a card
 # per process). Stage 2 at global batch DDP_BATCH, stage 1 at
@@ -694,7 +778,7 @@ def phase_kernel(card: str) -> Dict[str, dict]:
         # the tp path: every row on each process (stage-2 step at batch
         # 8, the CLI at --lbs 4 x 2 processes)
         ("tp_f32", 8, 64, 64, 512, torch.float32),
-        ("self_bf16", 16, 64, 64, 512, torch.bfloat16),
+        *BF16_ATTN_SHAPES,
         ("cross_ragged_f32", 16, 64, 37, 512, torch.float32),
         ("cross_ragged_bf16", 16, 64, 37, 512, torch.bfloat16),
         ("long_c64_f32", 2, 4096, 4096, 64, torch.float32),
@@ -704,36 +788,41 @@ def phase_kernel(card: str) -> Dict[str, dict]:
         ("wide_c1024_bf16", 2, 64, 64, 1024, torch.bfloat16),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    results = {}
-    for name, b, nq, nkv, c, dt in cases:
-        q = torch.randn(b, nq, c, generator=gen, device="cuda").to(dt)
-        k = torch.randn(b, nkv, c, generator=gen, device="cuda").to(dt)
-        v = torch.randn(b, nkv, c, generator=gen, device="cuda").to(dt)
-        scale = c ** -0.5
-        out = attn.voxel_attention_cuda(q, k, v, scale)
-        torch.cuda.synchronize()
-        ref = attn._attention_reference(q, k, v, scale)
-        err = (out.float() - ref.float()).abs().max().item()
-        ok = err <= ATTN_TOL[dt] and bool(torch.isfinite(out).all())
-        kernel = partial(attn.voxel_attention_cuda, q, k, v, scale)
-        plain = partial(attn._attention_reference, q, k, v, scale)
-        library = partial(torch.nn.functional.scaled_dot_product_attention,
-                          q, k, v, scale=scale)
-        ms, plain_ms, lib_ms = (graph_ms(kernel, 200), graph_ms(plain, 50),
-                                graph_ms(library, 200))
-        eager = dict(ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 50),
-                     library_ms=cuda_ms(library, 200))
-        bound = attention_bound(b, nq, nkv, c, dt)
-        say("kernel", case=name, shape=[b, nq, nkv, c], dtype=str(dt),
-            max_abs_err=err, tol=ATTN_TOL[dt], ok=ok, ms=ms, plain_ms=plain_ms,
-            library_ms=lib_ms, eager=eager, **bound, card=card)
-        if not ok:
-            raise RuntimeError(f"voxel_attention {name}: max_abs_err {err} "
-                               f"> {ATTN_TOL[dt]}")
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, eager_ms=eager["ms"],
-                             **bound, shape=[b, nq, nkv, c], dtype=str(dt))
-    return results
+    return {case[0]: _attention_case(gen, card, *case) for case in cases}
+
+
+def _attention_case(gen, card: str, name: str, b: int, nq: int, nkv: int,
+                    c: int, dt) -> dict:
+    """One case of the attention kernel against its plain version on seeded
+    inputs: its error, device and eager ms, the plain version's, SDPA's,
+    and the bound."""
+    q = torch.randn(b, nq, c, generator=gen, device="cuda").to(dt)
+    k = torch.randn(b, nkv, c, generator=gen, device="cuda").to(dt)
+    v = torch.randn(b, nkv, c, generator=gen, device="cuda").to(dt)
+    scale = c ** -0.5
+    out = attn.voxel_attention_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    ref = attn._attention_reference(q, k, v, scale)
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = err <= ATTN_TOL[dt] and bool(torch.isfinite(out).all())
+    kernel = partial(attn.voxel_attention_cuda, q, k, v, scale)
+    plain = partial(attn._attention_reference, q, k, v, scale)
+    library = partial(torch.nn.functional.scaled_dot_product_attention,
+                      q, k, v, scale=scale)
+    ms, plain_ms, lib_ms = (graph_ms(kernel, 200), graph_ms(plain, 50),
+                            graph_ms(library, 200))
+    eager = dict(ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 50),
+                 library_ms=cuda_ms(library, 200))
+    bound = attention_bound(b, nq, nkv, c, dt)
+    say("kernel", case=name, shape=[b, nq, nkv, c], dtype=str(dt),
+        max_abs_err=err, tol=ATTN_TOL[dt], ok=ok, ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, eager=eager, **bound, card=card)
+    if not ok:
+        raise RuntimeError(f"voxel_attention {name}: max_abs_err {err} "
+                           f"> {ATTN_TOL[dt]}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, eager_ms=eager["ms"], **bound,
+                shape=[b, nq, nkv, c], dtype=str(dt))
 
 
 def _codebook_case(gen, n, k, d, dtype, dup: bool):
@@ -980,12 +1069,13 @@ def phase_init(card: str) -> None:
     s1 = get_preset("vqvae_dm_stage1")
     gan = get_preset("vqgan_attn")
     builds = (
-        ("stage2", lambda: DiffusionTrainer(cfg, device="cuda")
+        ("stage2", lambda: DiffusionTrainer(cfg, device="cuda",
+                                            train_cfg=TrainConfig(dtype=F32))
          .init_random(SEED), lambda tr: tr.model),
         ("stage1", lambda: VQTrainer(replace(cfg.vqvae, remat=True),
-                                     s1.train, device="cuda")
+                                     _f32(s1.train), device="cuda")
          .init_random(SEED), lambda tr: tr.model),
-        ("vqgan_attn", lambda: GANTrainer(gan.vqgan, gan.train,
+        ("vqgan_attn", lambda: GANTrainer(gan.vqgan, _f32(gan.train),
                                           device="cuda",
                                           volume_size=gan.data.volume_size)
          .init_random(SEED), lambda tr: tr.model))
@@ -1014,7 +1104,8 @@ def phase_init(card: str) -> None:
         raise RuntimeError(f"init: {bad}")
 
 
-def phase_serve_profile(trainer: DiffusionTrainer, card: str) -> None:
+def phase_serve_profile(trainer: DiffusionTrainer, card: str,
+                        phase: str = "serve_profile") -> dict:
     """Where the served step's time goes, after the counted path: one
     unguided DDPM step of the U-Net and the sampler at the served batch
     (`generate` down to T - 1, no decode), timed with `StepTimer` and
@@ -1036,8 +1127,9 @@ def phase_serve_profile(trainer: DiffusionTrainer, card: str) -> None:
     timed = timer.summary()
     prof = profiling.profile_steps(step, PROFILE_STEPS,
                                    1e3 * timed["p50_s"])
-    say("serve_profile", batch=num, sampler="ddpm", guided=False,
-        step_timer=timed, **prof, card=card)
+    say(phase, batch=num, sampler="ddpm", guided=False,
+        dtype=trainer.train_cfg.dtype, step_timer=timed, **prof, card=card)
+    return dict(step_timer=timed, **prof)
 
 
 def phase_serve(svc: GenerationService, card: str) -> dict:
@@ -1117,7 +1209,8 @@ def _v_twin(trainer: DiffusionTrainer) -> DiffusionTrainer:
     """The same weights read as a v-prediction model."""
     twin = DiffusionTrainer(dataclasses.replace(trainer.cfg,
                                                 prediction_type="v"),
-                            device=trainer.device)
+                            device=trainer.device,
+                            train_cfg=trainer.train_cfg)
     twin.model.load_state_dict(trainer.model.state_dict())
     return twin
 
@@ -1201,7 +1294,7 @@ def phase_sampler_compare(trainer: DiffusionTrainer) -> None:
     steps at num 2 with injected noise, latents only: the card (kernel, f32
     without TF32) against a CPU twin (plain version)."""
     cfg = trainer.cfg
-    cpu = DiffusionTrainer(cfg, device="cpu")
+    cpu = DiffusionTrainer(cfg, device="cpu", train_cfg=trainer.train_cfg)
     cpu.model.load_state_dict({k: t.cpu() for k, t in
                                trainer.model.state_dict().items()})
     rng = np.random.default_rng(SEED + 9)
@@ -1327,7 +1420,8 @@ def phase_train(card: str) -> dict:
     volumes (--cache_latents), derives the latent scale, and takes
     TRAIN_STEPS steps on volumes and as many on cached latents."""
     cfg = flagship_cfg()
-    tc = TrainConfig(batch_size=TRAIN_BATCH, ema_decay=0.999, seed=SEED)
+    tc = TrainConfig(batch_size=TRAIN_BATCH, ema_decay=0.999, seed=SEED,
+                     dtype=F32)
     trainer = DiffusionTrainer(cfg, device="cuda",
                                train_cfg=tc).init_random(SEED, "reach")
     rng = np.random.default_rng(SEED + 3)
@@ -1394,7 +1488,8 @@ def phase_train(card: str) -> dict:
 def _twin(trainer: DiffusionTrainer, device: str,
           batch: int = 2) -> DiffusionTrainer:
     tc = TrainConfig(batch_size=batch,
-                     ema_decay=trainer.train_cfg.ema_decay)
+                     ema_decay=trainer.train_cfg.ema_decay,
+                     dtype=trainer.train_cfg.dtype)
     twin = DiffusionTrainer(trainer.cfg, device=device, train_cfg=tc)
     twin.model.load_state_dict(trainer.model.state_dict())
     return twin
@@ -2024,19 +2119,25 @@ def _vq_batch(rng, b: int, size: int, dev: str):
 def _remat_steps(tr: VQTrainer, vol, mask, steps: int, **remat) -> dict:
     """`steps` train steps of `tr` with its encoder and decoder switched to
     the remat setting `remat`: each step's wall ms, the peak memory over
-    them, the last step's codebook launches and metrics."""
+    them, the launches of all the steps (by kernel, and the codebook's by
+    the dtype it received), the last step's metrics."""
     for part in (tr.model.encoder, tr.model.decoder):
         part.cfg = replace(part.cfg, **remat)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     walls = []
+    launches = {attn.KERNEL: 0, cbq.KERNEL: 0}
+    codebook_by_dtype = dict.fromkeys(cbq.launches_by_dtype, 0)
     for _ in range(steps):
-        m, wall, got = _counted({attn.KERNEL: 0, cbq.KERNEL: 0},
-                                tr.train_step, vol, mask)
+        m, wall, _ = _counted(launches, tr.train_step, vol, mask)
         walls.append(1e3 * wall)
+        for k, n in cbq.launches_by_dtype.items():
+            codebook_by_dtype[k] += n
     return dict(step_ms=walls, median_step_ms=float(np.median(walls)),
                 max_memory_allocated=torch.cuda.max_memory_allocated(),
-                launches=got, metrics={k: float(v) for k, v in m.items()})
+                steps=steps, launches=launches,
+                codebook_by_dtype=codebook_by_dtype,
+                metrics={k: float(v) for k, v in m.items()})
 
 
 def phase_train_vq(card: str) -> dict:
@@ -2284,7 +2385,7 @@ def phase_train_vq(card: str) -> dict:
         others = {}
         for preset, per_step in (("nsvqvae", 1), ("rnsvqvae", 4)):
             pcfg = get_preset(preset)
-            tc = replace(pcfg.train, batch_size=TRAIN_VQ_LBS)
+            tc = replace(pcfg.train, batch_size=TRAIN_VQ_LBS, dtype=F32)
             tr = VQTrainer(pcfg.vqvae, tc, device=dev).init_random(
                 SEED, "reach")
             m, wall, got = _counted(counts, tr.train_step, vol, mask)
@@ -2379,14 +2480,13 @@ def _gan_compare(card_name: str, size: int = GAN_COMPARE_SIZE,
     cfg = get_preset("vqgan_attn")
     gan = replace(cfg.vqgan, disc_threshold=1, r1_gamma=1.0,
                   adaptive_g_weight=True)
-    tc = replace(cfg.train, batch_size=GAN_BATCH)
+    tc = replace(cfg.train, batch_size=GAN_BATCH, dtype=F32)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")       # the LPIPS surrogate
         ref = GANTrainer(gan, tc, device="cpu", volume_size=size) \
             .init_random(SEED, "reach")
     card = GANTrainer(gan, tc, device="cuda", volume_size=size)
-    cpu32 = GANTrainer(gan, tc, device="cpu", volume_size=size) \
-        if check else None
+    cpu32 = GANTrainer(gan, tc, device="cpu", volume_size=size)
     # the quantizer computes in float32 in both (its restart threshold,
     # usage >= 1, is met exactly by 0.99 + 0.01 in float32)
     ref.model.double()
@@ -2406,10 +2506,13 @@ def _gan_compare(card_name: str, size: int = GAN_COMPARE_SIZE,
             mc = card.train_step(vol.cuda(), mask.cuda(), Draws(**{
                 k: list(v) for k, v in draws.items()}))
             torch.cuda.synchronize()
-        if check:
-            _gan_copy(ref, cpu32)
-            m32 = cpu32.train_step(vol, mask, Draws(**{
+        _gan_copy(ref, cpu32)
+
+        def cpu32_step():
+            return cpu32.train_step(vol, mask, Draws(**{
                 k: list(v) for k, v in draws.items()}))
+        if check:
+            m32 = cpu32_step()
         mr = ref.train_step(vol, mask, Draws(**draws))
         errs = _gan_step_errors(card, ref, mc, mr)
         if check:
@@ -2434,6 +2537,14 @@ def _gan_compare(card_name: str, size: int = GAN_COMPARE_SIZE,
         tol = {k: GAN_METRIC_RTOL if k.startswith("metric.") else
                GAN_GRAD_RTOL if k.startswith("grad.") else GAN_STATS_RTOL
                for k in errs}
+        own = {}
+        if any(k.startswith("metric.") and not errs[k] <= tol[k]
+               for k in errs):
+            # the float32 CPU step's own distance from float64
+            errs32 = _gan_step_errors(cpu32, ref, cpu32_step(), mr)
+            own = {k: e for k, e in errs32.items() if k.startswith("metric.")}
+            tol.update({k: max(tol[k], GAN_F64_FACTOR * e)
+                        for k, e in own.items()})
         bad = sorted(k for k in errs if not errs[k] <= tol[k])
         worst = {g: max((e for k, e in errs.items() if k.startswith(g)),
                         default=0.0)
@@ -2446,6 +2557,9 @@ def _gan_compare(card_name: str, size: int = GAN_COMPARE_SIZE,
                           if k.startswith("grad.")},
             max_metric_rel_err=worst["metric."],
             max_state_rel_err=worst["state."],
+            cpu_float32_metric_rel_err=own or None,
+            metric_tol={k: tol[k] for k in errs if k.startswith("metric.")
+                        and tol[k] != GAN_METRIC_RTOL} or None,
             tol=dict(metric=GAN_METRIC_RTOL, grad=GAN_GRAD_RTOL,
                      state=GAN_STATS_RTOL), failed=bad, ok=not bad,
             card=card_name)
@@ -2669,7 +2783,7 @@ def phase_train_gan(card: str) -> dict:
         others = {}
         rng = np.random.default_rng(SEED + 43)
         for preset, extra, adversarial in GAN_OTHERS:
-            pcfg, _ = parse(["--preset", preset], *extra)
+            pcfg, _ = parse(["--preset", preset, "--dtype", F32], *extra)
             b = pcfg.train.batch_size if pcfg.model == "vqgan" else 2
             vol, mask = _vq_batch(rng, b, cfg.data.volume_size, dev)
             if pcfg.model == "vqgan":
@@ -2849,7 +2963,8 @@ def _ddp_s2_inputs(spec: dict) -> dict:
                                        < cfg.unet.cfg_dropout))
     return dict(cfg=cfg, lat=lat, ctx=ctx, draws=draws,
                 on={k: v.to(spec["device"]) for k, v in draws.items()},
-                tc=TrainConfig(batch_size=b, ema_decay=0.999, seed=SEED))
+                tc=TrainConfig(batch_size=b, ema_decay=0.999, seed=SEED,
+                               dtype=F32))
 
 
 def _ddp_s2_one_process(spec: dict, inp: dict) -> DiffusionTrainer:
@@ -2973,7 +3088,7 @@ def _ddp_s1_inputs(spec: dict, batch: int = DDP_VQ_BATCH) -> dict:
     vol = _seeded_volumes(rng, batch, spec["vq_size"])
     return dict(vcfg=cli.apply_overrides(get_preset(args.preset),
                                          args).vqvae,
-                tc=TrainConfig(batch_size=batch, seed=SEED),
+                tc=TrainConfig(batch_size=batch, seed=SEED, dtype=F32),
                 vol=vol, mask=(vol > 0.5).float())
 
 
@@ -3723,8 +3838,10 @@ def spatial_worker(spec_path: str, rank: str) -> None:
         out["stage1"] = _spatial_stage1(spec, rank, mesh)
         out["stage2"], tr, twin = _spatial_stage2(spec, rank, mesh)
         out["generate"] = _spatial_generate(spec, rank, tr, twin)
-        torch.backends.cudnn.deterministic = False
         del tr, twin
+        out["stage2_bf16"] = _s2_bf16(spec, rank, mesh,
+                                      _s2_grads("spatial", mesh))
+        torch.backends.cudnn.deterministic = False
     finally:
         pdist.shutdown()
     if dev == "cuda":
@@ -3870,14 +3987,18 @@ def _spatial_report(card, ranks, tmp, wall_s) -> dict:
         for g in gs:
             for k in counts:
                 counts[k] += g[k]
-    ok = s1_ok and memory_ok and s2_ok and gen_ok and cli_ok and launches_ok
+    bf_ok, bf_counts = _bf16_s2_report("spatial", ranks, card)
+    counts = {k: counts.get(k, 0) + bf_counts.get(k, 0)
+              for k in {**counts, **bf_counts}}
+    ok = (s1_ok and memory_ok and s2_ok and gen_ok and cli_ok and launches_ok
+          and bf_ok)
     say("spatial", backend=backend, launches=counts, wall_s=wall_s, ok=ok,
         card=card)
     if not ok:
         raise RuntimeError(
             f"spatial: stage1 {s1_ok}, memory {memory_ok} ({ratio}), "
-            f"stage2 {s2_ok}, generate {gen_ok}, cli {cli_ok}, launches "
-            f"{got} against {want}")
+            f"stage2 {s2_ok}, generate {gen_ok}, cli {cli_ok}, bf16 "
+            f"{bf_ok}, launches {got} against {want}")
     return counts
 
 
@@ -4131,6 +4252,9 @@ def tp_worker(spec_path: str, rank: str) -> None:
         torch.backends.cudnn.deterministic = True
         out["stage2"] = _tp_stage2(spec, rank, mesh)
         out["stage1"] = _tp_stage1(spec, rank, mesh)
+        if not spec["check"]:
+            out["stage2_bf16"] = _s2_bf16(spec, rank, mesh,
+                                          _s2_grads("tp", mesh))
         torch.backends.cudnn.deterministic = False
     finally:
         pdist.shutdown()
@@ -4328,22 +4452,486 @@ def _tp_report(card, ranks, tmp, cli_cfg, wall_s) -> dict:
         for g in gs:
             for k in counts:
                 counts[k] += g[k]
-    ok = s2_ok and s1_ok and dm_ok and rec_ok and launches_ok
+    bf_ok, bf_counts = _bf16_s2_report("tp", ranks, card)
+    counts = {k: counts.get(k, 0) + bf_counts.get(k, 0)
+              for k in {**counts, **bf_counts}}
+    ok = s2_ok and s1_ok and dm_ok and rec_ok and launches_ok and bf_ok
     say("tp", backend=backend, launches=counts, wall_s=wall_s, ok=ok,
         card=card)
     if not ok:
         raise RuntimeError(
             f"tp: stage2 {s2_ok}, stage1 {s1_ok}, cli dm {dm_ok}, "
-            f"auto_resume {rec_ok}, launches {got} against {want}")
+            f"auto_resume {rec_ok}, bf16 {bf_ok}, launches {got} against "
+            f"{want}")
     return counts
 
 
-def _kernel_line(name, source, replaces, counts, case, library):
+def _s2_grads(kind: str, mesh):
+    """`whole_grads` of `_s2_bf16` over a `kind` ("spatial" or "tp")
+    mesh: each process's own over depth slabs, gathered over a model
+    axis."""
+    if kind == "tp":
+        return lambda unet: _tp_whole_grads(unet, mesh)
+    return lambda unet: {n: p.grad.cpu() for n, p in unet.named_parameters()
+                         if p.grad is not None}
+
+
+def _s2_bf16(spec: dict, rank: int, mesh, whole_grads) -> dict:
+    """(g) of the bf16 phase: the flagship latent step at global batch
+    DDP_BATCH in bfloat16 over `mesh`, and on rank 0 a one-process
+    bfloat16 step of the same init and draws (TF32 off; the workers run
+    cuDNN deterministic): the losses and the U-Net's gradients, whole
+    (`whole_grads(unet)`, a collective under a model axis)."""
+    dev, inp = spec["device"], _ddp_s2_inputs(spec)
+    tc = replace(inp["tc"], dtype=BF16)
+    x, c = inp["lat"].to(dev), inp["ctx"].to(dev)
+    tr = DiffusionTrainer(inp["cfg"], device=dev, train_cfg=tc,
+                          mesh=mesh).init_random(SEED, "reach")
+    with _NoTF32():
+        _sync(dev)
+        _reset_launches()        # the main path's step starts here
+        m = tr.train_step_latents(x, c, **inp["on"])
+        _sync(dev)
+        out = dict(loss=float(m["loss"]),
+                   launches_by_dtype=dict(attn.launches_by_dtype),
+                   attention_calls=attention_calls_per_step(tr.model.unet))
+    grads = whole_grads(tr.model.unet)
+    del tr
+    pdist.barrier()
+    if rank == 0:
+        one = {}
+        for dtype in (BF16, F32):
+            tr1 = DiffusionTrainer(inp["cfg"], device=dev, train_cfg=replace(
+                tc, dtype=dtype)).init_random(SEED, "reach")
+            with _NoTF32():
+                m1 = tr1.train_step_latents(x, c, **inp["on"])
+                _sync(dev)
+            one[dtype] = (float(m1["loss"]), {
+                n: p.grad.float().cpu() for n, p in
+                tr1.model.unet.named_parameters() if p.grad is not None})
+            del tr1
+        (loss_1p, ref), (_, ref32) = one[BF16], one[F32]
+
+        def l2(a, b):
+            diff = {n: float((a[n].float() - g).square().sum())
+                    for n, g in b.items()}
+            norm = sum(float(g.square().sum()) for g in b.values())
+            return float(np.sqrt(sum(diff.values()) / norm)), \
+                max(diff, key=diff.get)
+        err, worst = l2(grads, ref)
+        out.update(loss_1p=loss_1p,
+                   loss_rel_err=abs(out["loss"] - loss_1p) / abs(loss_1p),
+                   grad_rel_err=err, grad_worst=worst,
+                   own_grad_rel_err=l2(ref, ref32)[0],
+                   grad_rel_err_float32=l2(grads, ref32)[0],
+                   grads_compared=len(ref), grads_sharded=len(grads))
+        del one
+    del grads
+    pdist.barrier()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bf16_s2_report(phase: str, ranks, card: str):
+    """(g)'s line in `phase`: (ok, the steps' launch counts)."""
+    steps = [r["stage2_bf16"] for r in ranks]
+    ref = steps[0]
+    want = dict(float32=0, bfloat16=ref["attention_calls"])
+    on_card = DDP_DEVICE == "cuda"
+    launches_ok = not on_card or all(s["launches_by_dtype"] == want
+                                     for s in steps)
+    grad_tol = BF16_S2_GRAD_FACTOR * ref["own_grad_rel_err"]
+    ok = (launches_ok and ref["grads_compared"] == ref["grads_sharded"]
+          and ref["loss_rel_err"] <= BF16_S2_LOSS_RTOL
+          and ref["grad_rel_err"] <= grad_tol)
+    say(phase, step="stage2_bf16", batch=DDP_BATCH, dtype=BF16,
+        reference="one-process bfloat16 step", loss=ref["loss"],
+        loss_1p=ref["loss_1p"], loss_rel_err=ref["loss_rel_err"],
+        loss_tol=BF16_S2_LOSS_RTOL, grad_rel_err=ref["grad_rel_err"],
+        grad_tol=grad_tol, grad_worst=ref["grad_worst"],
+        one_process_bf16_vs_float32=ref["own_grad_rel_err"],
+        sharded_bf16_vs_float32=ref["grad_rel_err_float32"],
+        launches_by_dtype=[s["launches_by_dtype"] for s in steps],
+        expected=want, ok=ok, card=card)
+    n = sum(s["launches_by_dtype"]["bfloat16"] for s in steps)
+    return ok, {attn.KERNEL: n, attn.KERNEL + ".bfloat16": n}
+
+
+def _plant_fault(fault: str) -> None:
+    """Break this process's sharding on purpose (--bf16-gate-faults)."""
+    from ldm3d_torch.parallel import halo, tp
+    if fault == "drop_halo_grad":       # the halos' gradients not sent back
+        halo._return_halo_grads = lambda *a, **kw: None
+    elif fault == "zero_halo":          # halos exchanged, zeros used
+        exchange = halo._exchange
+
+        def zero_halos(x, *a):
+            lo, hi = exchange(x, *a)
+            return torch.zeros_like(lo), torch.zeros_like(hi)
+        halo._exchange = zero_halos
+    elif fault == "column_grad_unsummed":   # not summed over the group
+        tp._Copy.backward = staticmethod(lambda ctx, grad: (grad, None))
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def bf16_gate_worker(spec_path: str, rank: str) -> None:
+    """One process of a --bf16-gate-faults run: (g)'s step alone over the
+    spec's mesh, with the spec's fault (if any) planted first."""
+    global SEED
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, SEED = int(rank), spec["seed"]
+    if spec["fault"]:
+        _plant_fault(spec["fault"])
+    dev = spec["device"]
+    if dev == "cuda":
+        _build.load_all([attn.KERNEL, cbq.KERNEL])   # built by the parent
+    pdist.initialize(f"127.0.0.1:{spec['port']}", 2, rank,
+                     platform="gpu" if dev == "cuda" else "cpu")
+    try:
+        torch.backends.cudnn.deterministic = True
+        mesh = _spatial_mesh() if spec["mesh"] == "spatial" else _tp_mesh()
+        out = {"stage2_bf16": _s2_bf16(spec, rank, mesh,
+                                       _s2_grads(spec["mesh"], mesh))}
+    finally:
+        pdist.shutdown()
+    with open(os.path.join(spec["tmp"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_bf16_gate_faults(card: str) -> None:
+    """(g)'s gate against BF16_GATE_FAULTS: the clean step must pass it,
+    each planted fault fail it."""
+    wrong = []
+    for mesh, fault in BF16_GATE_FAULTS:
+        tmp = tempfile.mkdtemp(prefix="ldm3d_gate_")
+        try:
+            spec = dict(device=DDP_DEVICE, tiny=DDP_TINY, tmp=tmp,
+                        port=pdist.free_port(), seed=SEED, mesh=mesh,
+                        fault=fault)
+            path = os.path.join(tmp, "spec.json")
+            with open(path, "w") as f:
+                json.dump(spec, f)
+            ranks = _run_workers("bf16-gate", path, tmp, 2, DDP_TIMEOUT)
+            passed, _ = _bf16_s2_report("bf16_gate_faults", ranks, card)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        ok = passed == (fault is None)
+        say("bf16_gate_faults", mesh=mesh, fault=fault, gate_passed=passed,
+            ok=ok, card=card)
+        if not ok:
+            wrong.append((mesh, fault))
+    if wrong:
+        raise RuntimeError(f"bf16 gate: wrong verdicts for {wrong}")
+
+
+def _dtype_census(unet: UNet3D, *args) -> dict:
+    """The output dtype of every module of `unet` on one forward: the
+    counts by dtype and the modules that are not bfloat16. flax's census
+    of the JAX U-Net at bfloat16 has one float32 output, the sinusoidal
+    time embedding (tests/test_torch_bf16.py holds the port to it)."""
+    seen = {}
+
+    def hook(name):
+        def record(module, inputs, output):
+            seen.setdefault(name, str(output.dtype).removeprefix("torch."))
+        return record
+    handles = [m.register_forward_hook(hook(n))
+               for n, m in unet.named_modules() if n]
+    try:
+        with torch.no_grad():
+            out = unet(*args)
+    finally:
+        for h in handles:
+            h.remove()
+    counts = {d: list(seen.values()).count(d) for d in set(seen.values())}
+    return dict(counts=counts, output=str(out.dtype).removeprefix("torch."),
+                not_bfloat16=sorted(n for n, d in seen.items()
+                                    if d != "bfloat16"))
+
+
+def _bf16_unet(f32: DiffusionTrainer, bf: DiffusionTrainer, card: str):
+    """(a) One full-width U-Net forward at the served batch, bfloat16
+    against the card's own float32 one (TF32 off), and the bfloat16 U-Net's
+    dtype census; its and the float32 U-Net's step times at batch 16 and
+    32 with cuDNN's default algorithms, and at batch 16 with its
+    deterministic ones."""
+    cfg = f32.cfg
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    out = {}
+    for num in (REQUESTS[0]["num"], 2 * REQUESTS[0]["num"]):
+        x = torch.randn(_latent_shape(cfg, num), generator=gen,
+                        device="cuda")
+        t = torch.randint(0, cfg.timesteps, (num,), generator=gen,
+                          device="cuda")
+        c = torch.randint(0, cfg.unet.context_dim + 1, (num,),
+                          generator=gen, device="cuda")
+        with torch.no_grad():
+            steps = {tr.train_cfg.dtype: cuda_ms(
+                partial(tr.model.unet, x, t, c), 30, warmup=5)
+                for tr in (f32, bf)}
+        out[f"unet_step_ms_batch{num}"] = steps
+        if num != REQUESTS[0]["num"]:
+            continue
+        # (b) times its requests with cuDNN's deterministic algorithms:
+        # the served step's cost of that choice, in each dtype
+        torch.backends.cudnn.deterministic = True
+        try:
+            with torch.no_grad():
+                out[f"unet_step_ms_batch{num}_cudnn_deterministic"] = {
+                    tr.train_cfg.dtype: cuda_ms(partial(
+                        tr.model.unet, x, t, c), 30, warmup=5)
+                    for tr in (f32, bf)}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        with torch.no_grad(), _NoTF32():
+            y32 = f32.model.unet(x, t, c)
+            ybf = bf.model.unet(x, t, c)
+        out["rel_err"] = float((ybf.float() - y32).abs().max()
+                               / y32.abs().max())
+        out["census"] = _dtype_census(bf.model.unet, x, t, c)
+    census = out["census"]
+    ok = (out["rel_err"] <= BF16_UNET_REL_TOL
+          and census["not_bfloat16"] == ["time_embedding"]
+          and census["output"] == "bfloat16")
+    say("bf16", step="unet", batch=REQUESTS[0]["num"],
+        reference="card float32, TF32 off", tol=BF16_UNET_REL_TOL, ok=ok,
+        **out, card=card)
+    if not ok:
+        raise RuntimeError(f"bf16 unet: rel_err {out['rel_err']}, census "
+                           f"{census}")
+    return out
+
+
+def _bf16_serve(bf: DiffusionTrainer, card: str) -> dict:
+    """(b) The served request as the JAX main path runs it (bench.py):
+    batch 16, T = 500 DDPM, decoded, bfloat16, and its repeat, both timed
+    with cuDNN's deterministic algorithms (in bfloat16 its default
+    algorithms for the decode's transposed convs do not repeat: 8.9e-3 of
+    the largest voxel apart, PERF.md §5; the U-Net repeats exactly), so
+    their times are deterministic-cuDNN times, unlike the float32 serve
+    phase's ((a) times the U-Net step both ways); (c) a guided DDIM 50
+    request, default algorithms. Every attention launch bfloat16, the
+    codebook kernel never."""
+    svc = GenerationService(bf.cfg, bf, name="flagship_bf16")
+    per_step = attention_calls_per_step(bf.model.unet)
+    outs, n_bf = [], 0
+    runs = [(r, True) for r in REQUESTS] + [(BF16_GUIDED, False)]
+    _reset_launches()          # the bf16 main path starts here
+    for req, deterministic in runs:
+        torch.backends.cudnn.deterministic = deterministic
+        before = dict(attn.launches_by_dtype)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vols = svc.generate(**req)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: attn.launches_by_dtype[k] - before[k] for k in before}
+        steps = req.get("sample_steps") or bf.cfg.timesteps
+        finite = bool(np.isfinite(vols).all())
+        torch.backends.cudnn.deterministic = False
+        say("bf16", step="serve", request=req, wall_s=wall,
+            cudnn_deterministic=deterministic,
+            vol_per_min=60.0 * req["num"] / wall,
+            attention_launches_by_dtype=got,
+            expected=dict(float32=0, bfloat16=per_step * steps),
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            finite=finite, std=float(vols.std()), card=card)
+        if not finite or got != dict(float32=0, bfloat16=per_step * steps):
+            raise RuntimeError(f"bf16 serve {req}: finite {finite}, "
+                               f"launches {got}")
+        n_bf += got["bfloat16"]
+        outs.append(vols)
+    codebook = cbq.launches
+    rel = float(np.abs(outs[1] - outs[0]).max() / np.abs(outs[0]).max())
+    say("bf16", step="serve", repeat_rel_err=rel, tol=REPEAT_REL_TOL,
+        attention_launches=attn.launches, codebook_launches=codebook)
+    if rel > REPEAT_REL_TOL or codebook != 0 or attn.launches != n_bf:
+        raise RuntimeError(f"bf16 serve: repeat rel_err {rel}, codebook "
+                           f"launches {codebook}")
+    return {attn.KERNEL: n_bf, attn.KERNEL + ".bfloat16": n_bf,
+            cbq.KERNEL: 0}
+
+
+def _bf16_train(f32: DiffusionTrainer, card: str) -> dict:
+    """(d) BF16_TRAIN_STEPS latent steps at batch TRAIN_BATCH in bfloat16
+    and in float32 from one state and one set of draws: the first step's
+    losses, then each dtype's step ms and peak memory."""
+    cfg = f32.cfg
+    rng = np.random.default_rng(SEED + 61)
+    shape = _latent_shape(cfg, TRAIN_BATCH)
+    lat = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    ctx = torch.from_numpy(rng.integers(0, cfg.unet.context_dim + 1,
+                                        TRAIN_BATCH))
+    draws = dict(t=torch.from_numpy(rng.integers(0, cfg.timesteps,
+                                                 TRAIN_BATCH)),
+                 noise=torch.from_numpy(rng.standard_normal(shape).astype(
+                     np.float32)),
+                 drop=torch.from_numpy(rng.random(TRAIN_BATCH)
+                                       < cfg.unet.cfg_dropout))
+    draws = {k: v.cuda() for k, v in draws.items()}
+    out, counts = {}, {}
+    for dtype in (BF16, F32):
+        tc = TrainConfig(batch_size=TRAIN_BATCH, ema_decay=0.999, seed=SEED,
+                         dtype=dtype)
+        tr = DiffusionTrainer(cfg, device="cuda", train_cfg=tc)
+        tr.model.load_state_dict(f32.model.state_dict())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses = [], []
+        for _ in range(BF16_TRAIN_STEPS):
+            m, wall, got = _counted(counts.setdefault(dtype, {
+                attn.KERNEL: 0, cbq.KERNEL: 0}), tr.train_step_latents,
+                lat.cuda(), ctx.cuda(), **draws)
+            walls.append(1e3 * wall)
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated()
+        out[dtype] = dict(step_ms=walls, losses=losses,
+                          max_memory_allocated=peak,
+                          launches=counts[dtype],
+                          attention_by_dtype=dict(attn.launches_by_dtype))
+        del tr
+        torch.cuda.empty_cache()
+    rel = abs(out[BF16]["losses"][0] - out[F32]["losses"][0]) \
+        / abs(out[F32]["losses"][0])
+    want = attention_calls_per_step(f32.model.unet)
+    ok = (rel <= BF16_TRAIN_LOSS_RTOL
+          and out[BF16]["attention_by_dtype"] == dict(float32=0,
+                                                      bfloat16=want)
+          and all(np.isfinite(out[BF16]["losses"])))
+    say("bf16", step="train", batch=TRAIN_BATCH, loss_rel_err=rel,
+        tol=BF16_TRAIN_LOSS_RTOL, ok=ok, **out, card=card)
+    if not ok:
+        raise RuntimeError(f"bf16 train: loss rel_err {rel}, {out[BF16]}")
+    n = counts[BF16][attn.KERNEL]
+    return {attn.KERNEL: n, attn.KERNEL + ".bfloat16": n, cbq.KERNEL: 0}
+
+
+def _bf16_stage1(card: str) -> dict:
+    """(e) The flagship stage-1 step at batch TRAIN_VQ_LBS, 128^3, remat
+    full and off, in bfloat16: ms and peak memory (train_vq times the
+    float32 step in the same run); the codebook kernel is launched once
+    per step, on float32 only, counted over every timed step."""
+    args = cli.build_parser().parse_args(TRAIN_VQ_FLAGS)
+    cfg = cli.apply_overrides(get_preset(args.preset), args)
+    rng = np.random.default_rng(SEED + 62)
+    vol, mask = _vq_batch(rng, TRAIN_VQ_LBS, TRAIN_VQ_SIZE, "cuda")
+    out, launched = {}, 0
+    tc = replace(cfg.train, batch_size=TRAIN_VQ_LBS, dtype=BF16)
+    tr = VQTrainer(cfg.vqvae, tc, device="cuda").init_random(SEED, "reach")
+    tr.train_step(vol, mask)     # Adam's state, cuDNN's set-up
+    for name, kw in (("remat_full", dict(remat=True,
+                                         remat_policy="full")),
+                     ("remat_off", dict(remat=False))):
+        out[name] = r = _remat_steps(tr, vol, mask, REMAT_STEPS, **kw)
+        launched += r["launches"][cbq.KERNEL]
+    del tr
+    torch.cuda.empty_cache()
+    want = dict(float32=REMAT_STEPS, bfloat16=0)
+    ok = all(r["codebook_by_dtype"] == want
+             and r["launches"] == {attn.KERNEL: 0, cbq.KERNEL: REMAT_STEPS}
+             and np.isfinite(r["metrics"]["loss"]) for r in out.values())
+    say("bf16", step="stage1", batch=TRAIN_VQ_LBS, volume=TRAIN_VQ_SIZE,
+        expected_codebook_by_dtype=want, ok=ok, **out, card=card)
+    if not ok:
+        raise RuntimeError(f"bf16 stage1: {out}")
+    return {attn.KERNEL: 0, cbq.KERNEL: launched}
+
+
+def _bf16_gan(card: str) -> dict:
+    """(f) One vqgan_attn step of each program (warm, adversarial) at its
+    batch, 128^3, in bfloat16: ms (after an untimed first step) and peak
+    memory (train_gan times the float32 steps in the same run)."""
+    args = cli.build_parser().parse_args(GAN_FLAGS)
+    cfg = cli.apply_overrides(get_preset(args.preset), args)
+    size = cfg.data.volume_size
+    rng = np.random.default_rng(SEED + 63)
+    vol, mask = _vq_batch(rng, cfg.train.batch_size, size, "cuda")
+    out, launched = {}, 0
+    for program, warm in (("warm", True), ("adversarial", False)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")      # the LPIPS surrogate
+            tr = GANTrainer(cfg.vqgan, replace(cfg.train, dtype=BF16),
+                            device="cuda", volume_size=size) \
+                .init_random(SEED, "reach")
+        tr.epoch = 0 if warm else cfg.vqgan.disc_threshold
+        tr.train_step(vol, mask, warm=warm)
+        torch.cuda.reset_peak_memory_stats()
+        m, wall, got = _counted({attn.KERNEL: 0, cbq.KERNEL: 0},
+                                tr.train_step, vol, mask, warm=warm)
+        out[program] = dict(
+            step_ms=1e3 * wall, launches=got,
+            codebook_by_dtype=dict(cbq.launches_by_dtype),
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            loss=float(m["loss"]))
+        launched += got[cbq.KERNEL]
+        del tr
+        torch.cuda.empty_cache()
+    ok = all(np.isfinite(r["loss"]) and r["codebook_by_dtype"]["bfloat16"]
+             == 0 for r in out.values())
+    say("bf16", step="vqgan_attn", batch=cfg.train.batch_size, volume=size,
+        ok=ok, **out, card=card)
+    if not ok:
+        raise RuntimeError(f"bf16 vqgan_attn: {out}")
+    return {attn.KERNEL: 0, cbq.KERNEL: launched}
+
+
+def phase_bf16(card: str, attn_cases: Dict[str, dict]) -> dict:
+    """Main path 11: the JAX default compute dtype. The attention kernel in
+    bfloat16 at the main path's shapes (where the kernel phase has not
+    measured them), then (a) to (f) above; (g) runs inside the spatial and
+    tp phases. Returns the launch counts of its main-path pieces, each
+    read right after it (the float32 twins' launches are not counted)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 64)
+    for case in BF16_ATTN_SHAPES:
+        if case[0] not in attn_cases:
+            attn_cases[case[0]] = _attention_case(gen, card, *case)
+    cfg = flagship_cfg()
+    f32 = DiffusionTrainer(cfg, device="cuda",
+                           train_cfg=TrainConfig(dtype=F32)).init_random(
+        SEED, "reach")
+    bf = DiffusionTrainer(cfg, device="cuda")       # TrainConfig(): bf16
+    bf.model.load_state_dict(f32.model.state_dict())
+    say("bf16", dtype=bf.train_cfg.dtype, params=str(
+        next(bf.model.parameters()).dtype), card=card)
+    _bf16_unet(f32, bf, card)
+    counts = _bf16_serve(bf, card)
+    phase_serve_profile(bf, card, phase="bf16_serve_profile")
+    del bf
+    torch.cuda.empty_cache()
+    train = _bf16_train(f32, card)
+    del f32
+    torch.cuda.empty_cache()
+    stage1 = _bf16_stage1(card)
+    gan = _bf16_gan(card)
+    total = {k: counts.get(k, 0) + train.get(k, 0) + stage1.get(k, 0)
+             + gan.get(k, 0) for k in (attn.KERNEL, attn.KERNEL
+                                        + ".bfloat16", cbq.KERNEL)}
+    say("bf16", launches=total, wall_s=time.perf_counter() - t0, card=card)
+    return total
+
+
+def _kernel_line(name, source, replaces, counts, case, library,
+                 bf16_cases=()):
+    """The kernel's entry of the `kernels` line: its launches on the main
+    paths (by path, and by dtype: the bf16 phase's pieces count their
+    bfloat16 launches, every other phase computes in float32), the
+    numbers of `case`, and those of its bfloat16 cases."""
+    total = sum(c.get(name, 0) for c in counts.values())
+    bf16 = sum(c.get(name + ".bfloat16", 0) for c in counts.values())
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces,
-        "launches": sum(c.get(name, 0) for c in counts.values()),
+        "launches": total,
+        "launches_by_dtype": {"float32": total - bf16, "bfloat16": bf16},
         "launches_by_path": {p: c.get(name, 0) for p, c in counts.items()},
+        "bfloat16_cases": {c["shape"][0]: {k: c[k] for k in (
+            "shape", "max_abs_err", "ms", "eager_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")} for c in bf16_cases},
         "max_abs_err": case["max_abs_err"],
         "ms": case["ms"], "kernel_ms": case["ms"],
         "eager_ms": case["eager_ms"], "plain_ms": case["plain_ms"],
@@ -4378,6 +4966,14 @@ def main() -> None:
         phase_tp(card, check=True)
         say("done", wall_s=time.perf_counter() - t_start, card=card)
         return
+    if "--bf16-check" in sys.argv[1:]:
+        phase_bf16(card, {})
+        say("done", wall_s=time.perf_counter() - t_start, card=card)
+        return
+    if "--bf16-gate-faults" in sys.argv[1:]:
+        phase_bf16_gate_faults(card)
+        say("done", wall_s=time.perf_counter() - t_start, card=card)
+        return
     if "--train-compare-check" in sys.argv[1:]:
         train = phase_train(card)
         phase_train_compare_check(train["trainer"], train["latents"])
@@ -4388,7 +4984,8 @@ def main() -> None:
     phase_kernel_shapes()
     phase_attention_grad()
     phase_init(card)
-    trainer = DiffusionTrainer(flagship_cfg(), device="cuda").init_random(
+    trainer = DiffusionTrainer(flagship_cfg(), device="cuda",
+                               train_cfg=TrainConfig(dtype=F32)).init_random(
         SEED, "reach")
     phase_unet_step(trainer)
     svc = GenerationService(trainer.cfg, trainer, name="flagship")
@@ -4399,6 +4996,8 @@ def main() -> None:
     phase_sampler_compare(trainer)
     counts["fidelity"] = phase_fidelity(trainer, card)
     del svc, trainer
+    torch.cuda.empty_cache()
+    counts["bf16"] = phase_bf16(card, attn_cases)
     torch.cuda.empty_cache()
     phase_encode()
     phase_quantizers()
@@ -4424,7 +5023,8 @@ def main() -> None:
         _kernel_line(attn.KERNEL, "ldm3d_torch/csrc/voxel_attention.cu",
                      "ldm3d/ops/attention.py:38", counts,
                      attn_cases["self_f32"],
-                     "torch.nn.functional.scaled_dot_product_attention"),
+                     "torch.nn.functional.scaled_dot_product_attention",
+                     [attn_cases[c[0]] for c in BF16_ATTN_SHAPES]),
         _kernel_line(cbq.KERNEL, "ldm3d_torch/csrc/codebook_nearest.cu",
                      "ldm3d/ops/quantize.py:48", counts,
                      cb_cases["train_f32"],
@@ -4445,5 +5045,7 @@ if __name__ == "__main__":
         spatial_worker(*sys.argv[2:])
     elif sys.argv[1:2] == ["--tp-worker"]:
         tp_worker(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--bf16-gate-worker"]:
+        bf16_gate_worker(*sys.argv[2:])
     else:
         main()

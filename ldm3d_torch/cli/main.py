@@ -160,8 +160,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_embeddings", type=int, default=None)
     p.add_argument("--embedding_dim", type=int, default=None)
     p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
-                   help="recorded in the config; the port computes in "
-                        "float32 (TF32 convolutions)")
+                   help="compute dtype of the trainers' networks "
+                        "(default bfloat16; parameters stay float32)")
     p.add_argument("--ckpt_dir", default=None)
     p.add_argument("--ckpt_freq", type=int, default=1,
                    help="save a checkpoint every N epochs (the final "

@@ -12,6 +12,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
+import torch
+
 
 @dataclass(frozen=True)
 class QuantizerConfig:
@@ -197,8 +199,8 @@ class TrainConfig:
     ema_decay: float = 0.0
     epochs: int = 200
     val_fraction: float = 0.1
-    # the JAX package's compute dtype, recorded only: the port computes in
-    # float32 (TF32 convolutions)
+    # compute dtype of the trainers' networks; params stay float32
+    # (`compute_dtype`)
     dtype: str = "bfloat16"
     replace_codebook_freq: int = 10    # epochs between unused-code replacement
     checkpoint_every: int = 1
@@ -287,3 +289,9 @@ def flagship_cfg(tiny: bool = False) -> DiffusionConfig:
     return DiffusionConfig(timesteps=500, latent_size=8,
                            latent_channels=256, unet=unet, vqvae=vq,
                            latent_scale=20.834, clip_sample_range=0.0)
+
+
+def compute_dtype(name: str):
+    """The torch dtype of `TrainConfig.dtype`: bfloat16 for "bfloat16",
+    float32 for anything else, as the JAX trainers read the field."""
+    return torch.bfloat16 if name == "bfloat16" else torch.float32

@@ -23,6 +23,17 @@ output channels, gathered along C; a transposed conv a partial sum over
 its slice of input channels, summed over the model group; a split vector
 (a bias, a norm's scale or offset, a PReLU slope) is gathered where it
 is used. Inputs and outputs are whole channels either way.
+
+The compute dtype (`set_compute_dtype`, from `TrainConfig.dtype`) puts
+casts where flax's `dtype=` puts them: a dense, conv or transposed conv
+casts its input, weight and bias to it and returns its output in it
+(flax's `promote_dtype(inputs, kernel, bias, dtype=...)`); a norm takes
+its statistics and normalises in float32 and returns the compute dtype
+(flax's `_normalize` with float32 reductions); an `Embed` returns its
+rows in it. Parameters and BatchNorm statistics stay float32, and the
+weights' gradients come back float32 through the casts. Without a
+compute dtype (float32, the default) every layer computes in its input's
+and parameters' type, as before.
 """
 
 from __future__ import annotations
@@ -62,13 +73,77 @@ def _check_init(kind: str) -> str:
     return kind
 
 
+def _cast(module: nn.Module, *tensors):
+    """`tensors` in `module`'s compute dtype (None stays None), or as they
+    are where it has none: flax's `promote_dtype(..., dtype=...)`."""
+    dtype = module.compute_dtype
+    if dtype is None:
+        return tensors
+    return tuple(None if t is None else t.to(dtype) for t in tensors)
+
+
+def _late_bias(module: nn.Module, bias: Optional[torch.Tensor]
+               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(the bias to fuse into the op, the bias to add to its output).
+    Under a compute dtype flax rounds the op's output to it and then adds
+    the bias (a second rounding, which a fused bias would skip); without
+    one the bias is fused."""
+    if module.compute_dtype is None:
+        return bias, None
+    return None, bias
+
+
+def _plus(y: torch.Tensor, bias: Optional[torch.Tensor],
+          dim: int = 1) -> torch.Tensor:
+    """`y` plus a bias over its dim `dim` (channels; -1 for a dense)."""
+    if bias is None:
+        return y
+    shape = [1] * y.dim()
+    shape[dim] = -1
+    return y + bias.view(shape)
+
+
+def _reduced(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A norm's input for its statistics and normalisation: at least
+    float32 under a compute dtype, as flax reduces."""
+    return x if module.compute_dtype is None else x.float()
+
+
+def at_least_float32(t: torch.Tensor) -> torch.Tensor:
+    """`t` upcast to float32 when it is narrower (an activation or a loss
+    in the compute dtype), else as it is: a float64 reference keeps its
+    precision."""
+    return t if t.dtype.itemsize >= 4 else t.float()
+
+
+def _out(module: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """A norm's or an embedding's output in the compute dtype."""
+    dtype = module.compute_dtype
+    return y if dtype is None else y.to(dtype)
+
+
 class Dense(nn.Linear):
     """flax `nn.Dense` (`nn.Linear`, weight (out, in)); under
     `parallel.tp.model_sharding` its bias may be split, and is gathered
     here (the kernel is 2-D: whole on every process, as in JAX)."""
 
+    compute_dtype = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, tp.full(self, "bias"))
+        x, weight, bias = _cast(self, x, self.weight, tp.full(self, "bias"))
+        fused, late = _late_bias(self, bias)
+        return _plus(F.linear(x, weight, fused), late, -1)
+
+
+class Embed(nn.Embedding):
+    """flax `nn.Embed` (`nn.Embedding`, weight [tokens, features]); its
+    rows come out in the compute dtype, as `Embed(dtype=...)` gives
+    them."""
+
+    compute_dtype = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _out(self, super().forward(x))
 
 
 def with_init(module: nn.Module, kernel_init: str) -> nn.Module:
@@ -98,6 +173,8 @@ class Conv3d(nn.Module):
     layers are `nn.Linear`, weight (out, in). `kernel_init` names the
     weight's init under `init_jax_` (`KERNEL_INITS`)."""
 
+    compute_dtype = None
+
     def __init__(self, in_channels: int, features: int, kernel: _Int3 = 3,
                  stride: _Int3 = 1, use_bias: bool = True,
                  padding: str = "SAME", kernel_init: str = "glorot_uniform"):
@@ -119,21 +196,28 @@ class Conv3d(nn.Module):
         return tp.gather_channels(self._conv(tp.column(x)))
 
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        x, weight, bias = _cast(self, x, self.weight, self.bias)
+        fused, late = _late_bias(self, bias)
+        return _plus(self._conv_with(x, weight, fused), late)
+
+    def _conv_with(self, x: torch.Tensor, weight: torch.Tensor,
+                   bias: Optional[torch.Tensor]) -> torch.Tensor:
         if self.padding == "VALID":
             # over slabs the caller has attached the halo (a SYMMETRIC
             # pad, the space-to-depth stem): the conv is local
-            return F.conv3d(x, self.weight, self.bias, self.stride)
+            return F.conv3d(x, weight, bias, self.stride)
         mesh = spatial.sharded()
         if mesh is None:
-            return _same_conv(F.conv3d, x, self.weight, self.bias,
-                              self.kernel, self.stride)
+            return _same_conv(F.conv3d, x, weight, bias, self.kernel,
+                              self.stride)
         left, right = _halo_widths(self.kernel[2], self.stride[2])
         if not spatial.fits(x.shape[4], left, right, self.stride[2]):
-            return spatial.gathered(self._conv, x)
+            return spatial.gathered(
+                lambda v: self._conv_with(v, weight, bias), x)
         pads = [same_pads(n, k, s) for n, k, s in zip(
             x.shape[2:4], self.kernel, self.stride)]
-        return halo_conv_slab(x, self.weight, self.bias, left, right,
-                              self.stride, pads, mesh)
+        return halo_conv_slab(x, weight, bias, left, right, self.stride,
+                              pads, mesh)
 
 
 def _same_conv(conv, x, weight, bias, kernel, stride) -> torch.Tensor:
@@ -155,6 +239,8 @@ class Conv2d(nn.Module):
     Weight (out, in, kh, kw). flax's `nn.Conv` draws lecun-normal
     kernels unless told otherwise."""
 
+    compute_dtype = None
+
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
                  stride: int = 1, use_bias: bool = True,
                  kernel_init: str = "lecun_normal"):
@@ -167,8 +253,10 @@ class Conv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _same_conv(F.conv2d, x, self.weight, tp.full(self, "bias"),
-                          self.kernel, self.stride)
+        x, weight, bias = _cast(self, x, self.weight, tp.full(self, "bias"))
+        fused, late = _late_bias(self, bias)
+        return _plus(_same_conv(F.conv2d, x, weight, fused, self.kernel,
+                                self.stride), late)
 
 
 def symmetric_pad3d(x: torch.Tensor, kernel: Tuple[int, int, int],
@@ -228,6 +316,8 @@ class ConvTranspose3d(nn.Module):
     padding="VALID" (flax's, for k >= s) is the full transposed output,
     (n - 1) * s + k per dim, uncropped."""
 
+    compute_dtype = None
+
     def __init__(self, in_channels: int, features: int, kernel: _Int3 = 4,
                  stride: _Int3 = 2, use_bias: bool = True,
                  kernel_resize: bool = False, padding: str = "SAME"):
@@ -245,13 +335,14 @@ class ConvTranspose3d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = tp.full(self, "bias")
+        x, weight, bias = _cast(self, x, self.weight, tp.full(self, "bias"))
         if tp.split_dim(self, "weight") is None:
-            return self._conv(x, self.weight, bias)
+            fused, late = _late_bias(self, bias)
+            return _plus(self._conv(x, weight, fused), late)
         # split on its input channels: a partial sum over this process's
         # slice of them, summed over the model group
-        y = tp.sum_partials(self._conv(tp.input_slice(x), self.weight, None))
-        return y if bias is None else y + bias.view(1, -1, 1, 1, 1)
+        y = tp.sum_partials(self._conv(tp.input_slice(x), weight, None))
+        return _plus(y, bias)
 
     def _conv(self, x: torch.Tensor, weight: torch.Tensor,
               bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -367,7 +458,7 @@ def _global_var_mean(x: torch.Tensor, dims, group):
     """(biased variance, mean) per channel over `dims` of the batch that
     `group`'s processes hold together (equal local shapes): the mean
     first, then the squared deviations from it, each summed over the
-    group."""
+    group. `x` comes in at least float32 (`_BatchNorm` upcasts it)."""
     count = x.numel() // x.shape[1] * dist.get_world_size(group)
     shape = (1, -1) + (1,) * (x.dim() - 2)
     mean = all_reduce_sum(x.sum(dim=dims), group) / count
@@ -403,6 +494,7 @@ class _BatchNorm(nn.Module):
 
     momentum = 0.99
     eps = 1e-3
+    compute_dtype = None
 
     def __init__(self, channels: int):
         super().__init__()
@@ -428,6 +520,9 @@ class _BatchNorm(nn.Module):
             + tp.full(self, "bias").view(shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _out(self, self._forward(_reduced(self, x)))
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             if self.live_stats is not None:
                 return self._normalize(x, *self.live_stats)
@@ -460,6 +555,7 @@ class _GroupNorm(nn.Module):
     differentiable)."""
 
     eps = 1e-6
+    compute_dtype = None
 
     def __init__(self, channels: int, num_groups: int = 32):
         super().__init__()
@@ -471,10 +567,13 @@ class _GroupNorm(nn.Module):
         mesh = spatial.sharded()
         weight, bias = tp.full(self, "weight"), tp.full(self, "bias")
         if mesh is None:
-            return F.group_norm(x, self.groups, weight, bias, eps=self.eps)
-        return _SlabGroupNorm.apply(x, weight, bias, self.groups, self.eps,
-                                    mesh.shape[SPACE_AXIS],
-                                    mesh.group(SPACE_AXIS))
+            return _out(self, F.group_norm(_reduced(self, x), self.groups,
+                                           weight, bias, eps=self.eps))
+        # the slab goes in as it is (the Function upcasts it, and keeps it
+        # in its own type for the backward pass)
+        return _out(self, _SlabGroupNorm.apply(
+            x, weight, bias, self.groups, self.eps, mesh.shape[SPACE_AXIS],
+            mesh.group(SPACE_AXIS)))
 
 
 class _SlabGroupNorm(torch.autograd.Function):
@@ -482,12 +581,15 @@ class _SlabGroupNorm(torch.autograd.Function):
     summed over the space group: the mean, then the squared deviations
     from it (two all-reduces); the backward pass's two group sums in one
     more. Keeps the input and the statistics for the backward pass, as
-    `F.group_norm` does, and builds the normalised slab again there."""
+    `F.group_norm` does, and builds the normalised slab again there.
+    Computes in at least float32: a bfloat16 slab is kept as it is and
+    upcast in both passes, and its gradient goes back in bfloat16."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, groups, eps, space, group):
         b = x.shape[0]
         xg = x.reshape(b, groups, -1)
+        xg = xg.to(torch.promote_types(x.dtype, torch.float32))
         count = xg.shape[-1] * space
         mean = all_reduce_sum(xg.sum(-1, keepdim=True), group) / count
         var = all_reduce_sum(torch.square(xg - mean).sum(-1, keepdim=True),
@@ -506,7 +608,8 @@ class _SlabGroupNorm(torch.autograd.Function):
         b = x.shape[0]
         shape = (1, -1) + (1,) * (x.dim() - 2)
         dims = [0, *range(2, x.dim())]
-        xhat = (x.reshape(b, groups, -1) - mean) * rstd
+        dy = dy.to(mean.dtype)
+        xhat = (x.reshape(b, groups, -1).to(mean.dtype) - mean) * rstd
         dweight = (dy * xhat.reshape(x.shape)).sum(dims)
         dbias = dy.sum(dims)
         dxhat = (dy * weight.view(shape)).reshape(b, groups, -1)
@@ -514,13 +617,15 @@ class _SlabGroupNorm(torch.autograd.Function):
         dist.all_reduce(sums, group=group)
         m1, m2 = (t.unsqueeze(-1) / count for t in sums)
         dx = (rstd * (dxhat - m1 - xhat * m2)).reshape(x.shape)
-        return dx, dweight, dbias, None, None, None, None
+        return dx.to(x.dtype), dweight, dbias, None, None, None, None
 
 
 class LayerNorm(nn.Module):
     """flax LayerNorm over the last dim, eps 1e-6 (torch's default is
     1e-5); with `channels_first`, over dim 1 of an NCDHW volume (the
     channels-last LayerNorm of the JAX package's `Norm("layer")`)."""
+
+    compute_dtype = None
 
     def __init__(self, channels: int, channels_first: bool = False):
         super().__init__()
@@ -531,8 +636,9 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.channels_first:
             x = x.movedim(1, -1)
-        y = F.layer_norm(x, (x.shape[-1],), tp.full(self, "weight"),
-                         tp.full(self, "bias"), eps=1e-6)
+        y = _out(self, F.layer_norm(_reduced(self, x), (x.shape[-1],),
+                                    tp.full(self, "weight"),
+                                    tp.full(self, "bias"), eps=1e-6))
         return y.movedim(-1, 1) if self.channels_first else y
 
 
@@ -661,6 +767,25 @@ def init_jax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                              generator=generator)
         else:
             _init_common_(m, generator)
+    return module
+
+
+# the layers whose outputs take the compute dtype
+_COMPUTE = (Dense, Embed, Conv3d, Conv2d, ConvTranspose3d, _BatchNorm,
+            _GroupNorm, LayerNorm)
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]
+                      ) -> nn.Module:
+    """Every layer of `module` computes in `dtype` (`core.config.
+    compute_dtype` of `TrainConfig.dtype`), as flax's `dtype=` makes it:
+    bfloat16 activations over float32 parameters. float32 (or None)
+    takes the casts away: each layer then computes in its input's and
+    parameters' type, as a float64 copy of the module does."""
+    value = None if dtype in (None, torch.float32) else dtype
+    for m in module.modules():
+        if isinstance(m, _COMPUTE):
+            m.compute_dtype = value
     return module
 
 

@@ -30,8 +30,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ldm3d_torch.core.config import UNetConfig
-from ldm3d_torch.models.layers import (Conv3d, Dense, LayerNorm, Norm,
-                                       upsample3d, with_init)
+from ldm3d_torch.models.layers import (Conv3d, Dense, Embed, LayerNorm,
+                                       Norm, upsample3d, with_init)
 from ldm3d_torch.ops.attention import voxel_attention
 from ldm3d_torch.parallel import spatial
 
@@ -58,7 +58,8 @@ def _whole_seq(x: torch.Tensor, seq: torch.Tensor, fn=None) -> torch.Tensor:
 
 
 class TimeEmbedding(nn.Module):
-    """Sinusoidal timestep embedding; the frequency divisor is half - 1."""
+    """Sinusoidal timestep embedding; the frequency divisor is half - 1.
+    float32 under any compute dtype, until the time MLP's first Dense."""
 
     def __init__(self, dim: int, max_period: int = 10000):
         super().__init__()
@@ -229,7 +230,7 @@ class UNet3D(nn.Module):
         self.time_mlp = TimeMLP(temb_dim, temb_dim)
         if self.conditional:
             n_tokens = cfg.context_dim + 1 + (1 if cfg.cfg_dropout > 0 else 0)
-            self.context_embed = nn.Embedding(n_tokens, temb_dim)
+            self.context_embed = Embed(n_tokens, temb_dim)
 
         def attend(name: str, width: int, size: int):
             if self.conditional:

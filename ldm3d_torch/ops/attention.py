@@ -28,19 +28,24 @@ KERNEL = "voxel_attention"
 SUPPORTED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of the CUDA kernel since the last reset (plain integer; the
-# wrapper adds one where it launches and nowhere else).
+# wrapper adds one where it launches and nowhere else), and the same
+# launches by dtype ("float32", "bfloat16").
 launches = 0
+launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for key in launches_by_dtype:
+        launches_by_dtype[key] = 0
 
 
 def _attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float) -> torch.Tensor:
     """Plain version: scores and softmax in float32, probabilities cast to
-    v's type before the product (`_attention_xla`)."""
+    v's type before the product (`_attention_xla`); the output, and the
+    gradients of q, k and v, in the inputs' type."""
     scores = torch.einsum("bqc,bkc->bqk", q.float(), k.float()) * scale
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bqk,bkc->bqc", probs, v)
@@ -123,6 +128,7 @@ def voxel_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"voxel_attention kernel launch failed: {msg} "
                            f"(q {tuple(q.shape)} {q.dtype})")
     launches += 1
+    launches_by_dtype[str(q.dtype).removeprefix("torch.")] += 1
     return out
 
 

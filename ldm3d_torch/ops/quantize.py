@@ -31,13 +31,18 @@ BLOCKS_PER_SM = 2        # the grid the K split aims for (shared memory
                          # holds two blocks per SM)
 
 # Launches of the CUDA kernel since the last reset (plain integer; the
-# wrapper adds one where it launches and nowhere else).
+# wrapper adds one where it launches and nowhere else), and the same
+# launches by x's dtype ("float32", "bfloat16"): the quantizers send
+# float32 on every path, under any compute dtype.
 launches = 0
+launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    for key in launches_by_dtype:
+        launches_by_dtype[key] = 0
 
 
 def _nearest_indices_reference(x: torch.Tensor, codebook: torch.Tensor
@@ -144,6 +149,7 @@ def nearest_codebook_indices_cuda(x: torch.Tensor, codebook: torch.Tensor
         raise RuntimeError(f"codebook_nearest kernel launch failed: {msg} "
                            f"(x {tuple(x.shape)} {x.dtype}, K={k})")
     launches += 1
+    launches_by_dtype[str(x.dtype).removeprefix("torch.")] += 1
     return out
 
 

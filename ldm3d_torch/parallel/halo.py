@@ -21,6 +21,11 @@ and takes its halos from its neighbours' slots. The backward pass sends
 each halo's gradient back to the process that owns those rows the same
 way. `gather_space` / `slice_space` move a tensor between its slabs and
 the whole of it, differentiably.
+
+Each of these all-reduces adds zeros to the rows one process wrote, so
+it is exact in any dtype: a bfloat16 activation is exchanged and
+gathered as it is. The one rounding that one process would not make is
+the halo gradient's addition to its owner's rows, in the gradient's type.
 """
 
 from __future__ import annotations

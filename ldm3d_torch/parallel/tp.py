@@ -312,8 +312,14 @@ def input_slice(x: torch.Tensor) -> torch.Tensor:
 
 
 def sum_partials(y: torch.Tensor) -> torch.Tensor:
-    """The sum over the model group of each process's partial `y`."""
-    return _Sum.apply(y.contiguous(), _model(_active()))
+    """The sum over the model group of each process's partial `y`. A
+    partial below float32 (a bfloat16 activation) is summed in float32
+    and rounded once: one process rounds the whole contraction once, and
+    a bfloat16 sum would round again at every addition and drop the
+    smaller partial's low bits."""
+    if y.dtype.itemsize >= 4:
+        return _Sum.apply(y.contiguous(), _model(_active()))
+    return _Sum.apply(y.float().contiguous(), _model(_active())).to(y.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ldm3d_torch.core.config import DiffusionConfig, replace
+from ldm3d_torch.core.config import DiffusionConfig, TrainConfig, replace
 from ldm3d_torch.data.nifti import nifti_bytes
 from ldm3d_torch.train.dm_trainer import SAMPLERS, DiffusionTrainer
 
@@ -79,7 +79,10 @@ class GenerationService:
     @classmethod
     def from_random_init(cls, cfg: DiffusionConfig, seed: int = 0,
                          device=None, name: str = "ldm3d"):
-        """A service over seeded random weights (no trained checkpoint)."""
+        """A service over seeded random weights (no trained checkpoint),
+        computing in `TrainConfig()`'s dtype, bfloat16, as the JAX
+        service does. For another dtype, build the trainer and pass it to
+        the constructor."""
         trainer = DiffusionTrainer(cfg, device=device).init_random(
             seed, scheme="reach")
         return cls(cfg, trainer, name=name)
@@ -94,10 +97,13 @@ class GenerationService:
         `ema=True` samples from the EMA weights, which the checkpoint must
         then hold; without it a checkpoint that holds them is refused, as
         the JAX service refuses the tree mismatch. The optimizer state is
-        not loaded."""
+        not loaded. The service computes in `exp_cfg.train.dtype`
+        (bfloat16 unless the preset or `--dtype` says otherwise)."""
         from ldm3d_torch.train.checkpoint import CheckpointManager
 
-        trainer = DiffusionTrainer(exp_cfg.diffusion, device=device)
+        trainer = DiffusionTrainer(exp_cfg.diffusion, device=device,
+                                   train_cfg=TrainConfig(
+                                       dtype=exp_cfg.train.dtype))
         state, ep = CheckpointManager(ckpt_dir).restore(epoch)
         if ema != (state["ema_unet"] is not None):
             raise ValueError(

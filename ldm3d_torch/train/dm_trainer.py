@@ -25,6 +25,13 @@ are split over the model group (`parallel.tp`; the steps and `generate`
 run inside `tp.mesh_sharding`); the frozen VQ-VAE stays whole on every
 process. `state_dict` / `load_state_dict` hold whole tensors, one
 process's.
+
+The model computes in `train_cfg.dtype` (`layers.set_compute_dtype`; the
+JAX default bfloat16 builds `LatentDiffusion(dtype=bfloat16)`, the frozen
+VQ-VAE and the U-Net alike): activations in it, parameters, Adam's
+moments, the EMA copy and the BatchNorm statistics in float32, and the
+noised latents, the loss, the sampler's state and the returned latents
+and volumes in float32.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ldm3d_torch.core.config import DiffusionConfig, TrainConfig
+from ldm3d_torch.core.config import (DiffusionConfig, TrainConfig,
+                                     compute_dtype)
 from ldm3d_torch.core.device import resolve_device
 from ldm3d_torch.diffusion.ddpm import (sample_latents, sample_latents_ddim,
                                         sample_latents_dpmpp,
@@ -45,7 +53,8 @@ from ldm3d_torch.diffusion.ddpm import (sample_latents, sample_latents_ddim,
 from ldm3d_torch.diffusion.schedule import (make_schedule, min_snr_weight,
                                             model_out_to_eps, q_sample,
                                             v_target)
-from ldm3d_torch.models.layers import INIT_SCHEMES
+from ldm3d_torch.models.layers import (INIT_SCHEMES, at_least_float32,
+                                       set_compute_dtype)
 from ldm3d_torch.models.unet3d import UNet3D
 from ldm3d_torch.models.vqvae import VQVAE
 from ldm3d_torch.ops.fid import (frechet_distance, latent_fidelity,
@@ -130,6 +139,7 @@ class DiffusionTrainer:
         self.device = resolve_device(device)
         self.conditional = cfg.unet.context_dim is not None
         self.model = LatentDiffusion(cfg).to(self.device).eval()
+        set_compute_dtype(self.model, compute_dtype(self.train_cfg.dtype))
         self.model.requires_grad_(False)
         self.ema_unet: Optional[UNet3D] = None
         self.sched = make_schedule(cfg.timesteps, cfg.beta_start,
@@ -240,10 +250,11 @@ class DiffusionTrainer:
         the frozen stage-1 in eval mode: deterministic, so they can be
         computed once per corpus and trained on (`train_step_latents`).
         Over a space mesh `images` are depth slabs and the latents are
-        gathered whole."""
+        gathered whole. float32 (a quantizer that returns the compute
+        dtype gives its values, upcast)."""
         with spatial_sharding(self.mesh):
             lat = self.model.encode_latents(images.to(self.device).float())
-            return spatial.gather(lat, spatial.SPATIAL_AXIS)
+            return at_least_float32(spatial.gather(lat, spatial.SPATIAL_AXIS))
 
     def _optimizer(self) -> torch.optim.Adam:
         """Adam over the U-Net only (optax `adam` math, eps 1e-8), and the
@@ -406,7 +417,8 @@ class DiffusionTrainer:
         weights). Noise is drawn from `generator` (on this trainer's
         device) unless `init_noise` / `step_noise` inject it (see
         `ldm3d_torch.diffusion.ddpm`). Returns volumes [B, H, W, D, out]
-        (NDHWC), or with `decode=False` the latents in diffusion space.
+        (NDHWC), or with `decode=False` the latents in diffusion space,
+        float32 (a decode in the compute dtype upcast).
         Over a space mesh every process samples the same whole latents,
         each U-Net call and the decode run on depth slabs, and the whole
         volume is returned on every process."""
@@ -484,7 +496,8 @@ class DiffusionTrainer:
             latents = sample_latents(self.sched, denoise, shape,
                                      last_step=last_step,
                                      step_noise=step_noise, **common)
-        return self.model.decode(latents) if decode else latents
+        return at_least_float32(self.model.decode(latents)) if decode \
+            else latents
 
     # -- fidelity ---------------------------------------------------------
 

@@ -23,7 +23,10 @@ statistics, as in JAX, where the statistics a flax BatchNorm returns
 are traced values. Before `disc_threshold` the warm program runs no
 critic at all, and the critics take an Adam step with zero gradients, so
 that their parameters stay as they were while Adam's step count moves on.
-The port computes in float32 (TF32 convolutions on the card).
+The autoencoder and both critics compute in `train_cfg.dtype`
+(`layers.set_compute_dtype`; bfloat16 by default, as the JAX trainer
+builds them), LPIPS in float32 on the upcast reconstruction; the losses,
+the adaptive weight and R1's input gradients are float32.
 
 With a `mesh` of several processes each holds its rows of every global
 batch, as in the other trainers: the frame indices are the global
@@ -57,9 +60,11 @@ import torch.nn as nn
 
 from ldm3d_torch.convert import (convert_gan_state, gan_flax_state,
                                  module_state)
-from ldm3d_torch.core.config import TrainConfig, VQGANConfig
+from ldm3d_torch.core.config import (TrainConfig, VQGANConfig,
+                                     compute_dtype)
 from ldm3d_torch.core.device import resolve_device
-from ldm3d_torch.models.layers import INIT_SCHEMES, _BatchNorm
+from ldm3d_torch.models.layers import (INIT_SCHEMES, _BatchNorm,
+                                       at_least_float32, set_compute_dtype)
 from ldm3d_torch.models.lpips import (LPIPS, calibrate_lpips_,
                                       calibration_frames, load_lpips_params)
 from ldm3d_torch.models.quantizers import Draws, QuantAux
@@ -135,6 +140,7 @@ class GANTrainer:
         self.disc2d, self.lpips = self.model.disc2d, self.model.lpips
         for m in (self.ae, self.disc3d, self.disc2d):   # LPIPS: frozen
             tp.shard_module(m, mesh)
+            set_compute_dtype(m, compute_dtype(self.train_cfg.dtype))
         # the critics' fake, R1 and adaptive forwards read the statistics
         # of their real forward as JAX does, gradients included
         self._critic_norms = [m for d in (self.disc3d, self.disc2d)
@@ -267,7 +273,7 @@ class GANTrainer:
         no_grad. Runs inside `mesh_sharding(self.mesh)`."""
         x = torch.cat([vol, mask], dim=-1)
         recon, aux = self.ae(x, draws)
-        img_recon = recon[..., :vol.shape[-1]]
+        img_recon = at_least_float32(recon[..., :vol.shape[-1]])
         recon_loss = torch.mean(torch.abs(img_recon - vol))
         img_recon, vol = (spatial.gather(a, spatial.SPATIAL_AXIS)
                           for a in (img_recon, vol))
@@ -289,13 +295,13 @@ class GANTrainer:
         frames_recon = img_recon[rows, frame_idx]
         f3 = _rgb(frames)
         perceptual = torch.mean(self.lpips(f3, _rgb(frames_recon)))
-        q_loss = aux.loss
+        q_loss = at_least_float32(aux.loss)
         zero = torch.zeros((), device=vol.device)
 
         if warm:
             ae_loss = recon_loss + q_loss + cfg.lpips_wt * perceptual
             metrics = {"loss": ae_loss, "reconst_loss": recon_loss,
-                       "quantize_loss": aux.loss, "gen_loss": zero,
+                       "quantize_loss": q_loss, "gen_loss": zero,
                        "disc_loss": zero, "gan_feat_loss": zero,
                        "perceptual_loss": perceptual,
                        "perplexity": aux.perplexity}
@@ -330,17 +336,19 @@ class GANTrainer:
                 self.disc3d.train()
                 self.disc2d.train()
 
+        # the critics' losses in their compute dtype, read in float32
         if cfg.g_adv_style == "bce":
-            g_adv = (self.d_loss(True, fake_logits_g)
-                     + self.d_loss(True, fake_logits2_g))
+            g_adv = at_least_float32(self.d_loss(True, fake_logits_g)
+                                     + self.d_loss(True, fake_logits2_g))
         else:
-            g_adv = -torch.mean(fake_logits_g) - torch.mean(fake_logits2_g)
+            g_adv = at_least_float32(-torch.mean(fake_logits_g)
+                                     - torch.mean(fake_logits2_g))
         feat_w = 4.0 / (3 + 1)
         feat_loss = zero
         for fa, fb in [*zip(fake_feat_g[:-1], real_feat[:-1]),
                        *zip(fake_feat2_g[:-1], real_feat2[:-1])]:
             feat_loss = feat_loss + feat_w * torch.mean(torch.abs(
-                fa - fb.detach()))
+                at_least_float32(fa) - at_least_float32(fb.detach())))
 
         ae_loss = (recon_loss + q_loss + cfg.lpips_wt * perceptual
                    + g_gate * (cfg.gan_feat_wt * feat_loss + adv_w * g_adv))
@@ -348,11 +356,11 @@ class GANTrainer:
                      + self.d_loss(False, fake_logits)
                      + self.d_loss(True, real_logits2)
                      + self.d_loss(False, fake_logits2))
-        disc_loss = gate * cfg.disc_wt * disc_loss
+        disc_loss = gate * cfg.disc_wt * at_least_float32(disc_loss)
         if cfg.r1_gamma > 0:
             disc_loss = disc_loss + gate * r1
         metrics = {"loss": ae_loss, "reconst_loss": recon_loss,
-                   "quantize_loss": aux.loss, "gen_loss": g_gate * g_adv,
+                   "quantize_loss": q_loss, "gen_loss": g_gate * g_adv,
                    "disc_loss": disc_loss,
                    "gan_feat_loss": g_gate * feat_loss,
                    "perceptual_loss": perceptual,
@@ -406,9 +414,9 @@ class GANTrainer:
         with torch.enable_grad():
             v = vol_c.detach().requires_grad_(True)
             f = frames_c.detach().requires_grad_(True)
-            g3, = torch.autograd.grad(self.disc3d(v)[0].sum(), v,
+            g3, = torch.autograd.grad(at_least_float32(self.disc3d(v)[0]).sum(), v,
                                       create_graph=create_graph)
-            g2, = torch.autograd.grad(self.disc2d(f)[0].sum(), f,
+            g2, = torch.autograd.grad(at_least_float32(self.disc2d(f)[0]).sum(), f,
                                       create_graph=create_graph)
         return 0.5 * self.cfg.r1_gamma * (
             torch.mean(torch.sum(torch.square(g3.reshape(b, -1)), dim=-1))
@@ -493,8 +501,9 @@ class GANTrainer:
     @torch.no_grad()
     def reconstruct(self, vol: torch.Tensor, mask: torch.Tensor
                     ) -> Tuple[torch.Tensor, QuantAux]:
-        """(reconstruction [B, H, W, D, out], QuantAux) in eval mode (over
-        a space mesh, this process's depth slab)."""
+        """(reconstruction [B, H, W, D, out] in float32, QuantAux) in eval
+        mode (over a space mesh, this process's depth slab)."""
         vol, mask = self._batch(vol, mask)
         with mesh_sharding(self.mesh):
-            return self.ae(torch.cat([vol, mask], dim=-1))
+            recon, aux = self.ae(torch.cat([vol, mask], dim=-1))
+            return at_least_float32(recon), aux

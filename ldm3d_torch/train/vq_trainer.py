@@ -11,8 +11,11 @@ all of it, so that a restored trainer goes on exactly as the saving one.
 The loss is the reconstruction MSE of the image channel plus
 `quantize_loss_weight` times the quantizer's loss; a 2-channel config
 trains on concat(volume, mask). Eval adds per-slice SSIM and PSNR.
-The port has no compute-dtype field: it runs float32 (TF32 convolutions
-on the card), as `TrainConfig(dtype="float32")` does in JAX.
+The model computes in `train_cfg.dtype` (`layers.set_compute_dtype`, as
+the JAX trainer builds its module with that dtype): activations bfloat16
+by default, parameters, Adam's state and the BatchNorm statistics
+float32. The reconstruction is upcast for the loss and the metrics, and
+the codebook search and statistics run in float32.
 
 With a `mesh` of several processes each holds its rows of every global
 batch, and with a 'space' axis its depth slab of each volume
@@ -39,9 +42,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ldm3d_torch.core.config import TrainConfig, VQVAEConfig
+from ldm3d_torch.core.config import (TrainConfig, VQVAEConfig,
+                                     compute_dtype)
 from ldm3d_torch.core.device import resolve_device
-from ldm3d_torch.models.layers import INIT_SCHEMES, _BatchNorm
+from ldm3d_torch.models.layers import (INIT_SCHEMES, _BatchNorm,
+                                       at_least_float32, set_compute_dtype)
 from ldm3d_torch.models.quantizers import (Draws, QuantAux,
                                            replace_unused_codebooks,
                                            replace_unused_codebooks_staged)
@@ -92,6 +97,7 @@ class VQTrainer:
         self.train_cfg = train_cfg or TrainConfig()
         self.device = resolve_device(device)
         self.model = make_stage1(cfg).to(self.device).eval()
+        set_compute_dtype(self.model, compute_dtype(self.train_cfg.dtype))
         self.mesh = mesh
         attach_data_group(self.model, mesh)
         tp.shard_module(self.model, mesh)
@@ -178,7 +184,8 @@ class VQTrainer:
         q_weight = self.cfg.quantizer.quantize_loss_weight
         loss = recon_loss + q_weight * aux.loss.float()
         metrics = {"loss": loss, "reconst_loss": recon_loss,
-                   "quantize_loss": aux.loss, "perplexity": aux.perplexity}
+                   "quantize_loss": at_least_float32(aux.loss),
+                   "perplexity": aux.perplexity}
         if aux.usage_counts.dim() == 2:
             # RNSVQ: one perplexity per stage, so that a dead later stage
             # shows in training.log
@@ -247,11 +254,12 @@ class VQTrainer:
     @torch.no_grad()
     def reconstruct(self, vol: torch.Tensor, mask: torch.Tensor
                     ) -> Tuple[torch.Tensor, QuantAux]:
-        """(reconstruction [B, H, W, D, out], QuantAux) in eval mode (over
-        a space mesh, this process's depth slab)."""
+        """(reconstruction [B, H, W, D, out] in float32, QuantAux) in eval
+        mode (over a space mesh, this process's depth slab)."""
         vol, mask = self._batch(vol, mask)
         with mesh_sharding(self.mesh):
-            return self.model(self._model_input(vol, mask))
+            recon, aux = self.model(self._model_input(vol, mask))
+            return at_least_float32(recon), aux
 
     @torch.no_grad()
     def recalibrate_batch_stats(self, loader, passes: int = 3) -> None:

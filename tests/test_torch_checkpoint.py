@@ -118,7 +118,8 @@ def _tiny_cfg():
 
 
 def _trainer(seed=0):
-    tc = TrainConfig(batch_size=2, learning_rate=1e-3, ema_decay=EMA_DECAY,
+    tc = TrainConfig(dtype="float32", batch_size=2, learning_rate=1e-3,
+                     ema_decay=EMA_DECAY,
                      seed=11)
     return DiffusionTrainer(_tiny_cfg(), device="cpu",
                             train_cfg=tc).init_random(seed, "reach")

@@ -212,7 +212,7 @@ def _run(tmp_path, *extra):
 
 
 TRAIN = ["--train_dm", "--cache_latents", "--ema_decay", "0.9",
-         "--cfg_dropout", "0.1"]
+         "--cfg_dropout", "0.1", "--dtype", "float32"]
 
 
 def test_cli_slice_on_the_cpu(tmp_path, capsys):
@@ -599,3 +599,29 @@ def test_sampler_default_device_is_the_gpu():
     out = sample_latents(sched, lambda x, t: x, x.shape, device="cpu",
                          init_noise=x, step_noise=lambda t: x)
     assert out.device.type == "cpu"
+
+
+@pytest.mark.parametrize("flags,dtype", [([], torch.bfloat16),
+                                         (["--dtype", "float32"],
+                                          torch.float32)])
+def test_dtype_flag_sets_the_trainers_compute_dtype(flags, dtype):
+    """Without --dtype the trainers compute in the preset's dtype:
+    bfloat16, JAX's default (vqvae_legacy's stage-1, and the flagship
+    conditional_dm3d's config); --dtype float32 gives the float32 port.
+    Parameters are float32 either way."""
+    from ldm3d_torch.cli.main import _stage1_trainer
+    from ldm3d_torch.core.config import compute_dtype
+    parse = cli.build_parser().parse_args
+    flagship = cli.apply_overrides(get_preset("conditional_dm3d"),
+                                   parse(["--preset", "conditional_dm3d"]
+                                         + flags))
+    assert compute_dtype(flagship.train.dtype) == dtype
+    cfg = cli.apply_overrides(get_preset("vqvae_legacy"), parse(
+        ["--preset", "vqvae_legacy", "--volume_size", "16"] + flags))
+    tr = _stage1_trainer(cfg, "cpu")
+    with torch.no_grad():
+        recon, aux = tr.model(torch.zeros((1, 16, 16, 16, 1)))
+    assert recon.dtype == dtype
+    assert all(p.dtype == torch.float32 for p in tr.model.parameters())
+    # the smoke presets pin float32, as JAX's smoke preset does
+    assert get_preset("smoke_cond").train.dtype == "float32"

@@ -18,6 +18,7 @@ from __graft_entry__ import _flagship_cfg
 from ldm3d.core.config import TrainConfig
 from ldm3d.train.dm_trainer import DiffusionTrainer as JTrainer
 from ldm3d_torch.convert import convert_state
+from ldm3d_torch.core.config import TrainConfig as PTrainConfig
 from ldm3d_torch.core.config import flagship_cfg
 from ldm3d_torch.ops import fid
 from ldm3d_torch.train.dm_trainer import DiffusionTrainer
@@ -75,7 +76,8 @@ def sides():
          "batch_stats": jax.device_get(st.batch_stats),
          "vq_stats": jax.device_get(st.vq_stats)})
     tt = DiffusionTrainer(dataclasses.replace(
-        flagship_cfg(tiny=True), latent_scale=LATENT_SCALE), device="cpu")
+        flagship_cfg(tiny=True), latent_scale=LATENT_SCALE), device="cpu",
+        train_cfg=PTrainConfig(dtype="float32"))
     tt.load_state_dicts(model_state)
     vols = np.random.default_rng(9).random((6, 16, 16, 16, 1),
                                            dtype=np.float32)

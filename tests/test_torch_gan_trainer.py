@@ -77,7 +77,8 @@ def cfgs(**over):
 def _train_cfgs():
     kw = dict(batch_size=B, learning_rate=LR, disc_learning_rate=DISC_LR,
               adam_b1=0.5, adam_b2=0.9)
-    return JTrainConfig(dtype="float32", **kw), TrainConfig(seed=3, **kw)
+    return (JTrainConfig(dtype="float32", **kw),
+            TrainConfig(dtype="float32", seed=3, **kw))
 
 
 def _np(tree):

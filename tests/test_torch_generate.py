@@ -21,6 +21,7 @@ from ldm3d.diffusion.schedule import make_schedule as j_make_schedule
 from ldm3d.train.dm_trainer import DiffusionTrainer as JTrainer
 from ldm3d.utils.export import save_state_npz
 from ldm3d_torch.convert import convert_state, load_npz
+from ldm3d_torch.core.config import TrainConfig as PTrainConfig
 from ldm3d_torch.core.config import flagship_cfg
 from ldm3d_torch.core.device import resolve_device
 from ldm3d_torch.diffusion.ddpm import ddpm_sample_step
@@ -61,7 +62,8 @@ def _port(st):
             "vq_stats": jax.device_get(st.vq_stats),
             "ema_params": jax.device_get(st.ema_params)}
     model_state, ema_state = convert_state(tree)
-    tt = DiffusionTrainer(flagship_cfg(tiny=True), device="cpu")
+    tt = DiffusionTrainer(flagship_cfg(tiny=True), device="cpu",
+                          train_cfg=PTrainConfig(dtype="float32"))
     tt.load_state_dicts(model_state, ema_state)
     return tt
 
@@ -148,8 +150,10 @@ def test_flat_npz_keys_convert_like_the_tree(jax_side, tmp_path):
 
 @pytest.fixture(scope="module")
 def service():
-    return GenerationService.from_random_init(flagship_cfg(tiny=True),
-                                              seed=0, device="cpu")
+    cfg = flagship_cfg(tiny=True)
+    trainer = DiffusionTrainer(cfg, device="cpu",
+                               train_cfg=PTrainConfig(dtype="float32"))
+    return GenerationService(cfg, trainer.init_random(0, scheme="reach"))
 
 
 def test_service_generates_and_is_seeded(service):

@@ -168,7 +168,8 @@ def test_stage1_init_matches_jax():
     st = jax.jit(jtr.init_state, static_argnums=1).lower(
         jax.random.PRNGKey(0), (2, 16, 16, 16, 1)).compile(
         compiler_options=FAST)(jax.random.PRNGKey(0))
-    tt = VQTrainer(tcfg, TrainConfig(batch_size=2), device="cpu") \
+    tt = VQTrainer(tcfg, TrainConfig(dtype="float32", batch_size=2),
+                   device="cpu") \
         .init_random(1)
     port = flax_state(tt.model)
     _compare({"params": _np(st.params), "batch_stats": _np(st.batch_stats)},
@@ -182,7 +183,8 @@ def test_gan_init_matches_jax():
         warnings.simplefilter("ignore")
         st = JGANTrainer(jcfg, JTrainConfig(batch_size=2, dtype="float32")) \
             .init_state(jax.random.PRNGKey(0), (2, 16, 16, 16, 2))
-        tt = GANTrainer(tcfg, TrainConfig(batch_size=2), device="cpu",
+        tt = GANTrainer(tcfg, TrainConfig(dtype="float32", batch_size=2),
+                        device="cpu",
                         volume_size=16).init_random(1)
     port = gan_flax_state(tt.model)
     kinds = _kinds(tt.model)

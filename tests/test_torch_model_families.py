@@ -69,7 +69,8 @@ def _pair(family, mode=1, down=3, seed=0):
     st = jax.jit(jtr.init_state, static_argnums=1).lower(
         jax.random.PRNGKey(seed), shape).compile(compiler_options=FAST)(
         jax.random.PRNGKey(seed))
-    tt = VQTrainer(tcfg, TrainConfig(batch_size=B, learning_rate=LR),
+    tt = VQTrainer(tcfg, TrainConfig(dtype="float32", batch_size=B,
+                                     learning_rate=LR),
                    device="cpu")
     tt.model.load_state_dict(_model_state(st), strict=True)
     return jtr, st, tt
@@ -218,7 +219,7 @@ def test_presets_equal_jax(name):
 
 def test_ema_skip_resume_is_bitwise(tmp_path):
     _, tcfg = _cfgs("ema_skip")
-    tc = TrainConfig(batch_size=B, learning_rate=LR, seed=2)
+    tc = TrainConfig(dtype="float32", batch_size=B, learning_rate=LR, seed=2)
     vol, mask = map(torch.from_numpy, _batch(5))
     straight = VQTrainer(tcfg, tc, device="cpu").init_random(1)
     for _ in range(2):

@@ -127,7 +127,8 @@ def _vq_jax(jm):
     """The STE VQ-VAE case: the port's state, JAX's step, eval and
     replacement on the 2-device mesh."""
     jcfg, tcfg = vq_cfgs("ste", 1)
-    tt = VQTrainer(tcfg, TrainConfig(batch_size=B, learning_rate=LR),
+    tt = VQTrainer(tcfg, TrainConfig(dtype="float32", batch_size=B,
+                                     learning_rate=LR),
                    device="cpu").init_random(0)
     _perturb_(tt.model, 1)
     tree = {k: _nest(v) for k, v in flax_state(tt.model).items()}
@@ -180,7 +181,8 @@ def _dm_cfgs(p_drop, ptype, reduction, snr):
 
 def _dm_trainer(tcfg):
     tt = DiffusionTrainer(tcfg, device="cpu", train_cfg=TrainConfig(
-        batch_size=B, learning_rate=LR, ema_decay=EMA_DECAY)).init_random(0)
+        dtype="float32", batch_size=B, learning_rate=LR,
+        ema_decay=EMA_DECAY)).init_random(0)
     _perturb_(tt.model.unet, 3)
     return tt
 
@@ -236,7 +238,8 @@ def _dm_jax(jm):
 
 
 def _gan_one_process(cfg, train_kw, vol, mask, epoch):
-    tr = GANTrainer(cfg, TrainConfig(**train_kw), device="cpu",
+    tr = GANTrainer(cfg, TrainConfig(**{"dtype": "float32", **train_kw}),
+                    device="cpu",
                     volume_size=16).init_random(5)
     tr.epoch = epoch
     m = tr.train_step(torch.from_numpy(vol), torch.from_numpy(mask))
@@ -280,7 +283,8 @@ def run(tmp_path_factory):
 
     # NSVQ with dropout, draws from the trainer's generator
     _, tcfg = vq_cfgs("nsvq", 2, dropout=0.2)
-    tt = VQTrainer(tcfg, TrainConfig(batch_size=B, learning_rate=LR),
+    tt = VQTrainer(tcfg, TrainConfig(dtype="float32", batch_size=B,
+                                     learning_rate=LR),
                    device="cpu").init_random(0)
     rng = np.random.default_rng(7)
     vol = rng.random((B, 16, 16, 16, 1)).astype(np.float32)

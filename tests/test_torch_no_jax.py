@@ -62,7 +62,8 @@ import torch
 from ldm3d_torch.core.config import TrainConfig
 from ldm3d_torch.train.dm_trainer import DiffusionTrainer, auto_latent_scale
 tr = DiffusionTrainer(flagship_cfg(tiny=True), device="cpu",
-                      train_cfg=TrainConfig(batch_size=2, ema_decay=0.999))
+                      train_cfg=TrainConfig(dtype="float32", batch_size=2,
+                                            ema_decay=0.999))
 tr.init_random(0)
 images = torch.from_numpy(vols)
 lat = tr.encode_latents(images)

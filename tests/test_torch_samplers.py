@@ -34,6 +34,7 @@ from ldm3d.diffusion.schedule import make_schedule as j_make_schedule
 from ldm3d.serve import GenerationService as JService
 from ldm3d.train.dm_trainer import DiffusionTrainer as JTrainer
 from ldm3d_torch.convert import convert_state
+from ldm3d_torch.core.config import TrainConfig as PTrainConfig
 from ldm3d_torch.core.config import flagship_cfg
 from ldm3d_torch.diffusion.ddpm import sampler_timesteps
 from ldm3d_torch.serve import GenerationService
@@ -94,7 +95,8 @@ def sides():
     port_cfg = _cfg_dropout(flagship_cfg(tiny=True))
     ports = {}
     for ptype, pcfg in (("eps", port_cfg), ("v", _v(port_cfg))):
-        tt = DiffusionTrainer(pcfg, device="cpu")
+        tt = DiffusionTrainer(pcfg, device="cpu",
+                              train_cfg=PTrainConfig(dtype="float32"))
         tt.load_state_dicts(model_state, ema_state)
         ports[ptype] = tt
     jax_tr = {"eps": tr, "v": JTrainer(_v(cfg), tc, conditional=True)}

@@ -54,7 +54,7 @@ from ldm3d_torch.convert import convert_state, flax_state
 from ldm3d_torch.core import config as tconfig
 from ldm3d_torch.core.config import TrainConfig
 from ldm3d_torch.models.layers import (Conv3d, ConvTranspose3d, Norm,
-                                       init_params_)
+                                       init_params_, set_compute_dtype)
 from ldm3d_torch.models.quantizers import Draws
 from ldm3d_torch.models.unet3d import UNet3D
 from ldm3d_torch.models.vqgan import (SamePadConv3D, SamePadConvTranspose3D,
@@ -247,10 +247,30 @@ def _op_cases():
     }
 
 
+# bfloat16 activations over depth slabs (`set_compute_dtype`): the halo
+# exchange and the gathers move bfloat16 exactly, but a slab's conv is
+# another convolution call than the whole volume's (its own blocking and
+# accumulation order), so outputs and input gradients may differ by a
+# bfloat16 ulp of the largest value: BF16_RTOL = 2^-7 of it; the weights'
+# gradients, sums over the slabs, to 1e-2 of the largest.
+BF16_RTOL, BF16_GRAD_RTOL = 2.0 ** -7, 1e-2
+
+
+def _bf16_op_cases():
+    return {
+        "bf16_conv_k3": (Conv3d(3, 4, 3), (2, 3, 6, 5, 8)),
+        "bf16_convT_k4_s2": (ConvTranspose3d(3, 4, 4, 2), (2, 3, 4, 5, 4)),
+        "bf16_groupnorm": (Norm("group", 8, num_groups=4), (2, 8, 3, 5, 8)),
+    }
+
+
 def _op_spec(rng):
     spec = {}
-    for i, (name, (module, shape)) in enumerate(_op_cases().items()):
+    cases = {**_op_cases(), **_bf16_op_cases()}
+    for i, (name, (module, shape)) in enumerate(cases.items()):
         module = _seeded(module, 10 + i)
+        if name.startswith("bf16_"):
+            set_compute_dtype(module, torch.bfloat16)
         x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
         unet = isinstance(module, UNet3D)
         args = (torch.tensor([3, 1]),) if unet else ()
@@ -312,7 +332,8 @@ def _vq_case(kind, channels, dropout, norm, seed):
         draws = {k: list(v) for k, v in d.items() if v}
     train = dict(batch_size=VQ_B, learning_rate=1e-3)
     state = _model_state(st)
-    one = VQTrainer(tcfg, TrainConfig(**train), device="cpu")
+    one = VQTrainer(tcfg, TrainConfig(**{"dtype": "float32", **train}),
+                    device="cpu")
     one.model.load_state_dict(state, strict=True)
     # eval from the shared state (after a step the states differ by Adam's
     # steps on float32 noise)
@@ -343,7 +364,9 @@ def _dm_case():
     tcfg = _port_cfg(jcfg)
     train = dict(batch_size=DM_B, learning_rate=1e-3, ema_decay=0.99)
     one = DiffusionTrainer(tcfg, device="cpu",
-                           train_cfg=TrainConfig(**train)).init_random(0)
+                           train_cfg=TrainConfig(
+                               **{"dtype": "float32", **train})
+                           ).init_random(0)
     _perturb_(one.model.unet, 3)
     state = {k: t.clone() for k, t in one.model.state_dict().items()}
     tree = flax_state(one.model)
@@ -407,6 +430,20 @@ def _dm_case():
     return spec, ref
 
 
+def _dm_bf16_case(dm):
+    """The diffusion case's step in bfloat16 (the JAX default dtype), and
+    the one-process bfloat16 step it is held to."""
+    spec = dict(dm, train={**dm["train"], "dtype": "bfloat16"})
+    one = DiffusionTrainer(spec["cfg"], device="cpu",
+                           train_cfg=TrainConfig(**spec["train"]))
+    one.load_state_dicts(spec["state"], spec["ema"])
+    om = one.train_step_latents(spec["lat"], spec["ctx"],
+                                **spec["step_draws"])
+    return spec, dict(metrics={k: float(v) for k, v in om.items()},
+                      grads={n: p.grad for n, p in
+                             one.model.unet.named_parameters()})
+
+
 def _gan_case():
     """The VQ-GAN's adversarial step with R1 and the adaptive weight in one
     process, its draws (the EMA quantizer's random rows, the frame
@@ -468,6 +505,7 @@ def run(tmp_path_factory):
     spec["vq_batch_drop"], refs["vq_batch_drop"] = _vq_case(
         "nsvq", 2, 0.2, "batch", 1)
     spec["dm"], refs["dm"] = _dm_case()
+    spec["dm_bf16"], refs["dm_bf16"] = _dm_bf16_case(spec["dm"])
     spec["gan"], refs["gan"] = _gan_case()
     # 2 x 2 x 2 x 4 = 32 rows a pass (the restart draws from all), then
     # 8 rows (fewer than the 16 codes: tiled and jittered)
@@ -510,6 +548,22 @@ def _equal_on_both_ranks(ranks, name, key):
     assert a.keys() == b.keys()
     for k in a:
         assert torch.equal(a[k], b[k]), (name, key, k)
+
+
+@pytest.mark.parametrize("name", list(_bf16_op_cases()))
+def test_sharded_bf16_op_matches_the_whole_op(run, name):
+    """In bfloat16: the slabs' outputs (bfloat16) and input gradients
+    within a bfloat16 ulp of the whole op's, the summed weight gradients
+    (float32) within BF16_GRAD_RTOL."""
+    refs, ranks = run
+    ref = refs[name]
+    assert ranks[0][name]["y"].dtype == ref["y"].dtype == torch.bfloat16
+    _close(_cat(ranks, name, "y", 4), ref["y"], BF16_RTOL, (name, "y"))
+    _close(_cat(ranks, name, "dx", 4), ref["dx"], BF16_RTOL, (name, "dx"))
+    for k, g in ref["grads"].items():
+        assert g.dtype == torch.float32
+        _close(ranks[0][name]["grads"][k] + ranks[1][name]["grads"][k], g,
+               BF16_GRAD_RTOL, (name, k))
 
 
 @pytest.mark.parametrize("name", list(_op_cases()))
@@ -589,6 +643,24 @@ def test_diffusion_step_and_ema_generate_over_depth_slabs(run):
     assert torch.equal(got["volumes"], ranks[1]["dm"]["volumes"])
     assert got["volumes"].shape == (DM_B, 16, 16, 16, 1)
     _close(got["volumes"], ref["one"]["volumes"], REL_TOL, "generate")
+
+
+def test_bf16_diffusion_step_over_depth_slabs(run):
+    """The diffusion step in bfloat16 over slabs against one process in
+    bfloat16 (both round bfloat16 activations, in other orders): the
+    loss to 5e-3 relative, the gradients' L2 distance to 5e-2 of their
+    norm (about 1.5e-2 here)."""
+    refs, ranks = run
+    ref, got = refs["dm_bf16"], ranks[0]["dm_bf16"]
+    _equal_on_both_ranks(ranks, "dm_bf16", "grads")
+    for k in ("loss", "noise_mse"):
+        np.testing.assert_allclose(got["metrics"][k], ref["metrics"][k],
+                                   rtol=5e-3, err_msg=k)
+    num = sum(float((got["grads"][n] - g).double().square().sum())
+              for n, g in ref["grads"].items())
+    den = sum(float(g.double().square().sum()) for g in ref["grads"].values())
+    assert np.sqrt(num / den) <= 5e-2, np.sqrt(num / den)
+    assert got["volumes"].dtype == torch.float32
 
 
 def test_gan_step_over_depth_slabs(run):

@@ -257,7 +257,7 @@ def _vq_state():
     from the JAX init's draw, with noise on every weight and random
     BatchNorm statistics."""
     jcfg = jtp_vq_cfg()
-    tr = VQTrainer(_port_cfg(jcfg), TrainConfig(batch_size=B,
+    tr = VQTrainer(_port_cfg(jcfg), TrainConfig(dtype="float32", batch_size=B,
                                                 learning_rate=LR),
                    device="cpu").init_random(0)
     _perturb_(tr.model, 1)
@@ -302,7 +302,8 @@ def _vq_case(batch_seed=2, b=B):
 def _jax_tp_vq_loss(state, vol, mask):
     """The JAX trainer's step of the same state and batch on a data 1 x
     model 2 device mesh (GSPMD, conv channels over 'model')."""
-    tr = VQTrainer(_port_cfg(jtp_vq_cfg()), TrainConfig(batch_size=B),
+    tr = VQTrainer(_port_cfg(jtp_vq_cfg()),
+                   TrainConfig(dtype="float32", batch_size=B),
                    device="cpu")
     tr.model.load_state_dict(state["model"])
     tree = {k: _nest(v) for k, v in flax_state(tr.model).items()}
@@ -332,7 +333,8 @@ def _dm_case():
     then the one-process step on latents with injected draws."""
     cfg = _port_cfg(jtp_dm_cfg())
     tr = DiffusionTrainer(cfg, device="cpu", train_cfg=TrainConfig(
-        batch_size=B, learning_rate=LR, ema_decay=0.99)).init_random(0)
+        dtype="float32", batch_size=B, learning_rate=LR,
+        ema_decay=0.99)).init_random(0)
     _perturb_(tr.model.unet, 3)
     tr._optimizer()                          # Adam and the EMA copy
     state = copy.deepcopy(tr.state_dict())
@@ -365,7 +367,8 @@ def _gan_case():
     train = dict(batch_size=B, learning_rate=LR, disc_learning_rate=LR,
                  adam_b1=0.5, adam_b2=0.9, seed=3)
     with pytest.warns(UserWarning, match="LPIPS"):
-        tr = GANTrainer(cfg, TrainConfig(**train), device="cpu",
+        tr = GANTrainer(cfg, TrainConfig(**{"dtype": "float32", **train}),
+                        device="cpu",
                         volume_size=16).init_random(5)
     state = copy.deepcopy(tr.state_dict())
     vol, mask = _vq_batch(1)
@@ -384,7 +387,8 @@ def run(tmp_path_factory):
     spec["gan"], refs["gan"] = _gan_case()
     # a one-process checkpoint (after a step), resumed over two processes
     spec["from_one"] = dict(spec["vq"], state=refs["vq"]["state"])
-    one = VQTrainer(spec["vq"]["cfg"], TrainConfig(**spec["vq"]["train"]),
+    one = VQTrainer(spec["vq"]["cfg"], TrainConfig(
+        **{"dtype": "float32", **spec["vq"]["train"]}),
                     device="cpu")
     one.load_state_dict(copy.deepcopy(refs["vq"]["state"]))
     refs["from_one"] = _one_step(one, spec["from_one"])
@@ -510,7 +514,8 @@ def test_checkpoints_move_between_one_and_two_processes(run):
     a one-process checkpoint restored in two steps as one process."""
     spec, refs, ranks = run
     tp_state = ranks[0]["vq"]["state"]
-    one = VQTrainer(spec["vq"]["cfg"], TrainConfig(**spec["vq"]["train"]),
+    one = VQTrainer(spec["vq"]["cfg"], TrainConfig(
+        **{"dtype": "float32", **spec["vq"]["train"]}),
                     device="cpu")
     one.load_state_dict(copy.deepcopy(tp_state))
     m = one.train_step(spec["vq"]["vol"], spec["vq"]["mask"])

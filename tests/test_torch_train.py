@@ -177,7 +177,7 @@ def _set_to(tt, st):
 
 def _trainer(tcfg, model_state, ema_state):
     tt = DiffusionTrainer(tcfg, device="cpu", train_cfg=TrainConfig(
-        batch_size=B, learning_rate=LR, ema_decay=EMA_DECAY))
+        dtype="float32", batch_size=B, learning_rate=LR, ema_decay=EMA_DECAY))
     tt.load_state_dicts(model_state, ema_state)
     return tt
 
@@ -327,7 +327,8 @@ def test_trainer_encode_latents_match(base):
     images = np.random.default_rng(2).random(
         (B, 16, 16, 16, 1)).astype(np.float32)
     ref = np.asarray(jtr.encode_latents(st, jnp.asarray(images)))
-    tt = DiffusionTrainer(tcfg, device="cpu")
+    tt = DiffusionTrainer(tcfg, device="cpu",
+                          train_cfg=TrainConfig(dtype="float32"))
     tt.load_state_dicts(*convert_state({"params": params,
                                         "batch_stats": stats,
                                         "vq_stats": vq}))

@@ -83,7 +83,8 @@ def _pair(kind, channels, dropout=0.0, seed=0):
     st = jax.jit(jtr.init_state, static_argnums=1).lower(
         jax.random.PRNGKey(seed), shape).compile(compiler_options=FAST)(
         jax.random.PRNGKey(seed))
-    tt = VQTrainer(tcfg, TrainConfig(batch_size=B, learning_rate=LR),
+    tt = VQTrainer(tcfg, TrainConfig(dtype="float32", batch_size=B,
+                                     learning_rate=LR),
                    device="cpu")
     tt.model.load_state_dict(_model_state(st), strict=True)
     return jtr, st, tt
@@ -252,7 +253,7 @@ def test_resume_is_bitwise(kind, tmp_path):
     _, tcfg = _cfgs("ste", 1, dropout=0.2)
     tcfg = VQVAEConfig(**{**tcfg.__dict__, "quantizer": QuantizerConfig(
         kind=kind, num_embeddings=16, embedding_dim=8)})
-    tc = TrainConfig(batch_size=B, learning_rate=LR, seed=3)
+    tc = TrainConfig(dtype="float32", batch_size=B, learning_rate=LR, seed=3)
     vol, mask = map(torch.from_numpy, _batch(6))
     straight = VQTrainer(tcfg, tc, device="cpu").init_random(1)
     _run(straight, vol, mask, 2)

@@ -155,7 +155,8 @@ def test_kernel_resize_initialises_transposed_convs_with_icnr():
 
 
 def _step(cfg, vol, mask, seed=0):
-    tr = VQTrainer(cfg, TrainConfig(batch_size=2, learning_rate=1e-3),
+    tr = VQTrainer(cfg, TrainConfig(dtype="float32", batch_size=2,
+                                    learning_rate=1e-3),
                    device="cpu").init_random(seed)
     m = tr.train_step(vol, mask)
     grads = {n: p.grad.clone() for n, p in tr.model.named_parameters()}

@@ -66,6 +66,13 @@ def launch(job: str, directory, n: int = 2, timeout: float = 120.0):
 # ---------------------------------------------------------------------------
 
 
+def _train_cfg(case):
+    """The case's TrainConfig: float32, the dtype the compared steps are
+    held at, unless the case names another."""
+    from ldm3d_torch.core.config import TrainConfig
+    return TrainConfig(**{"dtype": "float32", **case["train"]})
+
+
 def job_halo(spec):
     """`halo_conv3d` of each case on a (1, 2, 1) space mesh: this rank's
     output rows and the gradients of sum(out * g) (input rows; kernel and
@@ -115,7 +122,7 @@ def job_steps(spec):
         mesh = make_mesh(MeshConfig(), batch_size=case["batch"])
         kind = case["kind"]
         if kind == "vq":
-            tr = VQTrainer(case["cfg"], TrainConfig(**case["train"]),
+            tr = VQTrainer(case["cfg"], _train_cfg(case),
                            device="cpu", mesh=mesh)
             tr.model.load_state_dict(case["state"], strict=True)
             vol, mask = shard_batch(mesh, (case["vol"], case["mask"]))
@@ -138,7 +145,7 @@ def job_steps(spec):
                                         tr.model.state_dict().items()}
         elif kind == "dm":
             tr = DiffusionTrainer(case["cfg"], device="cpu",
-                                  train_cfg=TrainConfig(**case["train"]),
+                                  train_cfg=_train_cfg(case),
                                   mesh=mesh)
             tr.load_state_dicts(case["state"], case["ema"])
             lat, ctx = shard_batch(mesh, (case["lat"], case["ctx"]))
@@ -154,7 +161,7 @@ def job_steps(spec):
                        nu=_adam_moment(unet.named_parameters(),
                                        tr.optimizer, "exp_avg_sq"))
         elif kind == "gan":
-            tr = GANTrainer(case["cfg"], TrainConfig(**case["train"]),
+            tr = GANTrainer(case["cfg"], _train_cfg(case),
                             device="cpu", volume_size=case["size"],
                             mesh=mesh).init_random(case["seed"])
             tr.epoch = case["epoch"]
@@ -261,7 +268,7 @@ def _spatial_step(case, mesh):
     from ldm3d_torch.train.gan_trainer import GANTrainer
     from ldm3d_torch.train.vq_trainer import VQTrainer
 
-    kind, train = case["kind"], TrainConfig(**case["train"])
+    kind, train = case["kind"], _train_cfg(case)
     draws = Draws(shard=data_shard(mesh), **case["draws"]) \
         if case.get("draws") else None
     if kind in ("vq", "gan"):
@@ -453,7 +460,7 @@ def _tp_trainer(case, mesh):
     from ldm3d_torch.train.dm_trainer import DiffusionTrainer
     from ldm3d_torch.train.gan_trainer import GANTrainer
     from ldm3d_torch.train.vq_trainer import VQTrainer
-    train = TrainConfig(**case["train"])
+    train = _train_cfg(case)
     if case["kind"] == "vq":
         return VQTrainer(case["cfg"], train, device="cpu", mesh=mesh)
     if case["kind"] == "gan":
