@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py                        # every phase below
     python3 chip_smoke.py --train-compare-check  # device, build, train and
-                                                 # train_compare_check only
+                                                 # train_compare_check only,
+                                                 # with the float32-island
+                                                 # bisection of the card's
+                                                 # gap against float64
     python3 chip_smoke.py --gan-compare-check    # device, build, and the
                                                  # VQ-GAN steps at 64^3: the
                                                  # card and a float32 CPU
@@ -37,6 +40,12 @@
                                                  # meshes, clean and with
                                                  # faults planted: each
                                                  # fault must fail its gate
+    python3 chip_smoke.py --s1-gate-faults       # device, build, and the
+                                                 # spatial and tp phases'
+                                                 # stage-1 step under its
+                                                 # float64 gate, clean and
+                                                 # with faults planted: each
+                                                 # fault must fail by 2x
     python3 chip_smoke.py --seed 1               # every phase from
                                                  # another seed
 
@@ -89,9 +98,12 @@ not 0:
                 runs float32). The bf16 attention kernel at the paths'
                 shapes; (a) the full-width U-Net at batch 16 against the
                 card's float32 forward, and its dtype census; (b) a
-                served T=500 DDPM request and its repeat (6,000 bf16
-                attention launches each, no codebook launch) and the
-                serve step's profile; (c) a guided DDIM 50 request; (d)
+                served T=500 DDPM request and its repeat on cuDNN's
+                global defaults (6,000 bf16 attention launches each, no
+                codebook launch; within 1e-5: generate decodes with the
+                deterministic algorithms), that decode's cost in both
+                dtypes, and the serve step's profile; (c) a guided DDIM
+                50 request; (d)
                 three latent steps beside a float32 twin of the same
                 weights; (e) the stage-1 step with remat full and off
                 (codebook launches float32); (f) both vqgan_attn programs
@@ -169,8 +181,9 @@ not 0:
                 (remat full; one codebook launch each), and its latent
                 step at global batch 8 (12 attention launches each, on
                 the 4^3 level's 2-row slabs), each against the
-                one-process step of a twin on process 0 (TF32 off, cuDNN
-                deterministic; the bounds of SPATIAL_*) and bitwise equal
+                one-process step of a twin and a float64 step on process
+                0 (TF32 off, cuDNN deterministic; the bounds of SPATIAL_*
+                under F64_FACTOR) and bitwise equal
                 across the processes; the step times with the halo
                 exchanges', the statistics' and the gradients'
                 all-reduces timed apart; the stage-1 step's peak with
@@ -187,7 +200,7 @@ not 0:
                 (12 attention launches each) and its stage-1 at 128^3,
                 global batch 2 (remat full; one codebook launch each),
                 each against a one-process twin on process 0 (TF32 off,
-                cuDNN deterministic; stage 2 judged against a float64
+                cuDNN deterministic; both judged against a float64
                 step) and bitwise equal across the processes; step times
                 with the gathers' and sums' share, parameter + Adam bytes
                 and peak memory per process against one process's; then
@@ -197,8 +210,9 @@ not 0:
                 same with --auto_resume 1 and process 1 failing at the
                 epoch's end (both recover and resume at epoch 0; the log
                 equals the other run's)
-     ddp, spatial and tp judge stage 2 against a float64 step on the
-                card (S2_F64_FACTOR)
+     ddp, spatial and tp judge stage 2, spatial and tp stage 1 against a
+                float64 step on the card (F64_FACTOR; stage 1's float64
+                twin takes the codes the one-process float32 step chose)
  14. train_gan  main path 7: the VQ-GAN. A warm and an adversarial step of
                 vqgan_attn at full width (R1 and the adaptive weight on,
                 32^3) on the card, f32 with TF32 off, against a float64
@@ -216,8 +230,9 @@ not 0:
  15. kernels    one JSON line with the whole run's kernel numbers
  16. last line  {"ok": true, "device": {...}}
 Sockets only on localhost, between the ddp, spatial and tp phases' (and
---bf16-gate-faults') two processes, which end (or are killed at DDP_TIMEOUT / SPATIAL_TIMEOUT /
-TP_TIMEOUT) before their phase does; one profiler
+--bf16-gate-faults' and --s1-gate-faults') two processes, which end (or
+are killed at DDP_TIMEOUT / SPATIAL_TIMEOUT / TP_TIMEOUT) before their
+phase does; one profiler
 trace, written in the cli phase's temporary directory; the threads are
 the CLI's data loader prefetchers, joined when their epoch ends, and the
 native reader's pool. Nothing is written but the builds under
@@ -229,6 +244,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import glob
 import io
@@ -257,8 +273,9 @@ from ldm3d_torch.core.config import (QuantizerConfig,  # noqa: E402
 from ldm3d_torch.core.presets import get_preset  # noqa: E402
 from ldm3d_torch.data.pipeline import (  # noqa: E402
     DeviceSyntheticLoader, train_val_split)
-from ldm3d_torch.models import unet3d  # noqa: E402
-from ldm3d_torch.models.layers import _fans, init_params_  # noqa: E402
+from ldm3d_torch.models import quantizers, unet3d  # noqa: E402
+from ldm3d_torch.models.layers import (Conv3d, _fans,  # noqa: E402
+                                       init_params_)
 from ldm3d_torch.models.quantizers import Draws, make_quantizer  # noqa: E402
 from ldm3d_torch.models.unet3d import (AttentionBlock,  # noqa: E402
                                        CrossAttentionBlock, TimeEmbedding,
@@ -484,6 +501,12 @@ BF16_ATTN_SHAPES = [("self_bf16", 16, 64, 64, 512, torch.bfloat16),
 # one at the tiny config on the CPU; the deeper and wider flagship rounds
 # more often, and 5e-2 bounds it.
 BF16_UNET_REL_TOL = 5e-2
+# (b) The served requests run on cuDNN's global defaults; `generate`
+# decodes with the deterministic algorithms (with the defaults the bf16
+# decode's transposed convs did not repeat: 8.9e-3-1.1e-2 of the largest
+# voxel, PERF.md §5). Its cost: the decode of one request's latents,
+# DECODE_RUNS times each way in turns, in each dtype.
+DECODE_RUNS = 3
 # (c) A guided request: DDIM 50 at scale 3 (the U-Net at 2 x num).
 BF16_GUIDED = dict(num=16, context=1, sampler="ddim", sample_steps=50,
                    guidance_scale=3.0, seed=19)
@@ -515,6 +538,18 @@ BF16_S2_LOSS_RTOL, BF16_S2_GRAD_FACTOR = 5e-3, 2.0
 BF16_GATE_FAULTS = [("spatial", None), ("spatial", "drop_halo_grad"),
                     ("spatial", "zero_halo"), ("tp", None),
                     ("tp", "column_grad_unsummed")]
+# --s1-gate-faults: the spatial and tp phases' stage-1 step alone over
+# each mesh, under its float64 gate, clean and with one fault planted at
+# run time in both workers: the halos' gradients not sent back at the
+# 32-row slabs (the 64^3 level of a 128^3 volume over two slabs), a
+# column-split conv's input gradient not summed over the model group, and
+# a transposed conv's partial sums not summed. Each fault must fail the
+# gate by S1_FAULT_MARGIN or more (its worst group's distance over its
+# limit), each clean step pass it.
+S1_GATE_FAULTS = [("spatial", None), ("spatial", "drop_halo_grad_32"),
+                  ("tp", None), ("tp", "column_grad_unsummed"),
+                  ("tp", "partials_unsummed")]
+S1_FAULT_MARGIN = 2.0
 # Main path 8 (`ddp`): data parallelism over DDP_PROCESSES processes of
 # this script on the one card (gloo, through the host: NCCL needs a card
 # per process). Stage 2 at global batch DDP_BATCH, stage 1 at
@@ -590,29 +625,35 @@ SPATIAL_GEN_NUM, SPATIAL_GEN_STEPS = 2, 3
 SPATIAL_CLI_VOLUMES = 6
 SPATIAL_MEMORY_RATIO = 0.9
 SPATIAL_TIMEOUT = 480             # seconds for the workers, all of them
-# The stage-2 gate of the ddp, spatial and tp phases: the sharded step
-# and the one-process float32 step are both held against a float64 step
-# of the same state and draws, taken on the card (`_float64_twin`, its
-# attention in float64: `_float64_attention`), and each group of
-# DDP_S2_GRAD_RTOL / SPATIAL_S2_GRAD_RTOL (and the whole model,
-# DDP_MODEL_GRAD_RTOL) passes when the sharded step lies at most the
-# larger of its bound and S2_F64_FACTOR times the one-process step's own
-# distance from float64. A sharded step sums the same float32 terms in
-# another order, so its error is of the one-process step's size, and that
-# size passes the bounds: on an H100 the one-process step lies 9.5e-2
-# (the other cross-attention tensors, bound 2e-2) and 3.1e-3 (the model,
-# bound 2e-3) from float64 at seed 0, 0.136 (the MLPs, bound 0.1) at seed
-# 1 (PERF.md §6), which a gate against the one-process step blamed on
-# the sharding.
-S2_F64_FACTOR = 2.0
+# The float64 gate (`_f64_gate`) of the ddp, spatial and tp phases'
+# stage-2 steps and of the spatial and tp phases' stage-1 steps: the
+# sharded step and the one-process float32 step are both held against a
+# float64 step of the same state and draws, taken on the card (stage 2:
+# `_float64_twin`, its attention in float64, `_float64_attention`; stage
+# 1: `_float64_s1_twin`, which takes the codes the one-process float32
+# step chose, `_injected_codes`: the codebook kernel takes float32 and
+# bfloat16, and the gate compares arithmetic, not near-ties), and each
+# group of DDP_S2_GRAD_RTOL / SPATIAL_S2_GRAD_RTOL / SPATIAL_S1_GRAD_RTOL
+# / TP_S1_GRAD_RTOL (and the whole model, DDP_MODEL_GRAD_RTOL) passes
+# when the sharded step lies at most the larger of its bound and
+# F64_FACTOR times the one-process step's own distance from float64. A
+# sharded step sums the same float32 terms in another order, so its
+# error is of the one-process step's size, and that size passes the
+# bounds: on an H100 the one-process step lies 9.5e-2 (the other
+# cross-attention tensors, bound 2e-2) and 3.1e-3 (the model, bound
+# 2e-3) from float64 at seed 0, 0.136 (the MLPs, bound 0.1) at seed 1
+# (PERF.md §6), which a gate against the one-process step blamed on the
+# sharding. In stage 1 the one-process step lies 1.02e-2 of a tensor's
+# largest from float64, the spatial and tp steps 9.8e-3 and 9.6e-3.
+F64_FACTOR = 2.0
 # Main path 10 (`tp`): tensor parallelism over TP_PROCESSES processes of
 # this script on the one card, a data 1 x model 2 mesh (the trained
 # networks' conv kernels and vectors of 64 or more channels split over
 # the two; gloo, through the host; each process holds every row).
 # Stage 2's latent step at DDP_BATCH under the float64 gate above (the
 # ddp phase's groups); stage 1 (TRAIN_VQ_FLAGS, TRAIN_VQ_SIZE^3, remat
-# full) at SPATIAL_VQ_BATCH against a one-process twin (TF32 off, cuDNN
-# deterministic on both; the loss DDP_LOSS_RTOL, each tensor
+# full) at SPATIAL_VQ_BATCH under it too (TF32 off, cuDNN deterministic;
+# the loss DDP_LOSS_RTOL against the one-process twin's, each tensor
 # TP_S1_GRAD_RTOL, the model DDP_MODEL_GRAD_RTOL): the tensor-parallel
 # step convolves channel slabs and sums partial transposed convolutions,
 # other float32 sums than one process's (cuDNN picks other algorithms
@@ -1132,7 +1173,7 @@ def phase_serve_profile(trainer: DiffusionTrainer, card: str,
     return dict(step_timer=timed, **prof)
 
 
-def phase_serve(svc: GenerationService, card: str) -> dict:
+def phase_serve(svc: GenerationService, card: str) -> tuple:
     cfg = svc.cfg
     calls_per_request = attention_calls_per_step(svc.trainer.model.unet) \
         * cfg.timesteps
@@ -1142,7 +1183,7 @@ def phase_serve(svc: GenerationService, card: str) -> dict:
         tf32_conv=torch.backends.cudnn.allow_tf32,
         tf32_matmul=torch.backends.cuda.matmul.allow_tf32)
     say("serve", resident_bytes=torch.cuda.memory_allocated())
-    outs = []
+    outs, walls = [], []
     attn.reset_launches()   # the main path starts here
     cbq.reset_launches()
     for req in REQUESTS:
@@ -1165,6 +1206,7 @@ def phase_serve(svc: GenerationService, card: str) -> dict:
             raise RuntimeError(f"serve {req}: finite {finite}, shape "
                                f"{vols.shape}, launches {n}")
         outs.append(vols)
+        walls.append(wall)
     total = attn.launches   # read right after the main path
     codebook = cbq.launches
     rel = float(np.abs(outs[-1] - outs[0]).max() / np.abs(outs[0]).max())
@@ -1175,7 +1217,7 @@ def phase_serve(svc: GenerationService, card: str) -> dict:
             or codebook != 0:
         raise RuntimeError(f"serve: repeat rel_err {rel}, launches {total}, "
                            f"codebook launches {codebook}")
-    return {attn.KERNEL: total, cbq.KERNEL: codebook}
+    return {attn.KERNEL: total, cbq.KERNEL: codebook}, walls[0]
 
 
 def phase_breakdown(trainer: DiffusionTrainer, main: dict) -> None:
@@ -1646,6 +1688,263 @@ def phase_train_compare_check(trainer: DiffusionTrainer, lat: torch.Tensor
         e["at_card_vs_cpu_worst"] = e.pop("grad_errs")[at]
     say("train_compare_check", cudnn_deterministic=True, tf32=False,
         **report)
+    t0 = time.perf_counter()
+    bisect = _bisect_xattn(trainer, x, ctx, draws)
+    say("train_compare_bisect", reference="float64 step on the card",
+        cudnn_deterministic=torch.backends.cudnn.deterministic, tf32=False,
+        wall_s=time.perf_counter() - t0, **bisect)
+    t0 = time.perf_counter()
+    own = _conv_own_errors(trainer, x, ctx, draws)
+    say("train_compare_conv_errors", reference="float64 on the card",
+        tf32=False, wall_s=time.perf_counter() - t0, convs=own)
+
+
+# --train-compare-check's bisection of the card's float32 gap: a float64
+# step on the card in which one op (or one kind of op) computes in float32
+# (`_float32_islands`), its error carried to this gradient, relative to
+# the model's largest gradient (train_compare's measure).
+BISECT_BLOCK = "xattn_up_1_0"
+BISECT_AT = BISECT_BLOCK + ".mlp1.weight"
+
+
+@contextlib.contextmanager
+def _setting(owner, name: str, value):
+    """`owner.name` set to `value` inside the block (a torch.backends
+    flag), restored after it."""
+    saved = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, saved)
+
+
+@contextlib.contextmanager
+def _float32_islands(modules, attention_in=(),
+                     within=contextlib.nullcontext):
+    """Inside the block each module of `modules` computes in float32 in a
+    float64 model: its inputs rounded to float32, its parameters and
+    floating buffers read as float32 copies (gradients reach the float64
+    ones), its output widened back; autograd runs its backward in float32
+    too. The attention calls of the blocks `attention_in` (modules of the
+    U-Net) take float32 inputs and the card's kernel
+    (`attn.voxel_attention`), their outputs widened back. So each op sees
+    float64-exact inputs and adds only its own float32 error, forward and
+    backward. The islands' forwards run inside `within()` (a setting)."""
+    def narrow(t):
+        return t.float() if torch.is_tensor(t) and t.is_floating_point() \
+            else t
+
+    def island(m):
+        fwd = m.forward
+
+        def forward(*args, **kw):
+            subs = list(m.modules())
+            saved = [(sm, dict(sm._parameters), dict(sm._buffers))
+                     for sm in subs]
+            for sm in subs:
+                for d in (sm._parameters, sm._buffers):
+                    for n, t in d.items():
+                        if t is not None and t.is_floating_point():
+                            d[n] = t.float()
+            try:
+                with within():
+                    out = fwd(*[narrow(a) for a in args],
+                              **{k: narrow(v) for k, v in kw.items()})
+            finally:
+                for sm, p, b in saved:
+                    sm._parameters.update(p)
+                    sm._buffers.update(b)
+            return out.double() if out.is_floating_point() else out
+        return forward
+
+    def attention_island(m):
+        fwd = m.forward
+
+        def forward(*args, **kw):
+            real = unet3d.voxel_attention
+            unet3d.voxel_attention = lambda q, k, v, scale=None: \
+                attn.voxel_attention(q.float(), k.float(), v.float(),
+                                     scale=scale).double()
+            try:
+                return fwd(*args, **kw)
+            finally:
+                unet3d.voxel_attention = real
+        return forward
+
+    for m in modules:
+        m.forward = island(m)
+    for m in attention_in:
+        m.forward = attention_island(m)
+    try:
+        yield
+    finally:
+        for m in list(modules) + list(attention_in):
+            del m.forward
+
+
+def _bisect_cases(unet: UNet3D) -> dict:
+    """name -> (modules that compute in float32, blocks whose attention
+    calls do[, the setting their forwards run in]): every op of each kind
+    over the whole U-Net (the convolutions also with cuDNN off, PyTorch's
+    own CUDA convolution, and with cuDNN's deterministic algorithms), then
+    each op of BISECT_BLOCK and its ContextMLP one at a time."""
+    leaves = [(n, m) for n, m in unet.named_modules()
+              if n and not list(m.children())]
+
+    def kind(cls):
+        return [m for _, m in leaves if isinstance(m, cls)]
+    blocks = [m for m in unet.modules()
+              if isinstance(m, (AttentionBlock, CrossAttentionBlock))]
+    block = getattr(unet, BISECT_BLOCK)
+    ctx_mlp = getattr(unet, "ctx_mlp_" + BISECT_BLOCK.removeprefix("xattn_"))
+    cudnn = torch.backends.cudnn
+    cases = {"whole U-Net": ([m for _, m in leaves], blocks),
+             "every conv (cuDNN)": (kind(Conv3d), ()),
+             "every dense (cuBLAS)": (kind(torch.nn.Linear), ()),
+             "every norm": ([m for _, m in leaves
+                             if "Norm" in type(m).__name__], ()),
+             "every attention call (kernel)": ((), blocks),
+             "every conv, cuDNN off": (kind(Conv3d), (), partial(
+                 _setting, cudnn, "enabled", False)),
+             "every conv, cuDNN deterministic": (kind(Conv3d), (), partial(
+                 _setting, cudnn, "deterministic", True))}
+    for name, m in block.named_children():
+        cases[f"{BISECT_BLOCK}.{name}"] = ([m], ())
+    cases[f"{BISECT_BLOCK} attention calls"] = ((), [block])
+    cases[f"{BISECT_BLOCK} ContextMLP"] = ([ctx_mlp], ())
+    for name, m in leaves:
+        if isinstance(m, Conv3d):
+            cases[f"conv {name}"] = ([m], ())
+    return cases
+
+
+def _relu_inputs(unet: UNet3D, seen: dict):
+    """Forward hooks that keep BISECT_BLOCK's two ReLU inputs (the
+    outputs of `proj_in` and `mlp1`) in `seen`; returns the handles."""
+    block = getattr(unet, BISECT_BLOCK)
+    return [getattr(block, n).register_forward_hook(
+        lambda m, args, out, n=n: seen.__setitem__(n, out.detach().clone()))
+        for n in ("proj_in", "mlp1")]
+
+
+def _conv_own_errors(trainer: DiffusionTrainer, x, ctx, draws) -> dict:
+    """Each convolution of the U-Net alone: its input and its output's
+    gradient caught in the float64 compare step on the card, then the
+    conv in float32 on those rounded to float32, with cuDNN's default
+    algorithms and with cuDNN off (PyTorch's own CUDA convolution): the
+    forward's, the input gradient's and the weight gradient's largest
+    error, each relative to the float64 result's largest value."""
+    tw = _float64_twin(trainer, 2, "cuda")
+    unet = tw.model.unet
+    convs = [(n, m) for n, m in unet.named_modules() if isinstance(m, Conv3d)]
+    caught = {n: {} for n, _ in convs}
+
+    def keep(n):
+        def hook(m, args, out):
+            caught[n]["x"] = args[0].detach().clone()
+            out.register_hook(lambda g: caught[n].__setitem__(
+                "g", g.detach().clone()))
+        return hook
+    handles = [m.register_forward_hook(keep(n)) for n, m in convs]
+    on = {k: v.cuda() for k, v in draws.items()}
+    with _NoTF32(), _float64_attention():
+        tw.train_step_latents(x.cuda(), ctx.cuda(), **on)
+    for h in handles:
+        h.remove()
+
+    def run(m, xin, gout):
+        xin = xin.clone().requires_grad_(True)
+        with torch.enable_grad():
+            y = m(xin)
+            dx, dw = torch.autograd.grad(y, (xin, m.weight), gout)
+        return y.detach().double(), dx.double(), dw.double()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+    out = {}
+    cudnn = torch.backends.cudnn
+    with _NoTF32():
+        for n, m in convs:
+            c = caught[n]
+            ref = run(m, c["x"], c["g"])
+            m32 = copy.deepcopy(m).float()
+            row = {}
+            for name, setting in (("cudnn", contextlib.nullcontext()),
+                                  ("cudnn_off", _setting(cudnn, "enabled",
+                                                         False))):
+                with setting:
+                    got = run(m32, c["x"].float(), c["g"].float())
+                row[name] = dict(zip(("y", "dx", "dw"), (
+                    rel(a, b) for a, b in zip(got, ref))))
+            out[n] = dict(shape=list(c["x"].shape),
+                          kernel=list(m.kernel), **row)
+    del tw, caught
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bisect_xattn(trainer: DiffusionTrainer, x, ctx, draws) -> dict:
+    """The float64 compare step on the card, then once per case of
+    `_bisect_cases` with that case's ops in float32: each case's error at
+    BISECT_AT (and its worst tensor), relative to the float64 step's
+    largest gradient; and the card's whole float32 step's, for the gap
+    to account for. TF32 off throughout."""
+    on = {k: v.cuda() for k, v in draws.items()}
+    relu64 = {}
+
+    def step(islands=None):
+        tw = _float64_twin(trainer, 2, "cuda")
+        unet = tw.model.unet
+        mods, blocks, *within = islands(unet) if islands else ((), ())
+        handles = [] if islands else _relu_inputs(unet, relu64)
+        with _NoTF32(), _float64_attention(), \
+                _float32_islands(mods, blocks, *within):
+            tw.train_step_latents(x.cuda(), ctx.cuda(), **on)
+            torch.cuda.synchronize()
+        for h in handles:
+            h.remove()
+        grads = {n: p.grad.detach().clone()
+                 for n, p in unet.named_parameters() if p.grad is not None}
+        del tw
+        torch.cuda.empty_cache()
+        return grads
+    ref = step()
+    top = max(float(g.abs().max()) for g in ref.values())
+
+    def errors(grads):
+        errs = {n: float((grads[n].double() - g).abs().max()) / top
+                for n, g in ref.items()}
+        worst = max(errs, key=errs.get)
+        return dict(at=errs[BISECT_AT], worst=worst, worst_err=errs[worst])
+    card, relu32 = _twin(trainer, "cuda"), {}
+    handles = _relu_inputs(card.model.unet, relu32)
+    _card_step(card, x, ctx, draws)
+    for h in handles:
+        h.remove()
+    out = {"card float32 step": errors(
+        {n: p.grad for n, p in card.model.unet.named_parameters()})}
+    # ReLU inputs of the block whose sign the card's float32 step flips
+    flips = {n: dict(flipped=int((torch.sign(relu32[n].double())
+                                  != torch.sign(relu64[n])).sum()),
+                     elements=relu64[n].numel(),
+                     closest_to_zero=float(relu64[n].abs().min()))
+             for n in relu64}
+    del card
+    torch.cuda.empty_cache()
+    names = list(_bisect_cases(trainer.model.unet))
+    for name in names:
+        out[name] = errors(step(lambda u, n=name: _bisect_cases(u)[n]))
+    ops = [n for n in names if n.startswith(BISECT_BLOCK)]
+    convs = [n for n in names if n.startswith("conv ")]
+    gap = out["card float32 step"]["at"]
+    return dict(at=BISECT_AT, cases=out, relu_sign_flips=flips,
+                accounts_for_the_gap=[n for n in names
+                                      if out[n]["at"] >= 0.9 * gap],
+                largest_in_block=max(ops, key=lambda n: out[n]["at"]),
+                largest_kind=max([n for n in names if n.startswith("every ")],
+                                 key=lambda n: out[n]["at"]),
+                largest_conv=max(convs, key=lambda n: out[n]["at"]))
 
 
 def phase_train_breakdown(train: dict, attn_case: dict) -> None:
@@ -2923,26 +3222,178 @@ def _float64_attention():
         unet3d.voxel_attention = real
 
 
-def _s2_gate(sharded, one, f64, tols) -> dict:
-    """The stage-2 gate (see S2_F64_FACTOR): the sharded step's gradients
+@contextlib.contextmanager
+def _recorded_codes():
+    """The codes each search of a quantizer returns inside the block, in
+    call order (the one-process float32 stage-1 step's, for its float64
+    twin)."""
+    real, codes = quantizers.nearest_codebook_indices, []
+
+    def record(x, codebook):
+        codes.append(real(x, codebook))
+        return codes[-1]
+    quantizers.nearest_codebook_indices = record
+    try:
+        yield codes
+    finally:
+        quantizers.nearest_codebook_indices = real
+
+
+def _float64_codes(x: torch.Tensor, codebook: torch.Tensor
+                   ) -> torch.Tensor:
+    """The plain search in float64: argmin_k ||x_n - c_k||^2 (any device,
+    no kernel)."""
+    x, codebook = x.detach().double(), codebook.detach().double()
+    scores = codebook.square().sum(-1)[None, :] - 2.0 * x @ codebook.T
+    return torch.argmin(scores, dim=-1).to(torch.int32)
+
+
+@contextlib.contextmanager
+def _injected_codes(codes):
+    """The float64 stage-1 twin's code search inside the block: each
+    search returns the next of `codes` (the float32 step's, in call
+    order) and launches nothing; the list it yields gets, per search, the
+    rows where the plain float64 search of the same rows
+    (`_float64_codes`) picks another code."""
+    real, todo, changed = quantizers.nearest_codebook_indices, \
+        list(codes), []
+
+    def inject(x, codebook):
+        idx = todo.pop(0).to(x.device)
+        changed.append(int((_float64_codes(x, codebook) != idx).sum()))
+        return idx
+    quantizers.nearest_codebook_indices = inject
+    try:
+        yield changed
+    finally:
+        quantizers.nearest_codebook_indices = real
+    if todo:
+        raise RuntimeError(f"float64 stage-1 twin: {len(todo)} recorded "
+                           "code searches not replayed")
+
+
+def _float64_s1_twin(inp: dict, dev: str) -> VQTrainer:
+    """A twin of `_ddp_s1_one_process` on `dev` whose model (weights,
+    buffers), Adam state and gradients are float64, from the same init
+    and generator; the volumes are widened where they enter. The
+    reconstruction loss is formed from the reconstruction rounded to
+    float32 (`VQTrainer._losses`), which rounds only the upstream
+    gradient's first factor, to 1e-7, and the codebook's gradient (a
+    float32 one-hot sum, `segment_sum`) to 6e-8. Its step runs inside
+    `_injected_codes` (the codebook kernel takes float32 and bfloat16)."""
+    twin = VQTrainer(inp["vcfg"], inp["tc"], device=dev).init_random(SEED)
+    twin.model.double()
+    twin._batch = lambda v, m: (v.to(dev, torch.float64),
+                                m.to(dev, torch.float64))
+    return twin
+
+
+def _s1_gate_fields(ref: dict) -> dict:
+    """The stage-1 line's gate fields from rank 0's numbers: the float64
+    gate (it decides), the float64 step's seconds and the rows whose code
+    its own search would change, and the sharded step against the
+    one-process twin (printed, not judged)."""
+    return dict(grad_gate=ref["gate"], float64_step_s=ref["float64_step_s"],
+                float64_codes_changed=ref["float64_codes_changed"],
+                code_rows=ref["code_rows"], seed=SEED,
+                vs_one_process=ref["vs_one_process"],
+                grad_floor=DDP_GRAD_FLOOR,
+                usage_equal_to_one_process=ref["usage_equal_1p"])
+
+
+def _s1_references(spec: dict, inp: dict, sharded, usage: torch.Tensor,
+                   tols) -> dict:
+    """On process 0: the one-process float32 stage-1 step of a twin (TF32
+    off, cuDNN as set; its codes recorded) and the float64 step on the
+    card of the same init and volumes with those codes; the float64 gate
+    of `sharded` (the sharded trainer's model or its whole gradients),
+    the old comparison with the one-process twin (printed, not judged),
+    the twin's loss, peak device memory and state bytes, and whether its
+    codebook usage equals `usage`, the sharded step's."""
+    dev = spec["device"]
+    twin, m1 = _ddp_s1_one_process(spec, inp), []
+    with _NoTF32(), _recorded_codes() as codes:
+        peak = _peak_step(dev, lambda: m1.append(twin.train_step(
+            inp["vol"].to(dev), inp["mask"].to(dev))))
+    f64 = _float64_s1_twin(inp, dev)
+    t0 = time.perf_counter()
+    with _injected_codes(codes) as changed:
+        f64.train_step(inp["vol"], inp["mask"])
+        _sync(dev)
+    f64_s = time.perf_counter() - t0
+    one = _grad_errors(sharded, twin.model, tols)
+    out = dict(gate=_f64_gate(sharded, twin.model, f64.model, tols),
+               float64_step_s=f64_s, float64_codes_changed=sum(changed),
+               code_rows=sum(int(c.numel()) for c in codes),
+               vs_one_process={k: one[k] for k in (
+                   "grad_rel_err", "grad_worst", "grad_model_rel_err",
+                   "grad_worst5")},
+               loss_1p=float(m1[0]["loss"]), twin_peak_bytes=peak,
+               state_bytes_1p=_state_bytes(twin.model.parameters(),
+                                           twin.optimizer),
+               usage_equal_1p=bool(torch.equal(
+                   usage.cpu(), twin.model.quantizer.codebooks_used.cpu())))
+    del twin, f64
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _s1_sharded_step(spec: dict, rank: int, mesh, kind: str) -> tuple:
+    """The flagship's stage-1 (TRAIN_VQ_FLAGS, remat as the preset has it)
+    at global batch SPATIAL_VQ_BATCH of TRAIN_VQ_SIZE^3 volumes over
+    `mesh`, counted: over a "spatial" mesh each rank its depth slab, over
+    a "tp" one every row with the wide kernels split (TF32 off, cuDNN
+    deterministic as the worker sets it); then on rank 0 its float64 gate
+    (`_s1_references`, the bounds `tols` of SPATIAL_S1_GRAD_RTOL /
+    TP_S1_GRAD_RTOL). Returns (this process's numbers, its trainer, the
+    inputs, its batch)."""
+    from ldm3d_torch.parallel.mesh import shard_batch
+
+    dev = spec["device"]
+    tols = SPATIAL_S1_GRAD_RTOL if kind == "spatial" else TP_S1_GRAD_RTOL
+    inp = _ddp_s1_inputs(spec, SPATIAL_VQ_BATCH)
+    tr = VQTrainer(inp["vcfg"], inp["tc"], device=dev,
+                   mesh=mesh).init_random(SEED)
+    batch = (inp["vol"], inp["mask"])
+    if kind == "spatial":
+        batch = shard_batch(mesh, batch, spatial_axis=3)
+    v, mk = (t.to(dev) for t in batch)
+    m, out = _tp_counted(dev, lambda: tr.train_step(v, mk))
+    q = tr.model.quantizer
+    out.update(loss=float(m["loss"]), perplexity=float(m["perplexity"]),
+               remat=inp["vcfg"].remat, usage=_digest([q.codebooks_used]),
+               codebook=_digest([q.codebook]))
+    grads = _whole_grads(kind, mesh)(tr.model)
+    if rank == 0:
+        ref = _s1_references(spec, inp, grads, q.codebooks_used, tols)
+        out.update(ref, loss_rel_err=abs(out["loss"] - ref["loss_1p"])
+                   / abs(ref["loss_1p"]))
+    del grads
+    pdist.barrier()
+    return out, tr, inp, (v, mk)
+
+
+def _f64_gate(sharded, one, f64, tols) -> dict:
+    """The float64 gate (see F64_FACTOR): the sharded step's gradients
     (a module or a `_grad_dict`) and the one-process step's, each against
     the float64 step's; per group and for the whole model, both
     distances, the limit and the verdict."""
     es, e1 = _grad_errors(sharded, f64, tols), _grad_errors(one, f64, tols)
     groups = []
     for gs, g1 in zip(es["grad_groups"], e1["grad_groups"]):
-        limit = max(gs["tol"], S2_F64_FACTOR * g1["rel_err"])
+        limit = max(gs["tol"], F64_FACTOR * g1["rel_err"])
         groups.append(dict(tensors=gs["tensors"], sharded=gs["rel_err"],
                            one_process=g1["rel_err"], worst=gs["worst"],
                            bound=gs["tol"], limit=limit,
                            ok=gs["rel_err"] <= limit))
     model_limit = max(DDP_MODEL_GRAD_RTOL,
-                      S2_F64_FACTOR * e1["grad_model_rel_err"])
+                      F64_FACTOR * e1["grad_model_rel_err"])
     model = dict(sharded=es["grad_model_rel_err"],
                  one_process=e1["grad_model_rel_err"],
                  bound=DDP_MODEL_GRAD_RTOL, limit=model_limit,
                  ok=es["grad_model_rel_err"] <= model_limit)
-    return dict(reference="float64 step on the card", factor=S2_F64_FACTOR,
+    return dict(reference="float64 step on the card", factor=F64_FACTOR,
                 groups=groups, model=model,
                 sharded_worst5=es["grad_worst5"],
                 ok=model["ok"] and all(g["ok"] for g in groups))
@@ -3000,7 +3451,7 @@ def _s2_references(spec: dict, inp: dict, sharded) -> dict:
         f64.train_step_latents(inp["lat"].to(dev), inp["ctx"].to(dev),
                                **inp["on"])
         _sync(dev)
-    out = dict(gate=_s2_gate(sharded, twin.model.unet, f64.model.unet,
+    out = dict(gate=_f64_gate(sharded, twin.model.unet, f64.model.unet,
                              spec["s2_tols"]),
                float64_step_s=time.perf_counter() - t0,
                loss_1p=float(m1["loss"]), peak_bytes_1p=peak)
@@ -3547,44 +3998,12 @@ def _peak_step(dev: str, step) -> int:
 def _spatial_stage1(spec: dict, rank: int, mesh) -> dict:
     """The flagship's stage-1 at global batch SPATIAL_VQ_BATCH over the
     space mesh, each rank its depth slab (remat as the preset has it),
-    against a one-process twin on rank 0 (TF32 off, cuDNN deterministic);
-    its timing; then the step with remat off and its peak memory, and on
-    rank 0 the one-process step's."""
-    from ldm3d_torch.parallel.mesh import shard_batch
-
+    under the float64 gate on rank 0 (`_s1_sharded_step`); its timing;
+    then the step with remat off and its peak memory, and on rank 0 the
+    one-process step's."""
     dev = spec["device"]
-    inp = _ddp_s1_inputs(spec, SPATIAL_VQ_BATCH)
-    tr = VQTrainer(inp["vcfg"], inp["tc"], device=dev,
-                   mesh=mesh).init_random(SEED)
-    lv, lm = (t.to(dev) for t in shard_batch(
-        mesh, (inp["vol"], inp["mask"]), spatial_axis=3))
-    with _NoTF32():
-        _sync(dev)
-        _reset_launches()        # the main path's step starts here
-        t0 = time.perf_counter()
-        m = tr.train_step(lv, lm)
-        _sync(dev)
-        first_ms = 1e3 * (time.perf_counter() - t0)
-        got = _launches()
-    q = tr.model.quantizer
-    out = dict(loss=float(m["loss"]), perplexity=float(m["perplexity"]),
-               launches=got, first_step_ms=first_ms,
-               remat=inp["vcfg"].remat, slab=list(lv.shape),
-               usage=_digest([q.codebooks_used]),
-               codebook=_digest([q.codebook]),
-               params=_digest(tr.model.parameters()))
-    if rank == 0:
-        twin = _ddp_s1_one_process(spec, inp)
-        m1 = _ddp_s1_step(twin, inp, dev)
-        out.update(_grad_errors(tr.model, twin.model, SPATIAL_S1_GRAD_RTOL),
-                   loss_1p=float(m1["loss"]),
-                   loss_rel_err=abs(float(m["loss"]) - float(m1["loss"]))
-                   / abs(float(m1["loss"])),
-                   usage_equal_1p=bool(torch.equal(
-                       q.codebooks_used, twin.model.quantizer.codebooks_used)))
-        out.pop("grad_rel_errs")
-        del twin
-    pdist.barrier()
+    out, tr, inp, (lv, lm) = _s1_sharded_step(spec, rank, mesh, "spatial")
+    out.update(slab=list(lv.shape), params=_digest(tr.model.parameters()))
     out["timing"] = _spatial_timing(lambda: tr.train_step(lv, lm), dev)
     del tr
     # memory: the step with remat off, over the slabs and in one process
@@ -3840,7 +4259,7 @@ def spatial_worker(spec_path: str, rank: str) -> None:
         out["generate"] = _spatial_generate(spec, rank, tr, twin)
         del tr, twin
         out["stage2_bf16"] = _s2_bf16(spec, rank, mesh,
-                                      _s2_grads("spatial", mesh))
+                                      _whole_grads("spatial", mesh))
         torch.backends.cudnn.deterministic = False
     finally:
         pdist.shutdown()
@@ -3856,7 +4275,8 @@ def phase_spatial(card: str, check: bool = False) -> dict:
     the one card, a data 1 x space 2 mesh over gloo on localhost ports,
     each holding one depth slab of every volume: the flagship's stage-1
     at 128^3 (global batch 2) and its latent step (global batch 8), each
-    against the one-process step of a twin on process 0; the stage-1
+    under the float64 gate (a one-process twin and a float64 step of the
+    same state on process 0); the stage-1
     step's peak memory with remat off against the one-process step's;
     `generate` from the EMA U-Net with a sharded decode against the twin's;
     one --train_vq epoch from the command line at a space axis of 2. Each
@@ -3925,20 +4345,14 @@ def _spatial_report(card, ranks, tmp, wall_s) -> dict:
     ratio = peak / s1[0]["peak_bytes_1p"] if on_card else None
     memory_ok = not on_card or ratio < SPATIAL_MEMORY_RATIO
     s1_ok = (s1_equal and s1[0]["loss_rel_err"] <= DDP_LOSS_RTOL
-             and s1[0]["grad_ok"]
-             and s1[0]["grad_model_rel_err"] <= DDP_MODEL_GRAD_RTOL)
+             and s1[0]["gate"]["ok"])
     say("spatial", step="stage1", processes=SPATIAL_PROCESSES,
         mesh="data 1 x space 2", backend=backend,
         devices=[r["device"] for r in ranks], batch=SPATIAL_VQ_BATCH,
         volume=TRAIN_VQ_SIZE, slab=s1[0]["slab"], remat=s1[0]["remat"],
         loss=s1[0]["loss"], loss_1p=s1[0]["loss_1p"],
         loss_rel_err=s1[0]["loss_rel_err"], loss_tol=DDP_LOSS_RTOL,
-        grad_rel_err=s1[0]["grad_rel_err"], grad_worst=s1[0]["grad_worst"],
-        grad_groups=s1[0]["grad_groups"], grad_floor=DDP_GRAD_FLOOR,
-        grad_model_rel_err=s1[0]["grad_model_rel_err"],
-        grad_model_tol=DDP_MODEL_GRAD_RTOL,
-        grad_worst5=s1[0]["grad_worst5"],
-        usage_equal_to_one_process=s1[0]["usage_equal_1p"],
+        **_s1_gate_fields(s1[0]),
         ranks_bitwise_equal=s1_equal,
         first_step_ms=[r["first_step_ms"] for r in s1],
         timing=[r["timing"] for r in s1],
@@ -4102,48 +4516,19 @@ def _tp_stage2(spec: dict, rank: int, mesh) -> dict:
 
 def _tp_stage1(spec: dict, rank: int, mesh) -> dict:
     """The flagship's stage-1 (remat full) at global batch
-    SPATIAL_VQ_BATCH of 128^3 volumes on the mesh; its timing; then on
-    rank 0 the one-process twin (TF32 off, cuDNN deterministic) with its
-    peak and state bytes."""
+    SPATIAL_VQ_BATCH of 128^3 volumes on the mesh, under the float64 gate
+    on rank 0 (`_s1_sharded_step`; the one-process twin's peak and state
+    bytes beside it); its timing."""
     from ldm3d_torch.parallel import tp
     dev = spec["device"]
-    inp = _ddp_s1_inputs(spec, SPATIAL_VQ_BATCH)
-    tr = VQTrainer(inp["vcfg"], inp["tc"], device=dev,
-                   mesh=mesh).init_random(SEED)
-    v, mk = inp["vol"].to(dev), inp["mask"].to(dev)
-    m, out = _tp_counted(dev, lambda: tr.train_step(v, mk))
-    q = tr.model.quantizer
-    usage = q.codebooks_used.clone()
-    out.update(loss=float(m["loss"]), perplexity=float(m["perplexity"]),
-               remat=inp["vcfg"].remat, usage=_digest([q.codebooks_used]),
-               codebook=_digest([q.codebook]),
-               sharded=len(tp.sharded_names(tr.model)),
+    out, tr, _, (v, mk) = _s1_sharded_step(spec, rank, mesh, "tp")
+    out.update(sharded=len(tp.sharded_names(tr.model)),
                state_bytes=_state_bytes(tr.model.parameters(),
-                                        tr.optimizer))
-    grads = _tp_whole_grads(tr.model, mesh)
-    out["params"] = _digest(tr.state_dict()["model"].values())
+                                        tr.optimizer),
+               params=_digest(tr.state_dict()["model"].values()))
     out["timing"] = _spatial_timing(lambda: tr.train_step(v, mk), dev)
     pdist.barrier()
-    del tr, q
-    if dev == "cuda":
-        torch.cuda.empty_cache()
-    if rank == 0:
-        twin, m1 = _ddp_s1_one_process(spec, inp), []
-        with _NoTF32():
-            out["peak_bytes_1p"] = _peak_step(
-                dev, lambda: m1.append(twin.train_step(v, mk)))
-        out.update(_grad_errors(grads, twin.model, TP_S1_GRAD_RTOL),
-                   loss_1p=float(m1[0]["loss"]),
-                   loss_rel_err=abs(out["loss"] - float(m1[0]["loss"]))
-                   / abs(float(m1[0]["loss"])),
-                   state_bytes_1p=_state_bytes(twin.model.parameters(),
-                                               twin.optimizer))
-        out.pop("grad_rel_errs")
-        out["usage_equal_1p"] = bool(torch.equal(
-            usage, twin.model.quantizer.codebooks_used))
-        del twin
-    del grads
-    pdist.barrier()
+    del tr
     if dev == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -4254,7 +4639,7 @@ def tp_worker(spec_path: str, rank: str) -> None:
         out["stage1"] = _tp_stage1(spec, rank, mesh)
         if not spec["check"]:
             out["stage2_bf16"] = _s2_bf16(spec, rank, mesh,
-                                          _s2_grads("tp", mesh))
+                                          _whole_grads("tp", mesh))
         torch.backends.cudnn.deterministic = False
     finally:
         pdist.shutdown()
@@ -4270,7 +4655,7 @@ def phase_tp(card: str, check: bool = False) -> dict:
     each holding half of every wide conv kernel and vector of the trained
     networks: the flagship's latent step (global batch 8) under the
     float64 gate and its stage-1 at 128^3 (global batch 2, remat full)
-    against a one-process twin; then --train_dm --cache_latents, and
+    under its own; then --train_dm --cache_latents, and
     --train_vq without and with --auto_resume and a failure on process 1,
     from the command line. Each process zeroes its launch counters before
     each run of the main path and reads them after; the phase adds both
@@ -4384,21 +4769,14 @@ def _tp_report(card, ranks, tmp, cli_cfg, wall_s) -> dict:
         launches=got["stage2"], expected=want["stage2"], card=card)
     s1_equal = all(s1[0][k] == s1[1][k] for k in ("usage", "codebook",
                                                   "params", "loss"))
-    s1_ok = (s1_equal and s1[0]["sharded"] > 0 and s1[0]["grad_ok"]
+    s1_ok = (s1_equal and s1[0]["sharded"] > 0 and s1[0]["gate"]["ok"]
              and s1[0]["loss_rel_err"] <= DDP_LOSS_RTOL
-             and s1[0]["grad_model_rel_err"] <= DDP_MODEL_GRAD_RTOL
              and s1[0]["usage_equal_1p"])
     say("tp", step="stage1", batch=SPATIAL_VQ_BATCH, volume=TRAIN_VQ_SIZE,
         remat=s1[0]["remat"], sharded_tensors=s1[0]["sharded"],
         loss=s1[0]["loss"], loss_1p=s1[0]["loss_1p"],
         loss_rel_err=s1[0]["loss_rel_err"], loss_tol=DDP_LOSS_RTOL,
-        grad_rel_err=s1[0]["grad_rel_err"],
-        grad_worst=s1[0]["grad_worst"], grad_groups=s1[0]["grad_groups"],
-        grad_floor=DDP_GRAD_FLOOR,
-        grad_model_rel_err=s1[0]["grad_model_rel_err"],
-        grad_model_tol=DDP_MODEL_GRAD_RTOL,
-        grad_worst5=s1[0]["grad_worst5"],
-        usage_equal_to_one_process=s1[0]["usage_equal_1p"],
+        **_s1_gate_fields(s1[0]),
         ranks_bitwise_equal=s1_equal,
         first_step_ms=[r["first_step_ms"] for r in s1],
         step_ms=[r["timing"]["step_ms"] for r in s1],
@@ -4407,7 +4785,7 @@ def _tp_report(card, ranks, tmp, cli_cfg, wall_s) -> dict:
         state_bytes=[r["state_bytes"] for r in s1],
         state_bytes_one_process=s1[0]["state_bytes_1p"],
         peak_bytes=[r["peak_bytes"] for r in s1],
-        peak_bytes_one_process=s1[0]["peak_bytes_1p"],
+        peak_bytes_one_process=s1[0]["twin_peak_bytes"],
         launches=got["stage1"], expected=want["stage1"], card=card)
     # the command line
     dm_dir = os.path.join(tmp, "ckpt_dm", cli_cfg.name + "_dm")
@@ -4466,10 +4844,10 @@ def _tp_report(card, ranks, tmp, cli_cfg, wall_s) -> dict:
     return counts
 
 
-def _s2_grads(kind: str, mesh):
-    """`whole_grads` of `_s2_bf16` over a `kind` ("spatial" or "tp")
-    mesh: each process's own over depth slabs, gathered over a model
-    axis."""
+def _whole_grads(kind: str, mesh):
+    """A function of a module that gives its whole gradients on the CPU
+    over a `kind` ("spatial" or "tp") mesh: each process's own over depth
+    slabs, gathered over a model axis (a collective)."""
     if kind == "tp":
         return lambda unet: _tp_whole_grads(unet, mesh)
     return lambda unet: {n: p.grad.cpu() for n, p in unet.named_parameters()
@@ -4559,10 +4937,20 @@ def _bf16_s2_report(phase: str, ranks, card: str):
 
 
 def _plant_fault(fault: str) -> None:
-    """Break this process's sharding on purpose (--bf16-gate-faults)."""
+    """Break this process's sharding on purpose (--bf16-gate-faults,
+    --s1-gate-faults)."""
     from ldm3d_torch.parallel import halo, tp
     if fault == "drop_halo_grad":       # the halos' gradients not sent back
         halo._return_halo_grads = lambda *a, **kw: None
+    elif fault == "drop_halo_grad_32":  # the same, at 32-row slabs only
+        send = halo._return_halo_grads
+
+        def drop_at_32(g, g_lo, g_hi, left, right, dim, *a):
+            if g.shape[dim] != 32:
+                send(g, g_lo, g_hi, left, right, dim, *a)
+        halo._return_halo_grads = drop_at_32
+    elif fault == "partials_unsummed":  # each process keeps its partial
+        tp.sum_partials = lambda y: y
     elif fault == "zero_halo":          # halos exchanged, zeros used
         exchange = halo._exchange
 
@@ -4576,9 +4964,11 @@ def _plant_fault(fault: str) -> None:
         raise ValueError(f"unknown fault {fault!r}")
 
 
-def bf16_gate_worker(spec_path: str, rank: str) -> None:
-    """One process of a --bf16-gate-faults run: (g)'s step alone over the
-    spec's mesh, with the spec's fault (if any) planted first."""
+def gate_worker(spec_path: str, rank: str) -> None:
+    """One process of a --bf16-gate-faults or --s1-gate-faults run: the
+    spec's step ("stage2_bf16": (g)'s; "stage1": the stage-1 step under
+    its float64 gate) alone over the spec's mesh, with the spec's fault
+    (if any) planted first."""
     global SEED
     with open(spec_path) as f:
         spec = json.load(f)
@@ -4593,38 +4983,61 @@ def bf16_gate_worker(spec_path: str, rank: str) -> None:
     try:
         torch.backends.cudnn.deterministic = True
         mesh = _spatial_mesh() if spec["mesh"] == "spatial" else _tp_mesh()
-        out = {"stage2_bf16": _s2_bf16(spec, rank, mesh,
-                                       _s2_grads(spec["mesh"], mesh))}
+        if spec["step"] == "stage2_bf16":
+            out = {"stage2_bf16": _s2_bf16(
+                spec, rank, mesh, _whole_grads(spec["mesh"], mesh))}
+        else:
+            out = {"stage1": _s1_sharded_step(spec, rank, mesh,
+                                              spec["mesh"])[0]}
     finally:
         pdist.shutdown()
     with open(os.path.join(spec["tmp"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def phase_bf16_gate_faults(card: str) -> None:
-    """(g)'s gate against BF16_GATE_FAULTS: the clean step must pass it,
-    each planted fault fail it."""
-    wrong = []
-    for mesh, fault in BF16_GATE_FAULTS:
+def _gate_margin(gate: dict) -> float:
+    """How far a float64 gate's sharded step lies past its limit: the
+    largest distance over limit of its groups and its whole model."""
+    return max(g["sharded"] / g["limit"]
+               for g in gate["groups"] + [gate["model"]])
+
+
+def phase_gate_faults(card: str, step: str, faults) -> None:
+    """A gate against planted faults: for each (mesh, fault) of `faults`
+    the `step` ("stage2_bf16": (g)'s step and gate; "stage1": the stage-1
+    step under its float64 gate) over that mesh; the clean step must pass
+    its gate, each fault fail it (stage 1: by S1_FAULT_MARGIN or more)."""
+    wrong, phase = [], ("bf16_gate_faults" if step == "stage2_bf16"
+                        else "s1_gate_faults")
+    for mesh, fault in faults:
         tmp = tempfile.mkdtemp(prefix="ldm3d_gate_")
         try:
             spec = dict(device=DDP_DEVICE, tiny=DDP_TINY, tmp=tmp,
                         port=pdist.free_port(), seed=SEED, mesh=mesh,
-                        fault=fault)
+                        fault=fault, step=step, vq_flags=TRAIN_VQ_FLAGS,
+                        vq_size=TRAIN_VQ_SIZE)
             path = os.path.join(tmp, "spec.json")
             with open(path, "w") as f:
                 json.dump(spec, f)
-            ranks = _run_workers("bf16-gate", path, tmp, 2, DDP_TIMEOUT)
-            passed, _ = _bf16_s2_report("bf16_gate_faults", ranks, card)
+            ranks = _run_workers("gate", path, tmp, 2, DDP_TIMEOUT)
+            if step == "stage2_bf16":
+                passed, _ = _bf16_s2_report(phase, ranks, card)
+                ok, detail = passed == (fault is None), {}
+            else:
+                gate = ranks[0]["stage1"]["gate"]
+                passed, margin = gate["ok"], _gate_margin(gate)
+                ok = passed if fault is None else margin >= S1_FAULT_MARGIN
+                detail = dict(fails_by=margin, margin_tol=S1_FAULT_MARGIN,
+                              gate=gate, float64_codes_changed=ranks[0][
+                                  "stage1"]["float64_codes_changed"])
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        ok = passed == (fault is None)
-        say("bf16_gate_faults", mesh=mesh, fault=fault, gate_passed=passed,
-            ok=ok, card=card)
+        say(phase, mesh=mesh, fault=fault, gate_passed=passed, ok=ok,
+            **detail, card=card)
         if not ok:
             wrong.append((mesh, fault))
     if wrong:
-        raise RuntimeError(f"bf16 gate: wrong verdicts for {wrong}")
+        raise RuntimeError(f"{phase}: wrong verdicts for {wrong}")
 
 
 def _dtype_census(unet: UNet3D, *args) -> dict:
@@ -4705,23 +5118,18 @@ def _bf16_unet(f32: DiffusionTrainer, bf: DiffusionTrainer, card: str):
     return out
 
 
-def _bf16_serve(bf: DiffusionTrainer, card: str) -> dict:
+def _bf16_serve(bf: DiffusionTrainer, card: str) -> tuple:
     """(b) The served request as the JAX main path runs it (bench.py):
-    batch 16, T = 500 DDPM, decoded, bfloat16, and its repeat, both timed
-    with cuDNN's deterministic algorithms (in bfloat16 its default
-    algorithms for the decode's transposed convs do not repeat: 8.9e-3 of
-    the largest voxel apart, PERF.md §5; the U-Net repeats exactly), so
-    their times are deterministic-cuDNN times, unlike the float32 serve
-    phase's ((a) times the U-Net step both ways); (c) a guided DDIM 50
-    request, default algorithms. Every attention launch bfloat16, the
-    codebook kernel never."""
+    batch 16, T = 500 DDPM, decoded, bfloat16, and its repeat; (c) a
+    guided DDIM 50 request. All three with cuDNN's global defaults, as the
+    float32 serve phase's requests (`generate` itself decodes with the
+    deterministic algorithms, so that the repeat holds). Every attention
+    launch bfloat16, the codebook kernel never."""
     svc = GenerationService(bf.cfg, bf, name="flagship_bf16")
     per_step = attention_calls_per_step(bf.model.unet)
-    outs, n_bf = [], 0
-    runs = [(r, True) for r in REQUESTS] + [(BF16_GUIDED, False)]
+    outs, n_bf, walls = [], 0, []
     _reset_launches()          # the bf16 main path starts here
-    for req, deterministic in runs:
-        torch.backends.cudnn.deterministic = deterministic
+    for req in REQUESTS + [BF16_GUIDED]:
         before = dict(attn.launches_by_dtype)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -4732,9 +5140,8 @@ def _bf16_serve(bf: DiffusionTrainer, card: str) -> dict:
         got = {k: attn.launches_by_dtype[k] - before[k] for k in before}
         steps = req.get("sample_steps") or bf.cfg.timesteps
         finite = bool(np.isfinite(vols).all())
-        torch.backends.cudnn.deterministic = False
         say("bf16", step="serve", request=req, wall_s=wall,
-            cudnn_deterministic=deterministic,
+            cudnn_deterministic=torch.backends.cudnn.deterministic,
             vol_per_min=60.0 * req["num"] / wall,
             attention_launches_by_dtype=got,
             expected=dict(float32=0, bfloat16=per_step * steps),
@@ -4745,6 +5152,7 @@ def _bf16_serve(bf: DiffusionTrainer, card: str) -> dict:
                                f"launches {got}")
         n_bf += got["bfloat16"]
         outs.append(vols)
+        walls.append(wall)
     codebook = cbq.launches
     rel = float(np.abs(outs[1] - outs[0]).max() / np.abs(outs[0]).max())
     say("bf16", step="serve", repeat_rel_err=rel, tol=REPEAT_REL_TOL,
@@ -4753,7 +5161,46 @@ def _bf16_serve(bf: DiffusionTrainer, card: str) -> dict:
         raise RuntimeError(f"bf16 serve: repeat rel_err {rel}, codebook "
                            f"launches {codebook}")
     return {attn.KERNEL: n_bf, attn.KERNEL + ".bfloat16": n_bf,
-            cbq.KERNEL: 0}
+            cbq.KERNEL: 0}, walls[0]
+
+
+def _decode_cost(f32: DiffusionTrainer, bf: DiffusionTrainer,
+                 walls: dict, card: str) -> None:
+    """What the deterministic decode costs a served request: the decode of
+    one request's latents in each dtype, DECODE_RUNS times with cuDNN's
+    default algorithms and as many with the deterministic ones, in turns
+    (uncounted), against the request's wall time (`walls`, by dtype); and
+    whether each setting's decodes repeat bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 65)
+    lat = torch.randn(_latent_shape(f32.cfg, REQUESTS[0]["num"]),
+                      generator=gen, device="cuda") * f32.cfg.latent_scale
+    out = {}
+    for tr in (f32, bf):
+        ms = {"default": [], "deterministic": []}
+        vols = {}
+        with torch.no_grad():
+            for _ in range(DECODE_RUNS):
+                for name in ms:
+                    with _setting(torch.backends.cudnn, "deterministic",
+                                  name == "deterministic"):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        v = tr.model.decode(lat)
+                        torch.cuda.synchronize()
+                    ms[name].append(1e3 * (time.perf_counter() - t0))
+                    vols.setdefault(name, []).append(v.float())
+        cost = float(np.median(ms["deterministic"]) - np.median(
+            ms["default"]))
+        dtype = tr.train_cfg.dtype
+        out[dtype] = dict(
+            decode_ms=ms, cost_ms=cost,
+            cost_of_request=(cost / (1e3 * walls[dtype])
+                             if walls[dtype] else None),
+            repeats_bitwise={k: all(torch.equal(x, v[0]) for x in v[1:])
+                             for k, v in vols.items()})
+        del vols
+    say("bf16", step="decode_cost", runs=DECODE_RUNS,
+        request_wall_s=walls, **out, card=card)
 
 
 def _bf16_train(f32: DiffusionTrainer, card: str) -> dict:
@@ -4879,12 +5326,15 @@ def _bf16_gan(card: str) -> dict:
     return {attn.KERNEL: 0, cbq.KERNEL: launched}
 
 
-def phase_bf16(card: str, attn_cases: Dict[str, dict]) -> dict:
+def phase_bf16(card: str, attn_cases: Dict[str, dict],
+               f32_wall: float = None) -> dict:
     """Main path 11: the JAX default compute dtype. The attention kernel in
     bfloat16 at the main path's shapes (where the kernel phase has not
-    measured them), then (a) to (f) above; (g) runs inside the spatial and
-    tp phases. Returns the launch counts of its main-path pieces, each
-    read right after it (the float32 twins' launches are not counted)."""
+    measured them), then (a) to (f) above, and after (b) the deterministic
+    decode's cost against each dtype's served request (`f32_wall`, the
+    serve phase's, when it ran); (g) runs inside the spatial and tp
+    phases. Returns the launch counts of its main-path pieces, each read
+    right after it (the float32 twins' launches are not counted)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 64)
     for case in BF16_ATTN_SHAPES:
@@ -4899,7 +5349,8 @@ def phase_bf16(card: str, attn_cases: Dict[str, dict]) -> dict:
     say("bf16", dtype=bf.train_cfg.dtype, params=str(
         next(bf.model.parameters()).dtype), card=card)
     _bf16_unet(f32, bf, card)
-    counts = _bf16_serve(bf, card)
+    counts, wall = _bf16_serve(bf, card)
+    _decode_cost(f32, bf, {F32: f32_wall, BF16: wall}, card)
     phase_serve_profile(bf, card, phase="bf16_serve_profile")
     del bf
     torch.cuda.empty_cache()
@@ -4971,7 +5422,11 @@ def main() -> None:
         say("done", wall_s=time.perf_counter() - t_start, card=card)
         return
     if "--bf16-gate-faults" in sys.argv[1:]:
-        phase_bf16_gate_faults(card)
+        phase_gate_faults(card, "stage2_bf16", BF16_GATE_FAULTS)
+        say("done", wall_s=time.perf_counter() - t_start, card=card)
+        return
+    if "--s1-gate-faults" in sys.argv[1:]:
+        phase_gate_faults(card, "stage1", S1_GATE_FAULTS)
         say("done", wall_s=time.perf_counter() - t_start, card=card)
         return
     if "--train-compare-check" in sys.argv[1:]:
@@ -4989,7 +5444,8 @@ def main() -> None:
         SEED, "reach")
     phase_unet_step(trainer)
     svc = GenerationService(trainer.cfg, trainer, name="flagship")
-    counts = {"serve": phase_serve(svc, card)}
+    counts = {}
+    counts["serve"], serve_wall = phase_serve(svc, card)
     phase_breakdown(trainer, attn_cases["self_f32"])
     phase_serve_profile(trainer, card)
     counts["serve_samplers"] = phase_serve_samplers(svc, card)
@@ -4997,7 +5453,7 @@ def main() -> None:
     counts["fidelity"] = phase_fidelity(trainer, card)
     del svc, trainer
     torch.cuda.empty_cache()
-    counts["bf16"] = phase_bf16(card, attn_cases)
+    counts["bf16"] = phase_bf16(card, attn_cases, serve_wall)
     torch.cuda.empty_cache()
     phase_encode()
     phase_quantizers()
@@ -5045,7 +5501,7 @@ if __name__ == "__main__":
         spatial_worker(*sys.argv[2:])
     elif sys.argv[1:2] == ["--tp-worker"]:
         tp_worker(*sys.argv[2:])
-    elif sys.argv[1:2] == ["--bf16-gate-worker"]:
-        bf16_gate_worker(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--gate-worker"]:
+        gate_worker(*sys.argv[2:])
     else:
         main()

@@ -32,10 +32,16 @@ VQ-VAE and the U-Net alike): activations in it, parameters, Adam's
 moments, the EMA copy and the BatchNorm statistics in float32, and the
 noised latents, the loss, the sampler's state and the returned latents
 and volumes in float32.
+
+`generate` decodes with cuDNN's deterministic algorithms, so that a
+seeded request gives the same volume every time, as a JAX request's
+`PRNGKey(seed)` does: in bfloat16 the default algorithms of the decode's
+transposed convolutions do not repeat on an H100.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
@@ -121,6 +127,18 @@ class LatentDiffusion(nn.Module):
                 self.vqvae.decode(spatial.shard_spatial(latents)), axis)
         with spatial.whole():
             return self.vqvae.decode(latents)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block; every other cuDNN
+    setting (TF32, benchmark) stays the caller's."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 class DiffusionTrainer:
@@ -496,8 +514,10 @@ class DiffusionTrainer:
             latents = sample_latents(self.sched, denoise, shape,
                                      last_step=last_step,
                                      step_noise=step_noise, **common)
-        return at_least_float32(self.model.decode(latents)) if decode \
-            else latents
+        if not decode:
+            return latents
+        with deterministic_cudnn():
+            return at_least_float32(self.model.decode(latents))
 
     # -- fidelity ---------------------------------------------------------
 

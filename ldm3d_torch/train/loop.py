@@ -4,7 +4,7 @@
 The port's trainer holds its own state, so the loop passes batches to a
 step function and checkpoints `trainer.state_dict()`; the JAX loop
 threads a state pytree through instead. Steps run one by one (the JAX
-package's fused one-program epoch is ROADMAP queue 1 item 3(c)); each
+package's fused one-program epoch is ROADMAP queue 4 item 3(c)); each
 step's metrics stay on the device until the epoch ends, when they are
 fetched in one transfer. Between epochs, in the JAX loop's order: the
 validation pass, the VQ-GAN's epoch counter, unused-code replacement, the

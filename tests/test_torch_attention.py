@@ -14,6 +14,7 @@ import torch
 
 from ldm3d.ops.attention import _attention_pallas, _attention_xla
 from ldm3d_torch.ops import attention as tattn
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # float32 on the CPU: both sides sum the same products in float32 in
 # different orders; 2e-5 is the bound the JAX package's own Pallas-vs-XLA

@@ -49,13 +49,17 @@ from ldm3d.train.vq_trainer import VQTrainer as JVQTrainer
 from ldm3d_torch.convert import convert_gan_state, convert_state, module_state
 from ldm3d_torch.core.config import TrainConfig, compute_dtype, flagship_cfg
 from ldm3d_torch.models import quantizers as tquant
-from ldm3d_torch.models.layers import (Conv3d, ConvTranspose3d, Dense, Embed,
-                                       LayerNorm, Norm, set_compute_dtype)
+from ldm3d_torch.models.layers import (_COMPUTE, Conv3d, ConvTranspose3d,
+                                       Dense, Embed, LayerNorm, Norm,
+                                       set_compute_dtype)
 from ldm3d_torch.models.quantizers import Draws
 from ldm3d_torch.train.dm_trainer import DiffusionTrainer
 from ldm3d_torch.train.gan_trainer import GANTrainer
 from ldm3d_torch.train.vq_trainer import VQTrainer
 from test_torch_gan_trainer import _batch as gan_batch
+from test_torch_gan_trainer import _jax_step as gan_jax_step
+from test_torch_gan_trainer import _moments as gan_moments
+from test_torch_gan_trainer import _train_cfgs as gan_train_cfgs
 from test_torch_gan_trainer import _tree as gan_tree
 from test_torch_gan_trainer import base_state  # noqa: F401 (a fixture)
 from test_torch_gan_trainer import cfgs as gan_cfgs
@@ -63,6 +67,7 @@ from test_torch_model_families import _cfgs as family_cfgs
 from test_torch_samplers import FAST, _jax_draws
 from test_torch_train import _draws as dm_draws
 from test_torch_vq_trainer import _cfgs as vq_cfgs
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 B = 2
 BF = torch.bfloat16
@@ -549,10 +554,8 @@ def test_vq_train_step():
 def test_gan_adversarial_losses(base_state):
     """The VQ-GAN's adversarial program with the adaptive weight and R1, in
     eval mode (JAX's `eval_step`, compiled once): every loss and metric,
-    float32 on the port's side.
-    Its gradients are not compared here: JAX's bfloat16 train step runs
-    only eagerly with its draws recorded (as tests/test_torch_gan_trainer.py
-    runs the float32 one), about 100 s on the CPU."""
+    float32 on the port's side (test_gan_train_step holds the train
+    step's gradients)."""
     over = dict(adaptive_g_weight=True, r1_gamma=0.5)
     jcfg, tcfg = gan_cfgs(**over)
     jtr = JGANTrainer(jcfg, JTrainConfig(batch_size=B))
@@ -581,3 +584,81 @@ def test_gan_adversarial_losses(base_state):
         assert abs(got - r) <= max(BF16_ULP * abs(r),
                                    NET_FRACTION * abs(got32 - r)), \
             (k, got, got32, r)
+
+
+def _gan_census(tt):
+    """Forward hooks that record the output dtype of every compute layer
+    of the autoencoder and both critics and of the critics' losses
+    (`d_loss`), by network; returns the record and the hooks."""
+    seen = {}
+    handles = []
+    for net in ("ae", "disc3d", "disc2d"):
+        for n, m in getattr(tt, net).named_modules():
+            if isinstance(m, _COMPUTE):
+                handles.append(m.register_forward_hook(
+                    lambda mod, args, out, key=(net, n): seen.setdefault(
+                        key, set()).add(_first_leaf(out).dtype)))
+    d_loss = tt.d_loss
+
+    def recorded_d_loss(*a):
+        out = d_loss(*a)
+        seen.setdefault(("d_loss", ""), set()).add(out.dtype)
+        return out
+    tt.d_loss = recorded_d_loss
+    return seen, handles
+
+
+@pytest.mark.parametrize("program", ["adversarial", "warm"])
+def test_gan_train_step(base_state, program):
+    """One bfloat16 VQ-GAN train step of each program from one state
+    (`base_state`, 16^3), the adversarial one with the adaptive weight
+    and R1: JAX's compiled step, its draws (outputs of the same program,
+    tests/test_torch_gan_trainer.py's `_jax_step`) injected into the
+    port. The loss and every metric, and Adam's first moments of the
+    autoencoder and of the critics per parameter group, by the file's
+    rule; and the census: every compute layer of the three networks, and
+    each critic loss, bfloat16 in the port's step."""
+    warm = program == "warm"
+    over = {} if warm else dict(adaptive_g_weight=True, r1_gamma=0.5)
+    jcfg, tcfg = gan_cfgs(**over)
+    jtc, tc = gan_train_cfgs()
+    jtr = JGANTrainer(jcfg, dataclasses.replace(jtc, dtype="bfloat16"))
+    st = base_state.replace(epoch=jnp.asarray(0 if warm else 1, jnp.int32))
+    vol, mask = gan_batch(1)
+    st2, jm, draws = gan_jax_step(jtr, st, vol, mask, warm)
+    ports, census = {}, None
+    for dtype in ("bfloat16", "float32"):
+        tt = GANTrainer(tcfg, dataclasses.replace(tc, dtype=dtype),
+                        device="cpu", volume_size=16)
+        tt.model.load_state_dict(convert_gan_state(gan_tree(st)))
+        tt.epoch = int(st.epoch)
+        if dtype == "bfloat16":
+            census, handles = _gan_census(tt)
+        m = tt.train_step(torch.from_numpy(vol), torch.from_numpy(mask),
+                          draws=Draws(**{k: list(v)
+                                         for k, v in draws.items()}),
+                          warm=warm)
+        if dtype == "bfloat16":
+            for h in handles:
+                h.remove()
+        mu = {**_port_mu(tt.optimizer, tt.ae, "ae."),
+              **_port_mu(tt.disc_optimizer, tt.disc3d, "disc3d."),
+              **_port_mu(tt.disc_optimizer, tt.disc2d, "disc2d.")}
+        ports[dtype] = (m, mu)
+    nets = {key[0] for key in census}
+    assert nets == ({"ae"} if warm else {"ae", "disc3d", "disc2d",
+                                         "d_loss"}), nets
+    wrong = {k: v for k, v in census.items() if v != {BF}}
+    assert not wrong, wrong
+    for k, r in jm.items():
+        r = float(r)
+        got, got32 = (float(ports[d][0][k]) for d in ("bfloat16", "float32"))
+        assert abs(got - r) <= max(BF16_ULP * abs(r),
+                                   NET_FRACTION * abs(got32 - r)), \
+            (k, got, got32, r)
+    ref_mu = {k: v.numpy() for k, v in {
+        **gan_moments(st2.opt_state, "ae")[0],
+        **gan_moments(st2.disc_opt_state, None)[0]}.items()}
+    _assert_steps(f"gan {program}", {d: (float(m["loss"]), mu)
+                                     for d, (m, mu) in ports.items()},
+                  float(jm["loss"]), ref_mu)

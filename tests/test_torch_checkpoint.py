@@ -38,6 +38,7 @@ from ldm3d_torch.train.dm_trainer import DiffusionTrainer
 from ldm3d_torch.train.loop import fit, fit_with_recovery
 from ldm3d_torch.utils import export
 from test_torch_samplers import CTX, FAST, SHAPE, _jax_draws
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # DDIM samples from one restored state on both sides: up to 8 tiny U-Net
 # calls in float32 summed in other orders than XLA (as

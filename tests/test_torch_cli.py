@@ -56,6 +56,7 @@ from ldm3d_torch.train.checkpoint import CheckpointManager
 from ldm3d_torch.train.dm_trainer import DiffusionTrainer
 from ldm3d_torch.utils import export
 from test_torch_samplers import CTX, FAST, SHAPE, _jax_draws
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # Encoded latents: the same frozen float32 encoder and codebook on both
 # sides, convolutions summed in other orders; the quantized latents are
@@ -456,57 +457,71 @@ def test_trained_state_samples_as_jax(against_jax):
         <= SAMPLE_REL_TOL
 
 
-# a training mode and the mesh its preset carries: a 'model' axis of 2
-# (refused, as ROADMAP queue 1 item 9(c), until tensor parallelism was
-# ported), over two processes
-UNPORTED = [
-    (["--train_dm"], "item 9", MeshConfig(model=2)),
-    (["--train_dm", "--cache_latents"], "item 9", MeshConfig(model=2)),
-]
+# --train_dm on volumes and on cached latents with a preset mesh of a
+# 'model' axis of 2, over two processes
+MODEL_MESH_FLAGS = {"volumes": ["--train_dm"],
+                    "cached_latents": ["--train_dm", "--cache_latents"]}
 # the smoke U-Net's widths (8, 16) are too narrow for the rule to split
 # anything (64 at least): these make it split the U-Net's convs
 TP_WIDTHS = (64, 128)
 
 
-# the ids count from 7: cases 0 and 1, the VQ-GAN modes, run now
-# (test_vqgan_modes_run_on_the_cpu); cases 2-5, --fidelity_sweep, --sweep,
-# --device_data and --profile, too (tests/test_torch_cli_modes.py); case 6,
-# a mesh with a 'space' axis, too (test_train_vq_over_a_space_mesh); cases
-# 7 and 8, a mesh with a 'model' axis, too (below)
-@pytest.mark.parametrize("flags,item,mesh", UNPORTED, ids=[
-    f"flags{i}-{item}" for i, (_, item, _) in enumerate(UNPORTED, start=7)])
-def test_unported_modes_exit_with_their_item(flags, item, mesh, tmp_path,
-                                            monkeypatch):
+@pytest.fixture(scope="module")
+def two_process_runs(tmp_path_factory):
+    """The file's runs over two processes: each run's directory (its
+    one-process run at the same global batch in k1, the two-process run
+    in k2) and both processes' results (each calls the CLI's main with
+    --coordinator). The two-process runs share one launch of the two
+    workers, each run joining a group of its own."""
+    from torch_dist_workers import launch, widened
+    base = tmp_path_factory.mktemp("two_process_cli")
+    dirs, runs = {}, []
+    cfg = widened(get_preset("smoke_cond"), widths=TP_WIDTHS)
+    for name, flags in MODEL_MESH_FLAGS.items():
+        d = dirs[name] = base / name
+        common = ["--preset", "smoke_cond", "--platform", "cpu",
+                  "--synthetic", "--num_synthetic", "6", "--volume_size",
+                  "16", "--cache_dir", str(d / "cache"), "--val_perc",
+                  "0.34", "--lr", "1e-5", "--epochs", "1"] + flags
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(presets, "get_preset", lambda name: cfg)
+            cli.main(common + ["--lbs", "4", "--ckpt_dir", str(d / "k1")])
+        runs.append({"mesh": dataclasses.asdict(MeshConfig(model=2)),
+                     "widths": TP_WIDTHS, "argv": common + [
+                         "--lbs", "2", "--ckpt_dir", str(d / "k2")]})
+    d = dirs["space"] = base / "space"
+    common = ["--preset", "smoke", "--platform", "cpu", "--train_vq",
+              "--synthetic", "--num_synthetic", "12", "--volume_size", "16",
+              "--cache_dir", str(d / "cache"), "--val_perc", "0.34", "--lr",
+              "1e-5", "--epochs", "1"]
+    cli.main(common + ["--lbs", "4", "--ckpt_dir", str(d / "k1")])
+    runs.append({"mesh": {"data": 1, "space": 2}, "argv": common + [
+        "--lbs", "2", "--ckpt_dir", str(d / "k2")]})
+    torch.save({"runs": runs}, base / "cli_in.pt")
+    ranks = launch("cli", base, timeout=400)
+    return {name: (d, [r[i] for r in ranks])
+            for i, (name, d) in enumerate(dirs.items())}
+
+
+@pytest.mark.parametrize("name", list(MODEL_MESH_FLAGS))
+def test_train_dm_over_a_model_mesh(two_process_runs, name):
     """--train_dm on volumes and on cached latents with a model = 2
-    preset mesh, in two processes (each calls the CLI's main with
-    --coordinator): a data 1 x model 2 mesh, the U-Net's convs split over
-    it; process 0's training.log equals the one-process log at the same
-    global batch, at the data-parallel test's tolerance
+    preset mesh, in two processes: a data 1 x model 2 mesh, the U-Net's
+    convs split over it; process 0's training.log equals the one-process
+    log at the same global batch, at the data-parallel test's tolerance
     (tests/test_torch_multiprocess.py)."""
     from test_torch_multiprocess import _log, _rows_close
-    from torch_dist_workers import launch, widened
-    common = ["--preset", "smoke_cond", "--platform", "cpu", "--synthetic",
-              "--num_synthetic", "6", "--volume_size", "16", "--cache_dir",
-              str(tmp_path / "cache"), "--val_perc", "0.34", "--lr", "1e-5",
-              "--epochs", "1"] + flags
-    cfg = widened(get_preset("smoke_cond"), widths=TP_WIDTHS)
-    monkeypatch.setattr(presets, "get_preset", lambda name: cfg)
-    cli.main(common + ["--lbs", "4", "--ckpt_dir", str(tmp_path / "k1")])
-    torch.save({"mesh": dataclasses.asdict(mesh), "widths": TP_WIDTHS,
-                "argv": common + ["--lbs", "2", "--ckpt_dir",
-                                  str(tmp_path / "k2")]},
-               tmp_path / "cli_in.pt")
-    ranks = launch("cli", tmp_path, timeout=180)
+    d, ranks = two_process_runs[name]
     for i, r in enumerate(ranks):
         assert f"multi-host: process {i}/2" in r["stdout"]
         assert r["meshes"] and all(m == {"data": 1, "space": 1, "model": 2}
                                    for m in r["meshes"])
     run = "smoke_cond_dm"
-    _rows_close(_log(tmp_path / "k2", run), _log(tmp_path / "k1", run))
-    assert CheckpointManager(str(tmp_path / "k2" / run)).all_epochs() == [1]
+    _rows_close(_log(d / "k2", run), _log(d / "k1", run))
+    assert CheckpointManager(str(d / "k2" / run)).all_epochs() == [1]
 
 
-def test_train_vq_over_a_space_mesh(tmp_path):
+def test_train_vq_over_a_space_mesh(two_process_runs):
     """--train_vq in two processes (each calls the CLI's main with
     --coordinator, as --cpu_devices 2 has them do) with a space = 2 preset
     mesh: a data 1 x space 2 mesh, each process training on one depth slab
@@ -515,21 +530,12 @@ def test_train_vq_over_a_space_mesh(tmp_path):
     per device), at the data-parallel test's tolerance
     (tests/test_torch_multiprocess.py)."""
     from test_torch_multiprocess import _log, _rows_close
-    from torch_dist_workers import launch
-    common = ["--preset", "smoke", "--platform", "cpu", "--train_vq",
-              "--synthetic", "--num_synthetic", "12", "--volume_size", "16",
-              "--cache_dir", str(tmp_path / "cache"), "--val_perc", "0.34",
-              "--lr", "1e-5", "--epochs", "1"]
-    cli.main(common + ["--lbs", "4", "--ckpt_dir", str(tmp_path / "k1")])
-    torch.save({"mesh": {"data": 1, "space": 2}, "argv": common + [
-        "--lbs", "2", "--ckpt_dir", str(tmp_path / "k2")]},
-        tmp_path / "cli_in.pt")
-    ranks = launch("cli", tmp_path, timeout=180)
+    d, ranks = two_process_runs["space"]
     for i, r in enumerate(ranks):
         assert f"multi-host: process {i}/2" in r["stdout"]
         assert r["meshes"] and all(m == {"data": 1, "space": 2, "model": 1}
                                    for m in r["meshes"])
-    _rows_close(_log(tmp_path / "k2"), _log(tmp_path / "k1"))
+    _rows_close(_log(d / "k2"), _log(d / "k1"))
 
 
 @pytest.mark.parametrize("flags", [

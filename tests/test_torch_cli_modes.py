@@ -33,6 +33,7 @@ from ldm3d_torch.cli import main as cli
 from ldm3d_torch.core import presets as ppresets
 from ldm3d_torch.train import checkpoint as pckpt
 from ldm3d_torch.train import dm_trainer as pdm
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 GRID = ["--sweep_samplers", "ddpm, ddim:3,dpmpp:4:,ddim:5:0.5,,",
         "--guidance_grid", "none,0,2.5, NONE,3"]

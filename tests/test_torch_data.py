@@ -25,6 +25,7 @@ from ldm3d_torch.core.config import DataConfig
 from ldm3d_torch.data import nifti, pipeline
 from ldm3d_torch.data.synthetic import (_batch_classes, _one_volume,
                                         synthetic_batch)
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 SIZE = 16
 # Synthetic volumes: the texture is sin(x * f * pi + phase) with arguments

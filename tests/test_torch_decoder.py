@@ -22,6 +22,7 @@ from ldm3d_torch.models.layers import ConvTranspose3d, Norm, PReLU
 from ldm3d_torch.models.vqvae import Decoder
 from test_tf_parity import (W_2_3_2, W_2_4_2, W_3_3_1, X_2_3_2, X_2_4_2,
                             X_3_3_1, Y_2_3_2, Y_2_4_2, Y_3_3_1)
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # float32: each output sums at most a few hundred products per layer in a
 # different order than XLA; 1e-5 relative to max |ref| is a few ulps.

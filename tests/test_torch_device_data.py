@@ -19,6 +19,7 @@ from ldm3d_torch.data import pipeline
 from ldm3d_torch.data.synthetic import (corpus_draws, one_at,
                                         synthetic_batch, synthetic_dataset,
                                         synthetic_volumes_at)
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 SIZE, N, SEED = 8, 11, 5
 

@@ -26,6 +26,7 @@ from ldm3d_torch.models.vqvae import (VQVAE, Encoder, S2DStemConv,
                                       space_to_depth3d)
 from ldm3d_torch.train.dm_trainer import LatentDiffusion
 from test_torch_quantize import _distances, assert_same_argmin
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # float32 on both sides; an encoder output sums a few thousand products
 # per layer in another order than XLA, so agreement is to a few float32

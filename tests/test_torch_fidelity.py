@@ -22,6 +22,7 @@ from ldm3d_torch.core.config import TrainConfig as PTrainConfig
 from ldm3d_torch.core.config import flagship_cfg
 from ldm3d_torch.ops import fid
 from ldm3d_torch.train.dm_trainer import DiffusionTrainer
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # The same float64 numpy code on the same inputs; 1e-12 relative leaves
 # room for BLAS summing in another order across processes.

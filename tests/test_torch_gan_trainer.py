@@ -2,8 +2,9 @@
 
 From one JAX-initialised state (`TrainConfig(dtype="float32")`), carried
 over by `convert.convert_gan_state`, both trainers take one `train_step`:
-JAX's runs eagerly, so that its quantizer draws and frame indices can be
-recorded and injected into the port. Compared: every metric; the
+JAX's is compiled once with its quantizer draws and frame indices
+returned as outputs of the same program (`compiled_with_draws`), which
+are injected into the port. Compared: every metric; the
 gradients of each subtree (`ae`, `disc3d`, `disc2d`) through Adam's first
 moments; the parameters after both Adams; Adam's step counts; the
 critics' BatchNorm statistics and the quantizer's state. Cases: the warm
@@ -36,7 +37,8 @@ from ldm3d_torch.core.config import (DiscriminatorConfig, QuantizerConfig,
 from ldm3d_torch.models.quantizers import Draws
 from ldm3d_torch.train.checkpoint import CheckpointManager
 from ldm3d_torch.train.gan_trainer import GANTrainer
-from test_torch_quantizers import recorded
+from test_torch_quantizers import compiled_with_draws
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 B, SIZE, LR, DISC_LR = 2, 16, 1e-3, 2e-3
 # Metrics: float32 means after the autoencoder, the critics and VGG16,
@@ -129,12 +131,18 @@ def _metrics_close(got, ref):
                                    atol=1e-7, err_msg=k)
 
 
-def _jax_step(jtr, st, vol, mask, monkeypatch):
-    with recorded(monkeypatch, "normal", "permutation", "randint") as d, \
-            jax.disable_jit():
-        st2, jm = jtr.train_step(st, jnp.asarray(vol), jnp.asarray(mask))
+def _jax_step(jtr, st, vol, mask, warm=None):
+    """JAX's `train_step` of the program it picks for the state's epoch
+    (or `warm`), compiled, and the draws it made from `state.rng`:
+    (state, metrics, {draw kind: [arrays]}) for `Draws`."""
+    if warm is None:
+        warm = int(st.epoch) < jtr.cfg.disc_threshold
+    step = jtr._build_train_step(st, warm=warm).__wrapped__
+    (st2, jm), d = compiled_with_draws(
+        step, (st, jnp.asarray(vol), jnp.asarray(mask)), "normal",
+        "permutation", "randint")
     assert len(d["randint"]) == 1
-    return st2, jm, Draws(**d)
+    return st2, jm, d
 
 
 def _moments(opt_state, prefix):
@@ -181,14 +189,15 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_train_step_matches_jax(case, base_state, monkeypatch):
+def test_train_step_matches_jax(case, base_state):
     over = dict(CASES[case])
     epoch = over.pop("epoch")
     jtr, st, tt = _pair(base_state, epoch, **over)
     vol, mask = _batch(1)
     before = {k: t.clone() for k, t in tt.model.state_dict().items()}
-    st2, jm, draws = _jax_step(jtr, st, vol, mask, monkeypatch)
-    tm = tt.train_step(torch.from_numpy(vol), torch.from_numpy(mask), draws)
+    st2, jm, draws = _jax_step(jtr, st, vol, mask)
+    tm = tt.train_step(torch.from_numpy(vol), torch.from_numpy(mask),
+                       Draws(**draws))
     _metrics_close(tm, jm)
     if case == "warm":
         assert float(tm["disc_loss"]) == 0.0
@@ -236,15 +245,16 @@ def test_train_step_matches_jax(case, base_state, monkeypatch):
     assert tt.step == int(st2.step) == 1
 
 
-def test_eval_step_matches_jax(base_state, monkeypatch):
+def test_eval_step_matches_jax(base_state):
     jtr, st, tt = _pair(base_state, 1, adaptive_g_weight=True, r1_gamma=0.5)
     vol, mask = _batch(2)
-    st2, _, draws = _jax_step(jtr, st, vol, mask, monkeypatch)
+    st2, _, _ = _jax_step(jtr, st, vol, mask)
     tt.model.load_state_dict(convert_gan_state(_tree(st2)), strict=True)
     tt.epoch = 1
     key = jax.random.PRNGKey(7)
-    with recorded(monkeypatch, "randint") as d, jax.disable_jit():
-        jev = jtr.eval_step(st2, jnp.asarray(vol), jnp.asarray(mask), key)
+    args = (st2, jnp.asarray(vol), jnp.asarray(mask), key)
+    jev, d = compiled_with_draws(jtr._eval_step.__wrapped__, args,
+                                 "randint")
     before = {k: t.clone() for k, t in tt.model.state_dict().items()}
     tev = tt.eval_step(torch.from_numpy(vol), torch.from_numpy(mask),
                        draws=Draws(**d))

@@ -28,6 +28,8 @@ from ldm3d_torch.diffusion.ddpm import ddpm_sample_step
 from ldm3d_torch.diffusion.schedule import make_schedule
 from ldm3d_torch.serve import GenerationService
 from ldm3d_torch.train.dm_trainer import DiffusionTrainer
+from test_torch_samplers import FAST
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 SHAPE = (2, 4, 4, 4, 8)
 
@@ -40,7 +42,9 @@ def jax_side():
     cfg = _flagship_cfg(tiny=True)
     tr = JTrainer(cfg, TrainConfig(batch_size=1, dtype="float32",
                                    ema_decay=0.9), conditional=True)
-    st = tr.init_state(jax.random.PRNGKey(0), (1, 16, 16, 16, 1))
+    st = jax.jit(tr.init_state, static_argnums=1).lower(
+        jax.random.PRNGKey(0), (1, 16, 16, 16, 1)).compile(
+        compiler_options=FAST)(jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
 
     def noisy(tree, scale):
@@ -103,8 +107,9 @@ def test_tiny_generate_matches_generate_fn(jax_side, use_ema):
     tt = _port(st)
     ctx = np.array([1, 0], np.int32)
     key = jax.random.PRNGKey(5)
-    ref = np.asarray(tr.generate_fn(SHAPE, decode=True, use_ema=use_ema)(
-        st, key, jnp.asarray(ctx)))
+    ref = np.asarray(tr.generate_fn(SHAPE, decode=True, use_ema=use_ema)
+                     .lower(st, key, jnp.asarray(ctx)).compile(
+                         compiler_options=FAST)(st, key, jnp.asarray(ctx)))
     # the JAX sampler's draws: split(rng) -> x_T, then one split per step
     init_rng, r = jax.random.split(key)
     x_t = np.array(jax.random.normal(init_rng, SHAPE, jnp.float32))
@@ -180,6 +185,28 @@ def test_service_generates_and_is_seeded(service):
 def test_service_rejects(service, kwargs, match):
     with pytest.raises(ValueError, match=match):
         service.generate(**kwargs)
+
+
+def test_service_decodes_with_deterministic_cudnn(service, monkeypatch):
+    """A served request decodes with cuDNN's deterministic algorithms (on
+    the card the bf16 decode repeats only with them) and leaves the
+    caller's setting as it was; sampling alone decodes nothing."""
+    model = service.trainer.model
+    seen, decode = [], model.decode
+
+    def recorded(latents):
+        seen.append(torch.backends.cudnn.deterministic)
+        return decode(latents)
+    monkeypatch.setattr(model, "decode", recorded)
+    before = torch.backends.cudnn.deterministic
+    service.generate(num=1, context=1, seed=6, sampler="ddim",
+                     sample_steps=2)
+    assert seen == [True]
+    assert torch.backends.cudnn.deterministic == before
+    service.trainer.generate((1,) + SHAPE[1:], torch.tensor([1]),
+                             generator=torch.Generator().manual_seed(0),
+                             sampler="ddim", sample_steps=2, decode=False)
+    assert seen == [True]
 
 
 def test_unit_guidance_is_the_plain_chain(service):

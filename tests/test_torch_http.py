@@ -20,6 +20,7 @@ from ldm3d.data.nifti import save_nifti as j_save_nifti
 from ldm3d_torch.core.config import flagship_cfg
 from ldm3d_torch.data.nifti import save_nifti
 from ldm3d_torch.serve import GenerationService, serve
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # No proxy, whatever the environment says: every request stays on localhost.
 _OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))

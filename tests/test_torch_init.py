@@ -54,6 +54,7 @@ from ldm3d_torch.train.vq_trainer import VQTrainer
 from test_torch_gan_trainer import cfgs as gan_cfgs
 from test_torch_samplers import FAST
 from test_torch_vq_trainer import _cfgs as vq_cfgs
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # Sample standard deviations of two independent draws of one distribution
 # over n >= 4096 elements differ by about sqrt(2 / n) < 2.3 %; 10 % is

@@ -28,6 +28,8 @@ from ldm3d_torch.core.config import (DiscriminatorConfig, QuantizerConfig,
                                      VQGANConfig, VQVAEConfig)
 from ldm3d_torch.models import lpips
 from ldm3d_torch.train.gan_trainer import GANTrainer
+from test_torch_samplers import FAST
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # float32 VGG16 features summed in other orders than XLA: the distance to
 # 1e-5 of its value, the calibrated head gains (1 / the same means) too.
@@ -39,9 +41,13 @@ def _np(tree):
 
 
 def _jax_lpips(h, w, seed=0):
+    """The JAX LPIPS and its init, compiled once (LLVM optimisation
+    off)."""
     m = jlpips.LPIPS(dtype=jnp.float32)
     x = jnp.zeros((1, h, w, 3))
-    return m, _np(m.init({"params": jax.random.PRNGKey(seed)}, x, x))
+    key = jax.random.PRNGKey(seed)
+    init = jax.jit(lambda k, v: m.init({"params": k}, v, v))
+    return m, _np(init.lower(key, x).compile(compiler_options=FAST)(key, x))
 
 
 def _port(params):
@@ -62,7 +68,9 @@ def test_distance_matches_jax(hw):
     a = rng.random((3,) + hw + (3,)).astype(np.float32)
     b = np.clip(a + 0.1 * rng.standard_normal(a.shape), 0, 1).astype(
         np.float32)
-    ref = np.asarray(m.apply(var, jnp.asarray(a), jnp.asarray(b)))
+    ref = np.asarray(jax.jit(m.apply).lower(
+        var, jnp.asarray(a), jnp.asarray(b)).compile(compiler_options=FAST)(
+        var, jnp.asarray(a), jnp.asarray(b)))
     t = _port(var["params"])
     got = t(_nchw(a), _nchw(b)).numpy()
     assert got.shape == (3,)

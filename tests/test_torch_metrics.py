@@ -17,6 +17,7 @@ from ldm3d.ops.metrics import (ssim2d as j_ssim2d,
                                volume_psnr as j_volume_psnr,
                                volume_ssim as j_volume_ssim)
 from ldm3d_torch.ops.metrics import ssim2d, volume_psnr, volume_ssim
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 SSIM_ATOL = 1e-6
 PSNR_RTOL = 1e-5

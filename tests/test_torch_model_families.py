@@ -40,6 +40,7 @@ from test_torch_vq_trainer import (DELTA_ATOL, DELTA_SHARE, GRAD_SHARE,
                                    MOMENT_RTOL, STATS_ATOL, STATS_RTOL,
                                    _metrics_close, _model_state, _np,
                                    _state_equal, _torch_tree)
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 B, SIZE, LR = 2, 16, 1e-3
 # float32 convolutions summed in other orders: 1e-5 of the largest value;

@@ -31,8 +31,6 @@ import csv
 import dataclasses
 import os
 import shutil
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -69,6 +67,7 @@ from test_torch_vq_trainer import MOMENT_RTOL as VQ_MOMENT_RTOL
 from test_torch_vq_trainer import _cfgs as vq_cfgs
 from test_torch_vq_trainer import _model_state as vq_model_state
 from torch_dist_workers import launch
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 B, LR, EMA_DECAY = 4, 1e-3, 0.99
 LATENT_SHAPE = (B, 4, 4, 4, 8)
@@ -553,7 +552,7 @@ def _rows_close(got, ref):
 
 
 def test_train_vq_over_two_processes_logs_checkpoints_and_resumes(
-        tmp_path, capsys):
+        tmp_path, capfd):
     cache = str(tmp_path / "cache")
     # 8 training volumes (2 steps of 4) and 4 held out (one batch)
     common = ["--preset", "smoke", "--platform", "cpu", "--train_vq",
@@ -564,19 +563,17 @@ def test_train_vq_over_two_processes_logs_checkpoints_and_resumes(
         cli.main(common + ["--lbs", "4", "--ckpt_dir", str(ckpt), *extra])
 
     def two(ckpt, *extra):
-        proc = subprocess.run(
-            [sys.executable, "-m", "ldm3d_torch.cli.main", *common, "--lbs",
-             "2", "--cpu_devices", "2", "--ckpt_dir", str(ckpt), *extra],
-            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            capture_output=True, text=True, timeout=120)
-        assert proc.returncode == 0, proc.stdout + proc.stderr
-        return proc.stdout
+        """--cpu_devices 2 from this process (it spawns the two);
+        both processes' output."""
+        capfd.readouterr()
+        cli.main(common + ["--lbs", "2", "--cpu_devices", "2",
+                           "--ckpt_dir", str(ckpt), *extra])
+        return capfd.readouterr().out
 
     one(tmp_path / "k1", "--epochs", "1")
     shutil.copytree(tmp_path / "k1", tmp_path / "k3")
     one(tmp_path / "k1", "--epochs", "2", "--resume_ckpt", "-1")
     ref = _log(tmp_path / "k1")
-    capsys.readouterr()
 
     out = two(tmp_path / "k2", "--epochs", "1")
     assert out.count("multi-host: process") == 2
@@ -597,14 +594,14 @@ def test_train_vq_over_two_processes_logs_checkpoints_and_resumes(
         .all_epochs() == [1, 2]
 
 
-def test_fidelity_freq_over_two_processes_evaluates_on_process_0(tmp_path):
+def test_fidelity_freq_over_two_processes_evaluates_on_every_process(
+        tmp_path, capfd):
     """--train_dm --cache_latents --fidelity_freq 1 over two processes:
     the real features are gathered to every process, each samples and
     scores the same (a sharded U-Net would sample with collectives on
     all), and process 0 logs; its training.log row (loss and the fidelity
     metrics) equals the one-process run's at the same global batch."""
-    common = [sys.executable, "-m", "ldm3d_torch.cli.main", "--preset",
-              "smoke_cond", "--platform", "cpu", "--synthetic",
+    common = ["--preset", "smoke_cond", "--platform", "cpu", "--synthetic",
               "--num_synthetic", "12", "--volume_size", "16", "--val_perc",
               "0.34", "--cache_dir", str(tmp_path / "cache")]
     run = ["--train_dm", "--cache_latents", "--epochs", "1",
@@ -612,12 +609,11 @@ def test_fidelity_freq_over_two_processes_evaluates_on_process_0(tmp_path):
            "--sample_steps", "3"]
 
     def cmd(*extra):
-        proc = subprocess.run(
-            common + list(extra),
-            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            capture_output=True, text=True, timeout=120)
-        assert proc.returncode == 0, proc.stdout + proc.stderr
-        return proc.stdout
+        """The command from this process (--cpu_devices 2 spawns the
+        two); its output, both processes'."""
+        capfd.readouterr()
+        cli.main(common + list(extra))
+        return capfd.readouterr().out
 
     cmd("--create_dataset")
     cmd(*run, "--lbs", "4", "--ckpt_dir", str(tmp_path / "k1"))
@@ -630,10 +626,9 @@ def test_fidelity_freq_over_two_processes_evaluates_on_process_0(tmp_path):
 
 
 @pytest.mark.parametrize("launch_by", ["cpu_devices", "coordinator"])
-def test_auto_resume_is_refused_over_processes(launch_by, tmp_path,
-                                               monkeypatch, capfd):
-    """--auto_resume over two processes (refused, as ROADMAP queue 1 item
-    9(d), until it was made collective), launched by --cpu_devices 2 and
+def test_auto_resume_recovers_over_processes(launch_by, tmp_path,
+                                             monkeypatch, capfd):
+    """--auto_resume over two processes, launched by --cpu_devices 2 and
     by hand with a coordinator: process 1's plateau schedule fails at the
     end of epoch 2; both processes agree on it, print their recovery,
     restore epoch 1 (process 0's last save) and train epoch 2 again in

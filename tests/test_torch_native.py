@@ -16,6 +16,7 @@ import torch
 from ldm3d.data import native as jnative
 from ldm3d_torch.core.config import DataConfig
 from ldm3d_torch.data import native, pipeline
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 8

@@ -29,6 +29,8 @@ import sys
 
 import pytest
 import torch
+from torch_threads import TORCH_THREADS
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ("jax", "flax", "optax", "ldm3d")
@@ -157,8 +159,11 @@ print("REHEARSAL_OK")
 
 
 def _env():
+    """The environment of the subprocesses: no PYTHONPATH, and torch's
+    threads as the tests' (`torch_threads`)."""
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
+    env.setdefault("OMP_NUM_THREADS", str(TORCH_THREADS))
     return env
 
 

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ldm3d.utils import profiling as jprof
 from ldm3d_torch.utils import profiling as prof
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # XLA's cost analysis counts a dense layer's bias add (one flop per
 # output) and the matmul at 2 per multiply-add; FlopCounterMode counts

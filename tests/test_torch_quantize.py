@@ -24,6 +24,7 @@ from ldm3d.ops.quantize import (_nearest_indices_pallas,
 from ldm3d_torch.core.config import QuantizerConfig
 from ldm3d_torch.models.quantizers import make_quantizer
 from ldm3d_torch.ops import quantize as tq
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 K, D = 16, 8   # the tiny flagship codebook
 

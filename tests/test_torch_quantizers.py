@@ -27,6 +27,8 @@ from ldm3d_torch.core.config import QuantizerConfig
 from ldm3d_torch.models import quantizers as tq
 from ldm3d_torch.ops.quantize import ema_statistics
 from test_torch_quantize import _distances, assert_same_argmin
+from test_torch_samplers import FAST
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 K, D, S = 16, 8, 3
 X_SHAPE = (2, 4, 4, 4, D)        # 128 rows, as the tiny stage-1's latents
@@ -53,6 +55,34 @@ def recorded(monkeypatch, *names):
         yield rec
     finally:
         monkeypatch.undo()
+
+
+def compiled_with_draws(fn, args, *names):
+    """`fn(*args)` compiled once (`FAST`), and the outputs of its
+    `jax.random.<name>` calls, in call order: recorded while `fn` traces
+    and returned as outputs of the same program, so the draws are the
+    compiled step's own (`recorded` needs `jax.disable_jit()`, an eager
+    run). `fn` must not be jitted itself (a jitted trainer step's
+    `__wrapped__`). Returns (fn's output, {name: [numpy arrays]})."""
+    def traced(*a):
+        rec = {n: [] for n in names}
+        real = {n: getattr(jax.random, n) for n in names}
+
+        def recording(name):
+            def call(*ra, **kw):
+                rec[name].append(real[name](*ra, **kw))
+                return rec[name][-1]
+            return call
+        for n in names:
+            setattr(jax.random, n, recording(n))
+        try:
+            return fn(*a), rec
+        finally:
+            for n in names:
+                setattr(jax.random, n, real[n])
+    out, rec = jax.jit(traced).lower(*args).compile(
+        compiler_options=FAST)(*args)
+    return out, {n: [np.array(a) for a in v] for n, v in rec.items()}
 
 
 def _close(out, ref, tol=REL_TOL):

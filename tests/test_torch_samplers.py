@@ -39,6 +39,7 @@ from ldm3d_torch.core.config import flagship_cfg
 from ldm3d_torch.diffusion.ddpm import sampler_timesteps
 from ldm3d_torch.serve import GenerationService
 from ldm3d_torch.train.dm_trainer import DiffusionTrainer
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 SHAPE = (2, 4, 4, 4, 8)
 CTX = np.array([1, 0], np.int32)

@@ -72,7 +72,7 @@ from test_torch_gan_trainer import ADAPTIVE_RTOL
 from test_torch_gan_trainer import _train_cfgs as gan_train_cfgs
 from test_torch_gan_trainer import cfgs as gan_cfgs
 from test_torch_multiprocess import EMA_KINDS, _perturb_
-from test_torch_quantizers import recorded
+from test_torch_quantizers import compiled_with_draws
 from test_torch_samplers import FAST
 from test_torch_train import LOSS_RTOL
 from test_torch_train import MOMENT_RTOL as DM_MOMENT_RTOL
@@ -82,6 +82,7 @@ from test_torch_vq_trainer import _cfgs as vq_cfgs
 from test_torch_vq_trainer import _metrics_close as vq_metrics_close
 from test_torch_vq_trainer import _model_state, _torch_tree
 from torch_dist_workers import Apply, First, launch
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 SPACE = 2
 # against one process: the loss 1e-5 relative, every gradient within 1e-4
@@ -310,9 +311,9 @@ VQ_B = 2
 
 
 def _vq_case(kind, channels, dropout, norm, seed):
-    """A JAX-initialised VQ-VAE, JAX's eager step with its draws recorded,
-    the port's one-process step with them injected, and the spec of the
-    same step over two processes."""
+    """A JAX-initialised VQ-VAE, JAX's compiled step with its draws
+    recorded, the port's one-process step with them injected, and the
+    spec of the same step over two processes."""
     from ldm3d.train.vq_trainer import VQTrainer as JVQTrainer
     jcfg, tcfg = vq_cfgs(kind, channels, dropout, norm)
     jtr = JVQTrainer(jcfg, jconfig.TrainConfig(batch_size=VQ_B,
@@ -325,11 +326,10 @@ def _vq_case(kind, channels, dropout, norm, seed):
     rng = np.random.default_rng(seed)
     vol = rng.random(shape[:4] + (1,)).astype(np.float32)
     mask = (vol > 0.6).astype(np.float32)
-    with pytest.MonkeyPatch.context() as mp:
-        with recorded(mp, "normal", "bernoulli") as d, jax.disable_jit():
-            st2, jm = jtr.train_step(st, jnp.asarray(vol),
-                                     jnp.asarray(mask))
-        draws = {k: list(v) for k, v in d.items() if v}
+    (st2, jm), d = compiled_with_draws(
+        jtr._build_train_step(st).__wrapped__,
+        (st, jnp.asarray(vol), jnp.asarray(mask)), "normal", "bernoulli")
+    draws = {k: list(v) for k, v in d.items() if v}
     train = dict(batch_size=VQ_B, learning_rate=1e-3)
     state = _model_state(st)
     one = VQTrainer(tcfg, TrainConfig(**{"dtype": "float32", **train}),
@@ -449,7 +449,7 @@ def _gan_case():
     process, its draws (the EMA quantizer's random rows, the frame
     indices) from the trainer's generator, as the two processes draw
     them. (tests/test_torch_gan_trainer.py holds this one-process step to
-    JAX's; a JAX GAN step here, eager for its draws, would cost ~90 s.)"""
+    JAX's.)"""
     _, tcfg = gan_cfgs(adaptive_g_weight=True, r1_gamma=0.5)
     _, tc = gan_train_cfgs()
     with pytest.warns(UserWarning, match="LPIPS"):

@@ -21,6 +21,7 @@ from ldm3d_torch.cli import main as cli
 from ldm3d_torch.core import presets
 from ldm3d_torch.core import sweep
 from test_torch_cli import _same_fields
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 YAML = """
 program: exp_main.py   # the reference's

@@ -19,6 +19,7 @@ import torch
 from chip_smoke import ATTN_TOL, CB_DIST_TOL
 from ldm3d_torch.ops.attention import _attention_reference
 from ldm3d_torch.ops.quantize import _nearest_indices_reference
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:

@@ -62,6 +62,7 @@ from test_torch_multiprocess import _nest, _perturb_
 from test_torch_samplers import FAST
 from test_torch_spatial import _port_cfg
 from torch_dist_workers import launch
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 REL_TOL, TREE_RTOL, OP_RTOL = 1e-5, 1e-4, 1e-6
 # tests/test_tensor_parallel.py's bounds for a TP loss against another

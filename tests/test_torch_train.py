@@ -41,6 +41,8 @@ from ldm3d_torch.diffusion.schedule import make_schedule
 from ldm3d_torch.models.layers import Norm
 from ldm3d_torch.ops import attention as tattn
 from ldm3d_torch.train.dm_trainer import DiffusionTrainer, auto_latent_scale
+from test_torch_samplers import FAST
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 B = 2
 LR = 1e-3
@@ -103,8 +105,9 @@ def base():
     (cfg_dropout > 0), as numpy trees."""
     cfg = _replace(_flagship_cfg(tiny=True), 0.5, "eps", "mean", None)
     tr = JTrainer(cfg, JTrainConfig(batch_size=B, dtype="float32"))
-    st = jax.jit(tr.init_state, static_argnums=1)(jax.random.PRNGKey(0),
-                                                  (B, 16, 16, 16, 1))
+    st = jax.jit(tr.init_state, static_argnums=1).lower(
+        jax.random.PRNGKey(0), (B, 16, 16, 16, 1)).compile(
+        compiler_options=FAST)(jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     params = jax.tree_util.tree_map(
         lambda a: a + 0.02 * rng.standard_normal(a.shape).astype(np.float32),
@@ -222,6 +225,12 @@ def runs(base):
         else:
             x = data.standard_normal(LATENT_SHAPE).astype(np.float32)
         ctx = np.array([1, 0], np.int32)
+        # JAX's step compiled once with LLVM optimisation off
+        on_latents = path != "volume"
+        jtr._train_steps[on_latents] = jtr._build_train_step(
+            st, on_latents=on_latents).lower(
+            st, jnp.asarray(x), jnp.asarray(ctx)).compile(
+            compiler_options=FAST)
         steps = {}
         key = jnp.asarray(rng)
         for step in (1, 2, 3):
@@ -326,7 +335,9 @@ def test_trainer_encode_latents_match(base):
                     rng=jax.random.PRNGKey(0))
     images = np.random.default_rng(2).random(
         (B, 16, 16, 16, 1)).astype(np.float32)
-    ref = np.asarray(jtr.encode_latents(st, jnp.asarray(images)))
+    ref = np.asarray(jax.jit(jtr.encode_latents).lower(
+        st, jnp.asarray(images)).compile(compiler_options=FAST)(
+        st, jnp.asarray(images)))
     tt = DiffusionTrainer(tcfg, device="cpu",
                           train_cfg=TrainConfig(dtype="float32"))
     tt.load_state_dicts(*convert_state({"params": params,

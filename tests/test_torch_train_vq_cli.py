@@ -40,6 +40,7 @@ from ldm3d_torch.train.vq_trainer import VQTrainer
 from ldm3d_torch.utils import export
 from test_torch_cli import _same_fields
 from test_torch_samplers import FAST
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # Reconstructions from one float16 snapshot: the same float32 VQ-VAE in
 # eval mode on both sides, convolutions summed in other orders; 1e-5 of
@@ -211,14 +212,11 @@ def test_fit_validation_schedule_and_replacement(capsys):
     ["--preset", "vqgan_stride", "--train_dm"],
     ["--preset", "emavqvae", "--create_dataset", "--synthetic"],
 ])
-def test_unported_stage1_models_exit_with_item_7(argv, tmp_path,
-                                                 monkeypatch):
-    """These models exited with ROADMAP queue 1 item 7 until they were
-    ported. Now each argv folds into the config the JAX CLI builds from
-    it, and its mode runs on the CPU at 16^3 (a --test_vq after a
-    --train_vq of its own); --train_dm of a VQ-GAN preset trains the
-    preset's 128^3 diffusion model, so that case checks the config
-    only."""
+def test_stage1_models_run_from_the_cli(argv, tmp_path, monkeypatch):
+    """Each argv folds into the config the JAX CLI builds from it, and its
+    mode runs on the CPU at 16^3 (a --test_vq after a --train_vq of its
+    own); --train_dm of a VQ-GAN preset trains the preset's 128^3
+    diffusion model, so that case checks the config only."""
     monkeypatch.setattr(jax, "device_count", lambda: 1)
     ref = jcli.apply_overrides(jpresets.get_preset(argv[1]),
                                jcli.build_parser().parse_args(argv))

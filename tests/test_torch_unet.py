@@ -24,6 +24,7 @@ from ldm3d_torch.core.config import flagship_cfg
 from ldm3d_torch.models.layers import Conv3d, same_pads
 from ldm3d_torch.models.unet3d import (AttentionBlock, CrossAttentionBlock,
                                        TimeEmbedding, UNet3D)
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # float32 on both sides; a block sums a few thousand products per output in
 # different orders (XLA vs oneDNN/ATen), so agreement is to a few float32

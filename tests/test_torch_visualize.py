@@ -8,6 +8,7 @@ import pytest
 
 from ldm3d.utils import visualize as jvis
 from ldm3d_torch.utils import visualize as vis
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 LOG = ("epoch,loss,reconst_loss,val_loss,latent_fid\n"
        "0,0.1,0.09,0.12,\n1,0.05,0.04,0.06,\n2,0.02,0.018,0.03,7.5\n")

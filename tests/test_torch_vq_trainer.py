@@ -2,8 +2,9 @@
 
 From one JAX-initialised state (`TrainConfig(dtype="float32")`), carried
 over by `ldm3d_torch.convert`, both trainers take one `train_step` (JAX's
-step run eagerly so that its dropout masks and quantizer noise can be
-recorded and injected into the port) and then one `eval_step`, for the
+step compiled with its dropout masks and quantizer noise returned as
+outputs of the same program, `compiled_with_draws`, and injected into the
+port) and then one `eval_step`, for the
 ste, nsvq and rnsvq quantizers on a 1-channel and a 2-channel config; the
 epoch-end `replace_unused` follows, with JAX's draws re-derived from its
 key. Then `recalibrate_batch_stats`, and the port's bitwise exact resume.
@@ -27,8 +28,9 @@ from ldm3d_torch.core.config import (QuantizerConfig, TrainConfig,
 from ldm3d_torch.models.quantizers import Draws
 from ldm3d_torch.train.checkpoint import CheckpointManager
 from ldm3d_torch.train.vq_trainer import VQTrainer
-from test_torch_quantizers import _replacement_draws, recorded
+from test_torch_quantizers import _replacement_draws, compiled_with_draws
 from test_torch_samplers import FAST
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 B, SIZE, LR = 2, 16, 1e-3
 # Metrics: means over 8192 voxels after the VQ-VAE in float32, summed in
@@ -119,14 +121,15 @@ CASES = [("ste", 1, 0.0), ("ste", 2, 0.2), ("nsvq", 1, 0.0),
 @pytest.mark.parametrize("kind,channels,dropout", CASES,
                          ids=[f"{k}_{c}ch" + ("_drop" if d else "")
                               for k, c, d in CASES])
-def test_train_and_eval_step_match_jax(kind, channels, dropout,
-                                       monkeypatch):
+def test_train_and_eval_step_match_jax(kind, channels, dropout):
     jtr, st, tt = _pair(kind, channels, dropout)
     vol, mask = _batch(1)
     before = {n: p.detach().clone() for n, p in tt.model.named_parameters()}
-    with recorded(monkeypatch, "normal", "bernoulli") as draws, \
-            jax.disable_jit():
-        st2, jm = jtr.train_step(st, jnp.asarray(vol), jnp.asarray(mask))
+    # JAX's step compiled, its dropout masks and NSVQ noise outputs of the
+    # same program
+    (st2, jm), draws = compiled_with_draws(
+        jtr._build_train_step(st).__wrapped__,
+        (st, jnp.asarray(vol), jnp.asarray(mask)), "normal", "bernoulli")
     assert bool(draws["bernoulli"]) == bool(dropout)
     assert len(draws["normal"]) == (kind != "ste")
     tm = tt.train_step(torch.from_numpy(vol), torch.from_numpy(mask),
@@ -164,8 +167,8 @@ def test_train_and_eval_step_match_jax(kind, channels, dropout,
 
     # eval from the state JAX reached
     tt.model.load_state_dict(_model_state(st2), strict=True)
-    with jax.disable_jit():
-        jev = jtr.eval_step(st2, jnp.asarray(vol), jnp.asarray(mask))
+    args = (st2, jnp.asarray(vol), jnp.asarray(mask))
+    jev = jtr._eval_step.lower(*args).compile(compiler_options=FAST)(*args)
     tev = tt.eval_step(torch.from_numpy(vol), torch.from_numpy(mask))
     _metrics_close(tev, jev)
     assert float(tev["ssim"]) <= 1.0
@@ -276,9 +279,9 @@ def test_resume_is_bitwise(kind, tmp_path):
     _state_equal(fresh, again)
 
 
-def test_unported_families_refused():
-    """The families refused until the VQ-GAN slice ported them build
-    their models; an unknown family is refused."""
+def test_stage1_families_build_and_unknown_refused():
+    """The ema_skip and legacy families build their models and step; an
+    unknown family is refused."""
     from ldm3d_torch.models.emavqvae import EMASkipTrainable
     from ldm3d_torch.models.vqvae_legacy import LegacyVQVAE
     _, tcfg = _cfgs("ste", 1)

@@ -32,7 +32,9 @@ from ldm3d_torch.core.config import (DiscriminatorConfig, QuantizerConfig,
 from ldm3d_torch.models import vqgan
 from ldm3d_torch.models.layers import Conv2d, avgpool3d, symmetric_pad3d
 from ldm3d_torch.models.quantizers import Draws
-from test_torch_quantizers import recorded
+from test_torch_quantizers import compiled_with_draws
+from test_torch_samplers import FAST
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 B, SIZE = 2, 16
 # Float32 convolutions, norms and sums in other orders than XLA: 1e-5 of
@@ -129,9 +131,10 @@ def _ae_pair(arch, seed=0):
     jcfg, tcfg = ae_cfgs(arch)
     jm = jvqgan.VQGANAutoencoder(jcfg, dtype=jnp.float32)
     x = jnp.zeros((B, SIZE, SIZE, SIZE, 2))
-    var = _np(jm.init({"params": jax.random.PRNGKey(seed),
-                       "noise": jax.random.PRNGKey(seed + 1)}, x,
-                      training=False))
+    rngs = {"params": jax.random.PRNGKey(seed),
+            "noise": jax.random.PRNGKey(seed + 1)}
+    var = _np(jax.jit(lambda r, v: jm.init(r, v, training=False)).lower(
+        rngs, x).compile(compiler_options=FAST)(rngs, x))
     tm = vqgan.VQGANAutoencoder(tcfg)
     tm.load_state_dict(convert_state(var)[0], strict=True)
     return jm, var, tm
@@ -147,7 +150,9 @@ def _input(seed):
 def test_autoencoder_eval_matches_jax(arch):
     jm, var, tm = _ae_pair(arch)
     x = _input(1)
-    recon, aux = jm.apply(var, jnp.asarray(x), training=False)
+    recon, aux = jax.jit(lambda v, a: jm.apply(v, a, training=False)).lower(
+        var, jnp.asarray(x)).compile(compiler_options=FAST)(
+        var, jnp.asarray(x))
     got, taux = tm.eval()(torch.from_numpy(x))
     assert got.shape == (B, SIZE, SIZE, SIZE, 2)
     _close(got.detach(), recon, what="recon")
@@ -157,7 +162,7 @@ def test_autoencoder_eval_matches_jax(arch):
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))
-def test_autoencoder_training_matches_jax(arch, monkeypatch):
+def test_autoencoder_training_matches_jax(arch):
     """Training mode: output, quantizer loss, the gradient of
     sum(recon * w) + loss for every parameter, and the state after."""
     jm, var, tm = _ae_pair(arch, seed=2)
@@ -172,9 +177,9 @@ def test_autoencoder_training_matches_jax(arch, monkeypatch):
             mutable=list(rest), rngs={"noise": jax.random.PRNGKey(9)})
         return jnp.sum(recon * w) + aux.loss, (recon, aux, upd)
 
-    with recorded(monkeypatch, "normal", "permutation") as draws:
-        (ref_loss, (recon, aux, upd)), grads = jax.value_and_grad(
-            loss, has_aux=True)(params)
+    ((ref_loss, (recon, aux, upd)), grads), draws = compiled_with_draws(
+        jax.value_and_grad(loss, has_aux=True), (params,), "normal",
+        "permutation")
     tm.train()
     got, taux = tm(torch.from_numpy(x), Draws(**draws))
     total = torch.sum(got * torch.from_numpy(w)) + taux.loss

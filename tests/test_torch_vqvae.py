@@ -26,6 +26,7 @@ from ldm3d_torch.models.vqvae import VQVAE, Decoder, Encoder
 from ldm3d_torch.train.vq_trainer import VQTrainer
 from test_torch_encoder import _ncdhw, _ndhwc, _perturb, _stats, _volumes
 from test_torch_quantizers import recorded
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 # float32 on both sides, convolutions summed in other orders than XLA:
 # 1e-5 of the largest output (as test_torch_encoder.py).

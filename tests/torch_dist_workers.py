@@ -380,13 +380,35 @@ def widened(cfg, mesh=None, widths=None):
     return cfg
 
 
-def job_cli(spec, rank, n, port):
+def _run_port(directory, i, rank, port):
+    """The coordinator port of run `i` of a "runs" spec: the launcher's
+    for the first; then one that process 0 takes free right before its
+    run and hands to the others through a file in `directory` (a port
+    picked in advance could be taken meanwhile, by a gloo pair of an
+    earlier run)."""
+    from ldm3d_torch.parallel.distributed import free_port
+    if i == 0:
+        return int(port)
+    path = os.path.join(str(directory), f"cli_port{i}")
+    if rank == 0:
+        with open(path + ".tmp", "w") as f:
+            f.write(str(free_port()))
+        os.replace(path + ".tmp", path)
+    while not os.path.exists(path):
+        time.sleep(0.05)
+    with open(path) as f:
+        return int(f.read())
+
+
+def job_cli(spec, rank, n, port, directory):
     """The command line's main with `spec["argv"]`, this process joining
     the run through --coordinator as the CLI's own processes do, the
     preset's mesh replaced by `MeshConfig(**spec["mesh"])` (and its
     U-Net's widths by `spec["widths"]`, when given; with `spec["fail"]`
     = (rank, epoch), that rank fails at that epoch's end); returns what
-    it printed and the shapes of the meshes it made."""
+    it printed and the shapes of the meshes it made. A spec of "runs"
+    runs each of them in turn in these processes, each joining a group of
+    its own (`_run_port`), and returns their results in order."""
     import contextlib
     import io
 
@@ -395,6 +417,9 @@ def job_cli(spec, rank, n, port):
     from ldm3d_torch.core.config import MeshConfig
     from ldm3d_torch.parallel import mesh as pmesh
 
+    if "runs" in spec:
+        return [job_cli(run, rank, n, _run_port(directory, i, rank, port),
+                        directory) for i, run in enumerate(spec["runs"])]
     get_preset, make_mesh, shapes = presets.get_preset, pmesh.make_mesh, []
 
     def preset(name):
@@ -411,10 +436,13 @@ def job_cli(spec, rank, n, port):
 
     presets.get_preset, pmesh.make_mesh = preset, mesh
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        cli.main(spec["argv"] + [
-            "--coordinator", f"127.0.0.1:{port}", "--num_processes", str(n),
-            "--process_id", str(rank)])
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(spec["argv"] + [
+                "--coordinator", f"127.0.0.1:{port}", "--num_processes",
+                str(n), "--process_id", str(rank)])
+    finally:
+        presets.get_preset, pmesh.make_mesh = get_preset, make_mesh
     return dict(stdout=out.getvalue(), meshes=shapes)
 
 
@@ -532,7 +560,8 @@ def job_tp(spec):
 
 JOBS = {"halo": job_halo, "steps": job_steps, "spatial": job_spatial,
         "tp": job_tp}
-# jobs that join the process group themselves (rank, processes, port)
+# jobs that join the process group themselves (rank, processes, port,
+# directory)
 JOINING = {"cli": job_cli}
 
 
@@ -542,7 +571,7 @@ def main(argv) -> None:
     if job in JOINING:
         spec = torch.load(os.path.join(directory, f"{job}_in.pt"),
                           weights_only=False)
-        out = JOINING[job](spec, int(rank), int(n), port)
+        out = JOINING[job](spec, int(rank), int(n), port, directory)
         torch.save(out, os.path.join(directory, f"{job}_out{rank}.pt"))
         return
     from ldm3d_torch.parallel import distributed as pdist
