@@ -36,10 +36,11 @@
                                                  # bf16 phase (a)-(f)
     python3 chip_smoke.py --bf16-gate-faults     # device, build, and the
                                                  # bf16 phase's (g) step
-                                                 # over space and model
-                                                 # meshes, clean and with
-                                                 # faults planted: each
-                                                 # fault must fail its gate
+                                                 # over data, space and
+                                                 # model meshes, clean and
+                                                 # with faults planted:
+                                                 # each fault must fail its
+                                                 # gate
     python3 chip_smoke.py --s1-gate-faults       # device, build, and the
                                                  # spatial and tp phases'
                                                  # stage-1 step under its
@@ -103,13 +104,15 @@ not 0:
                 codebook launch; within 1e-5: generate decodes with the
                 deterministic algorithms), that decode's cost in both
                 dtypes, and the serve step's profile; (c) a guided DDIM
-                50 request; (d)
+                50 request, and a v-prediction DDIM 50 request through a
+                v twin of the weights and its repeat (within 1e-5),
+                beside float32's; (d)
                 three latent steps beside a float32 twin of the same
                 weights; (e) the stage-1 step with remat full and off
                 (codebook launches float32); (f) both vqgan_attn programs
                 (train_vq and train_gan time their float32 steps). (g),
                 a sharded bf16 latent step against one process, runs in
-                the spatial and tp workers
+                the ddp, spatial and tp workers
   8. encode     the full-width encoder + STE quantizer on the card against
                 the CPU, f32 with TF32 off
   9. train      main path 2: a seeded full-width DiffusionTrainer encodes two
@@ -137,7 +140,22 @@ not 0:
                 FID (four rows, both kernels); --test_dm --profile (DDIM 2),
                 whose Chrome trace must name the attention kernel;
                 from_checkpoint serves DDIM 20 at num 16 within 1e-5 of the
-                trainer's own generate
+                trainer's own generate; then the serve CLI as a user
+                starts it (python -m ldm3d_torch.serve --preset
+                conditional_dm3d --norm group --ckpt_dir <the run's>
+                --port 0; the GPU, bfloat16) in a process of its own:
+                the card's used memory grows as it starts, it answers
+                GET /healthz, one POST /generate per sampler at num 16
+                (DDPM T=500, guided DDIM 50, DPM++ 20, DPM++ SDE 50),
+                the guided one again (within 1e-5), a .nii.gz answer, a
+                refused request (400) and a good one after it (200),
+                each finite and of the right shape, with its status,
+                bytes, wall and vol/min; it has the CUDA driver and the
+                attention kernel's library mapped; the guided answer
+                within 1e-5 of the same request to a service built in
+                this process as the CLI builds it (600 bf16 attention
+                launches, counted), the HTTP front's cost; SIGINT stops
+                it with exit code 0
      quantizers  (after encode) each of the five quantizer kinds, one
                 training-mode forward and backward at 1,024 rows, K = 64,
                 on the card against the CPU with injected draws
@@ -169,7 +187,9 @@ not 0:
                 to its group's bound, BatchNorm statistics) and
                 bitwise equal across the processes; the step's time, the
                 gradients' all-reduce alone, the peak memory of each
-                process; then --train_dm --cache_latents from the command
+                process; (g), the latent step in bfloat16 (12 bf16
+                attention launches each) against a one-process bfloat16
+                step; then --train_dm --cache_latents from the command
                 line with --num_processes 2 at --lbs 4 (the cli phase's
                 global batch 8), one epoch and --resume_ckpt -1 to a
                 second: one checkpoint directory, process 0's epoch-1 loss
@@ -232,7 +252,8 @@ not 0:
 Sockets only on localhost, between the ddp, spatial and tp phases' (and
 --bf16-gate-faults' and --s1-gate-faults') two processes, which end (or
 are killed at DDP_TIMEOUT / SPATIAL_TIMEOUT / TP_TIMEOUT) before their
-phase does; one profiler
+phase does, and to the cli phase's serve CLI process, stopped by SIGINT
+(killed if anything fails) before the phase ends; one profiler
 trace, written in the cli phase's temporary directory; the threads are
 the CLI's data loader prefetchers, joined when their epoch ends, and the
 native reader's pool. Nothing is written but the builds under
@@ -252,10 +273,13 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
+import urllib.request
 import warnings
 from functools import partial
 from typing import Dict
@@ -271,6 +295,7 @@ from ldm3d_torch.cli import main as cli  # noqa: E402
 from ldm3d_torch.core.config import (QuantizerConfig,  # noqa: E402
                                      TrainConfig, flagship_cfg, replace)
 from ldm3d_torch.core.presets import get_preset  # noqa: E402
+from ldm3d_torch.data.nifti import load_nifti  # noqa: E402
 from ldm3d_torch.data.pipeline import (  # noqa: E402
     DeviceSyntheticLoader, train_val_split)
 from ldm3d_torch.models import quantizers, unet3d  # noqa: E402
@@ -418,6 +443,34 @@ CLI_RESUME_REL_TOL = 1e-6
 # The served request against the training trainer's own generate at the
 # same seed from the same EMA weights: the same computation twice.
 CLI_SERVE_REL_TOL = 1e-5
+# The serve CLI over HTTP on the run's checkpoint, as a user starts it:
+# `python -m ldm3d_torch.serve` in a process of its own, on the card (no
+# --platform) and in the service's bfloat16 (the serve CLI has no
+# --dtype, as the JAX one has none). One request per sampler at num 16
+# (the DDPM one the run's full T), the guided DDIM one again with its
+# seed, a NIfTI answer, a refused request (400) and one answered after
+# it (200). The guided DDIM answer is held to REPEAT_REL_TOL of its
+# repeat and of the same request to an in-process service built as the
+# CLI builds it (`serve.server_from_args`).
+HTTP_GUIDED = dict(num=16, context=1, sampler="ddim", sample_steps=50,
+                   guidance_scale=3.0, seed=42)
+HTTP_REQUESTS = [
+    ("ddpm", dict(num=16, context=1, sampler="ddpm", seed=41), 200),
+    ("ddim_guided", HTTP_GUIDED, 200),
+    ("dpmpp", dict(num=16, context=2, sampler="dpmpp", sample_steps=20,
+                   seed=43), 200),
+    ("dpmpp_sde", dict(num=16, context=3, sampler="dpmpp_sde",
+                       sample_steps=50, seed=44), 200),
+    ("ddim_guided_repeat", HTTP_GUIDED, 200),
+    ("nii", dict(num=1, context=0, sampler="dpmpp", sample_steps=20,
+                 seed=45, format="nii"), 200),
+    ("refused", dict(num=16, context=1, sampler="nope", seed=46), 400),
+    ("after_refused", dict(num=1, context=1, sampler="ddim",
+                           sample_steps=10, seed=47), 200),
+]
+HTTP_START_TIMEOUT = 300   # s: the process's start, the checkpoint read
+HTTP_REQUEST_TIMEOUT = 300
+HTTP_STOP_TIMEOUT = 60
 # The quantizers phase: each kind, one training-mode forward and backward
 # at [2, 8, 8, 8, 32] (1,024 rows) and K = 64 (3 stages for rnsvq), card
 # against CPU from the same buffers and injected draws. The card picks
@@ -516,13 +569,13 @@ BF16_GUIDED = dict(num=16, context=1, sampler="ddim", sample_steps=50,
 # 1e-3, about 15 times that.
 BF16_TRAIN_LOSS_RTOL = 1e-3
 BF16_TRAIN_STEPS = 3
-# (g) The spatial and tp phases' workers each take one more latent step at
-# global batch DDP_BATCH in bfloat16 over their mesh, held against a
-# one-process bfloat16 step of the same init and draws (TF32 off, cuDNN
+# (g) The ddp, spatial and tp phases' workers each take one more latent
+# step at global batch DDP_BATCH in bfloat16 over their mesh, held against
+# a one-process bfloat16 step of the same init and draws (TF32 off, cuDNN
 # deterministic on both). Both round bfloat16 activations, in other
-# orders (slab convolutions, other algorithms, the model group's float32
-# sum of partials), so the sharded step is judged against bfloat16, not
-# float64: the loss to BF16_S2_LOSS_RTOL relative, and the U-Net's
+# orders (half batches, slab convolutions, other algorithms, the model
+# group's float32 sum of partials), so the sharded step is judged
+# against bfloat16, not float64: the loss to BF16_S2_LOSS_RTOL relative, and the U-Net's
 # gradients (their L2 distance over the one-process norm) to
 # BF16_S2_GRAD_FACTOR times bfloat16's own rounding at this step, the
 # one-process bfloat16 step's distance from the one-process float32 step.
@@ -532,10 +585,13 @@ BF16_TRAIN_STEPS = 3
 BF16_S2_LOSS_RTOL, BF16_S2_GRAD_FACTOR = 5e-3, 2.0
 # --bf16-gate-faults: (g)'s step alone over each mesh, clean and with one
 # fault planted at run time in both workers; every fault must fail the
-# gate. tp.sum_partials is not on the latent step's path (only
+# gate. The data mesh's fault: the gradients not averaged over the data
+# group (each process steps on its own rows' gradient).
+# tp.sum_partials is not on the latent step's path (only
 # ConvTranspose3d sums partials), so the model mesh's fault is in the
 # gradient of a column-split conv's input.
-BF16_GATE_FAULTS = [("spatial", None), ("spatial", "drop_halo_grad"),
+BF16_GATE_FAULTS = [("ddp", None), ("ddp", "grads_unreduced"),
+                    ("spatial", None), ("spatial", "drop_halo_grad"),
                     ("spatial", "zero_halo"), ("tp", None),
                     ("tp", "column_grad_unsummed")]
 # --s1-gate-faults: the spatial and tp phases' stage-1 step alone over
@@ -2067,6 +2123,215 @@ def _log_rows(path: str) -> list:
                 for row in csv.DictReader(f)]
 
 
+def _card_processes() -> dict:
+    """What nvidia-smi shows of the card's compute processes: their
+    "pid, used memory" lines and the card's used memory, MiB. (On the
+    card's machine it lists each process as pid 1: it sees another PID
+    namespace than ours.)"""
+    def smi(query):
+        return subprocess.run(["nvidia-smi", query, "--format=csv,noheader"
+                               ",nounits"], capture_output=True, text=True,
+                              timeout=60).stdout.strip().splitlines()
+    return dict(compute_apps=smi("--query-compute-apps=pid,used_memory"),
+                memory_used_mib=int(smi("--query-gpu=memory.used")[0]))
+
+
+def _maps(pid: int, names) -> dict:
+    """Whether each of `names` is in a shared object that process `pid`
+    has mapped (/proc/<pid>/maps)."""
+    with open(f"/proc/{pid}/maps") as f:
+        text = f.read()
+    return {name: name in text for name in names}
+
+
+def _await_serving(proc, log_path: str, timeout: float) -> str:
+    """The URL the serve CLI prints once its socket is bound (read from
+    its log); raises if the process ends or `timeout` s pass first."""
+    deadline = time.monotonic() + timeout
+    while True:
+        with open(log_path) as f:
+            text = f.read()
+        found = re.search(r"^serving \S+ \(epoch \d+\) on (http://\S+)$",
+                          text, re.M)
+        if found:
+            return found.group(1)
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise RuntimeError(f"cli serve_cli: exit code {proc.returncode}, "
+                               f"no URL after {timeout} s:\n{text[-6000:]}")
+        time.sleep(0.2)
+
+
+_NO_PROXY = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def _http(url: str, body: dict = None) -> tuple:
+    """(status, payload, wall s) of POST `url` with `body` as JSON, or of
+    GET `url` without it; on localhost, whatever proxy the environment
+    names."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with _NO_PROXY.open(req, timeout=HTTP_REQUEST_TIMEOUT) as r:
+            code, payload = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, payload = e.code, e.read()
+    return code, payload, time.perf_counter() - t0
+
+
+def _volumes(req: dict, payload: bytes, tmp: str) -> np.ndarray:
+    """The volumes of a 200 answer, [num, H, W, D, 1]: the .npy payload,
+    or the one volume of a .nii.gz one."""
+    if req.get("format") != "nii":
+        return np.load(io.BytesIO(payload))
+    path = os.path.join(tmp, "answer.nii.gz")
+    with open(path, "wb") as f:
+        f.write(payload)
+    return load_nifti(path)[0][None, ..., None]
+
+
+def _serve_cli(argv: list, tmp: str, dev: str, size: int, card: str,
+               counts: dict) -> None:
+    """The serve CLI over HTTP (HTTP_REQUESTS) on a `--train_dm` run's
+    checkpoint: `python -m ldm3d_torch.serve` with `argv` as a process of
+    its own, on the card (the card's used memory grows as it starts; it
+    maps the CUDA driver and the attention kernel's library), GET
+    /healthz, each request's status, payload, wall time and volumes
+    (finite, of the right shape); the guided DDIM answer against its
+    repeat and against
+    the same request to an in-process service built as the CLI builds it
+    (counted into `counts`: 12 attention launches a step, every one
+    bfloat16, no codebook launch), and the HTTP front's cost; then SIGINT
+    must stop the process with exit code 0. The process is killed if
+    anything fails on the way."""
+    from ldm3d_torch import serve as serve_cli
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    log_path = os.path.join(tmp, "serve_cli.log")
+    command = [sys.executable, "-m", "ldm3d_torch.serve", *argv]
+    before = _card_processes() if dev == "cuda" else None
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(command, cwd=root, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)
+    try:
+        url = _await_serving(proc, log_path, HTTP_START_TIMEOUT)
+        start_s = time.perf_counter() - t0
+        after = _card_processes() if dev == "cuda" else None
+        code, payload, health_s = _http(url + "/healthz")
+        health = json.loads(payload)
+        # the server holds its weights on the card: the card's used memory
+        # grows (nvidia-smi cannot name its pid there)
+        ok = code == 200 and health.get("status") == "ok" and (
+            dev != "cuda"
+            or after["memory_used_mib"] > before["memory_used_mib"])
+        say("cli", step="serve_cli_start", command=command[1:], url=url,
+            start_s=start_s, pid=proc.pid, card_before=before,
+            card_serving=after, server_mib=None if after is None else
+            after["memory_used_mib"] - before["memory_used_mib"],
+            healthz_status=code, healthz=health, healthz_s=health_s, ok=ok,
+            card=card)
+        if not ok:
+            raise RuntimeError(f"cli serve_cli: compute processes {before} "
+                               f"then {after}, /healthz {code} {health}")
+        answers = {}
+        for name, req, want in HTTP_REQUESTS:
+            code, payload, wall = _http(url + "/generate", req)
+            line = dict(name=name, request=req, status=code,
+                        expected_status=want, payload_bytes=len(payload),
+                        wall_s=wall)
+            if code == 200:
+                vols = _volumes(req, payload, tmp)
+                num = 1 if req.get("format") == "nii" else req["num"]
+                finite = bool(np.isfinite(vols).all())
+                ok = code == want and finite and vols.shape == (
+                    num, size, size, size, 1)
+                line.update(shape=list(vols.shape), finite=finite,
+                            vol_per_min=60.0 * num / wall)
+                answers[name] = (vols, wall)
+            else:
+                error = json.loads(payload).get("error", "")
+                ok = code == want and "sampler" in error
+                line.update(error=error)
+            say("cli", step="serve_cli_request", **line, ok=ok, card=card)
+            if not ok:
+                raise RuntimeError(f"cli serve_cli {name}: {line}")
+        if dev == "cuda":
+            # the server's answers came from the card: it has the CUDA
+            # driver and the attention kernel's library mapped
+            mapped = _maps(proc.pid, ["libcuda.so", os.path.join(
+                "_build", attn.KERNEL + "_")])
+            say("cli", step="serve_cli_on_card", pid=proc.pid,
+                mapped=mapped, ok=all(mapped.values()), card=card)
+            if not all(mapped.values()):
+                raise RuntimeError(f"cli serve_cli: mapped {mapped}")
+
+        # the same guided request to a service in this process, built by
+        # the CLI's own code from the same arguments (its socket closed)
+        svc, server = serve_cli.server_from_args(argv)
+        server.server_close()
+        own, own_wall, got = _counted(counts, svc.generate, **HTTP_GUIDED)
+        by_dtype = dict(attn.launches_by_dtype)    # zeroed by _counted
+        # uncounted: the request again, warm, beside the HTTP repeat
+        _sync(dev)
+        t1 = time.perf_counter()
+        svc.generate(**HTTP_GUIDED)
+        _sync(dev)
+        warm_wall = time.perf_counter() - t1
+        counts[attn.KERNEL + ".bfloat16"] = counts.get(
+            attn.KERNEL + ".bfloat16", 0) + by_dtype["bfloat16"]
+        calls = attention_calls_per_step(svc.trainer.model.unet)
+        steps = HTTP_GUIDED["sample_steps"]
+        expect = {attn.KERNEL: calls * steps, cbq.KERNEL: 0}
+        (first, first_wall), (repeat, repeat_wall) = (
+            answers[k] for k in ("ddim_guided", "ddim_guided_repeat"))
+        rel_repeat = float(np.abs(repeat - first).max()
+                           / np.abs(first).max())
+        rel_own = float(np.abs(first - own).max() / np.abs(own).max())
+        dtype = svc.trainer.train_cfg.dtype
+        ok = (rel_repeat <= REPEAT_REL_TOL and rel_own <= REPEAT_REL_TOL
+              and got == expect and dtype == BF16
+              and by_dtype[BF16] == sum(by_dtype.values()) == calls * steps)
+        say("cli", step="serve_cli_vs_in_process", request=HTTP_GUIDED,
+            dtype=dtype, repeat_rel_err=rel_repeat,
+            in_process_rel_err=rel_own, tol=REPEAT_REL_TOL,
+            in_process_wall_s=dict(first=own_wall, repeat=warm_wall),
+            http_wall_s=dict(first=first_wall, repeat=repeat_wall),
+            http_front_s=dict(first=first_wall - own_wall,
+                              repeat=repeat_wall - warm_wall),
+            payload_bytes=int(first.nbytes), launches=got, expected=expect,
+            attention_launches_by_dtype=by_dtype, ok=ok, card=card)
+        del svc, own
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        if not ok:
+            raise RuntimeError(f"cli serve_cli: repeat {rel_repeat}, in "
+                               f"process {rel_own}, launches {got} "
+                               f"{by_dtype}, dtype {dtype}")
+
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        try:
+            code = proc.wait(timeout=HTTP_STOP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            code = None
+        stop_s = time.perf_counter() - t1
+        with open(log_path) as f:
+            text = f.read()
+        ok = code == 0 and "stopped" in text
+        say("cli", step="serve_cli_stop", signal="SIGINT", exit_code=code,
+            stop_s=stop_s, ok=ok, log=text[-3000:], card=card)
+        if not ok:
+            raise RuntimeError(f"cli serve_cli: SIGINT left exit code "
+                               f"{code}:\n{text[-6000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def phase_cli(card: str) -> dict:
     """Main path 5: the port's command line at full flagship width, in
     process, in a temporary directory removed at the end: the flagship
@@ -2329,6 +2594,14 @@ def phase_cli(card: str) -> dict:
         if rel > CLI_SERVE_REL_TOL or got4 != expect4 \
                 or not np.isfinite(served).all():
             raise RuntimeError(f"cli serve: rel_err {rel}, launches {got4}")
+        del svc, trainer, served, own
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        # --preset and --norm as trained: train_meta.json records the
+        # sampling invariants, not the stage-1's norm
+        _serve_cli(CLI_FLAGSHIP[:4] + ["--ckpt_dir", ckpt_dir, "--port", "0"]
+                   + ([] if dev == "cuda" else ["--platform", "cpu"]),
+                   tmp, dev, cfg.data.volume_size, card, counts)
         say("cli", launches=counts, peak_train=peak_train,
             peak_serve=peak_serve, card=card)
         return dict(counts=counts, train_log=train_log)
@@ -3468,10 +3741,10 @@ def _ddp_stage2(spec: dict, rank: int) -> tuple:
     (the comparison measures the data-parallel step, not TF32), cuDNN
     deterministic as the worker sets it. Returns this process's numbers,
     its trainer (the counted step's gradients) and the inputs."""
-    from ldm3d_torch.parallel.mesh import make_mesh, shard_batch
+    from ldm3d_torch.parallel.mesh import shard_batch
 
     dev, inp = spec["device"], _ddp_s2_inputs(spec)
-    mesh = make_mesh(cfg=None, batch_size=DDP_BATCH)
+    mesh = _ddp_mesh()
     tr = DiffusionTrainer(inp["cfg"], device=dev, train_cfg=inp["tc"],
                           mesh=mesh).init_random(SEED, "reach")
     inp["mesh"] = mesh
@@ -3664,9 +3937,15 @@ def _ddp_cli(spec: dict, rank: int) -> dict:
     return out
 
 
+def _ddp_mesh():
+    """The data 2 mesh of the ddp phase's stage-2 steps."""
+    from ldm3d_torch.parallel.mesh import make_mesh
+    return make_mesh(cfg=None, batch_size=DDP_BATCH)
+
+
 def _ddp_main_path(spec: dict, rank: int) -> dict:
-    """The ddp phase's steps (cuDNN deterministic), then stage 2's
-    timing."""
+    """The ddp phase's steps (cuDNN deterministic): stage 2 and its
+    timing, stage 1, then (g), stage 2 in bfloat16."""
     torch.backends.cudnn.deterministic = True
     s2, tr, inp = _ddp_stage2(spec, rank)
     _ddp_stage2_timing(spec, tr, inp, s2)
@@ -3674,8 +3953,9 @@ def _ddp_main_path(spec: dict, rank: int) -> dict:
     torch.cuda.empty_cache()
     s1 = _ddp_stage1(spec, rank)[0]
     torch.cuda.empty_cache()
+    bf = _s2_bf16(spec, rank, _ddp_mesh(), _whole_grads("ddp", None))
     torch.backends.cudnn.deterministic = False
-    return dict(stage2=s2, stage1=s1)
+    return dict(stage2=s2, stage1=s1, stage2_bf16=bf)
 
 
 def _ddp_check(spec: dict, rank: int) -> dict:
@@ -3697,7 +3977,7 @@ def _ddp_check(spec: dict, rank: int) -> dict:
 
 def ddp_worker(spec_path: str, rank: str) -> None:
     """One process of the ddp phase: joins the others, runs stage 2,
-    stage 1 and the command line (with --ddp-check: the check's steps
+    stage 1, (g) and the command line (with --ddp-check: the check's steps
     alone), and writes its numbers as JSON."""
     global SEED
     with open(spec_path) as f:
@@ -3728,6 +4008,7 @@ def phase_ddp(card: str, cli_row: dict, check: bool = False) -> dict:
     one card, joined over gloo on localhost ports: the flagship's latent
     step at global batch 8 (4 rows each) and its stage-1 at 128^3, global
     batch 4, each against the one-process step of a twin on process 0;
+    (g), the latent step in bfloat16, against a one-process bfloat16 step;
     then --train_dm --cache_latents from the command line in both, one
     epoch and a resume to a second, against the cli phase's one-process
     epoch. Each process zeroes its launch counters before each run of the
@@ -3894,11 +4175,16 @@ def _ddp_report(card, ranks, rank0_text, cli_row, cli_cfg, tmp,
         for g in gs:
             for k in counts:
                 counts[k] += g[k]
-    say("ddp", backend=backend, launches=counts, wall_s=wall_s,
-        ok=s2_ok and s1_ok and cli_ok and launches_ok, card=card)
-    if not (s2_ok and s1_ok and cli_ok and launches_ok):
+    bf_ok, bf_counts = _bf16_s2_report("ddp", ranks, card)
+    counts = {k: counts.get(k, 0) + bf_counts.get(k, 0)
+              for k in {**counts, **bf_counts}}
+    ok = s2_ok and s1_ok and cli_ok and launches_ok and bf_ok
+    say("ddp", backend=backend, launches=counts, wall_s=wall_s, ok=ok,
+        card=card)
+    if not ok:
         raise RuntimeError(f"ddp: stage2 {s2_ok}, stage1 {s1_ok}, cli "
-                           f"{cli_ok}, launches {got} against {want}")
+                           f"{cli_ok}, bf16 {bf_ok}, launches {got} against "
+                           f"{want}")
     return counts
 
 
@@ -4846,8 +5132,9 @@ def _tp_report(card, ranks, tmp, cli_cfg, wall_s) -> dict:
 
 def _whole_grads(kind: str, mesh):
     """A function of a module that gives its whole gradients on the CPU
-    over a `kind` ("spatial" or "tp") mesh: each process's own over depth
-    slabs, gathered over a model axis (a collective)."""
+    over a `kind` ("ddp", "spatial" or "tp") mesh: each process's own,
+    already reduced over the data axis or computed over depth slabs;
+    gathered over a model axis (a collective)."""
     if kind == "tp":
         return lambda unet: _tp_whole_grads(unet, mesh)
     return lambda unet: {n: p.grad.cpu() for n, p in unet.named_parameters()
@@ -4856,10 +5143,15 @@ def _whole_grads(kind: str, mesh):
 
 def _s2_bf16(spec: dict, rank: int, mesh, whole_grads) -> dict:
     """(g) of the bf16 phase: the flagship latent step at global batch
-    DDP_BATCH in bfloat16 over `mesh`, and on rank 0 a one-process
-    bfloat16 step of the same init and draws (TF32 off; the workers run
-    cuDNN deterministic): the losses and the U-Net's gradients, whole
-    (`whole_grads(unet)`, a collective under a model axis)."""
+    DDP_BATCH in bfloat16 over `mesh` (each process its rows of the batch
+    over a data axis, the whole batch otherwise), and on rank 0 a
+    one-process bfloat16 step of the same init and draws (TF32 off; the
+    workers run cuDNN deterministic): the losses and the U-Net's
+    gradients, whole (`whole_grads(unet)`, a collective under a model
+    axis)."""
+    from ldm3d_torch.parallel.mesh import shard_batch
+
+    t0 = time.perf_counter()
     dev, inp = spec["device"], _ddp_s2_inputs(spec)
     tc = replace(inp["tc"], dtype=BF16)
     x, c = inp["lat"].to(dev), inp["ctx"].to(dev)
@@ -4868,7 +5160,7 @@ def _s2_bf16(spec: dict, rank: int, mesh, whole_grads) -> dict:
     with _NoTF32():
         _sync(dev)
         _reset_launches()        # the main path's step starts here
-        m = tr.train_step_latents(x, c, **inp["on"])
+        m = tr.train_step_latents(*shard_batch(mesh, (x, c)), **inp["on"])
         _sync(dev)
         out = dict(loss=float(m["loss"]),
                    launches_by_dtype=dict(attn.launches_by_dtype),
@@ -4908,6 +5200,7 @@ def _s2_bf16(spec: dict, rank: int, mesh, whole_grads) -> dict:
     pdist.barrier()
     if dev == "cuda":
         torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -4927,7 +5220,8 @@ def _bf16_s2_report(phase: str, ranks, card: str):
         reference="one-process bfloat16 step", loss=ref["loss"],
         loss_1p=ref["loss_1p"], loss_rel_err=ref["loss_rel_err"],
         loss_tol=BF16_S2_LOSS_RTOL, grad_rel_err=ref["grad_rel_err"],
-        grad_tol=grad_tol, grad_worst=ref["grad_worst"],
+        grad_tol=grad_tol, grad_over_tol=ref["grad_rel_err"] / grad_tol,
+        wall_s=ref["wall_s"], grad_worst=ref["grad_worst"],
         one_process_bf16_vs_float32=ref["own_grad_rel_err"],
         sharded_bf16_vs_float32=ref["grad_rel_err_float32"],
         launches_by_dtype=[s["launches_by_dtype"] for s in steps],
@@ -4960,6 +5254,9 @@ def _plant_fault(fault: str) -> None:
         halo._exchange = zero_halos
     elif fault == "column_grad_unsummed":   # not summed over the group
         tp._Copy.backward = staticmethod(lambda ctx, grad: (grad, None))
+    elif fault == "grads_unreduced":    # each process keeps its own rows'
+        from ldm3d_torch.train import dm_trainer
+        dm_trainer.reduce_gradients = lambda *a, **kw: None
     else:
         raise ValueError(f"unknown fault {fault!r}")
 
@@ -4982,7 +5279,8 @@ def gate_worker(spec_path: str, rank: str) -> None:
                      platform="gpu" if dev == "cuda" else "cpu")
     try:
         torch.backends.cudnn.deterministic = True
-        mesh = _spatial_mesh() if spec["mesh"] == "spatial" else _tp_mesh()
+        mesh = {"ddp": _ddp_mesh, "spatial": _spatial_mesh,
+                "tp": _tp_mesh}[spec["mesh"]]()
         if spec["step"] == "stage2_bf16":
             out = {"stage2_bf16": _s2_bf16(
                 spec, rank, mesh, _whole_grads(spec["mesh"], mesh))}
@@ -5164,6 +5462,57 @@ def _bf16_serve(bf: DiffusionTrainer, card: str) -> tuple:
             cbq.KERNEL: 0}, walls[0]
 
 
+def _bf16_v_request(f32: DiffusionTrainer, bf: DiffusionTrainer,
+                    card: str) -> dict:
+    """(c) continued: V_REQUEST, a v-prediction DDIM 50 request, through
+    v-prediction twins of the same weights (`_v_twin`): in bfloat16 and
+    its seeded repeat (counted: every attention launch bfloat16, the
+    codebook kernel never), and in float32 beside it (uncounted), with
+    the bfloat16 answer's distance from the float32 one."""
+    per_step = attention_calls_per_step(bf.model.unet)
+    want = dict(float32=0, bfloat16=per_step * V_REQUEST["sample_steps"])
+    cfg = dataclasses.replace(bf.cfg, prediction_type="v")
+
+    def serve_v(svc) -> tuple:
+        """(volumes, attention launches by dtype, codebook launches)."""
+        before, codebook = dict(attn.launches_by_dtype), cbq.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vols = svc.generate(**V_REQUEST)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: attn.launches_by_dtype[k] - before[k] for k in before}
+        say("bf16", step="serve_v", dtype=svc.trainer.train_cfg.dtype,
+            request=V_REQUEST, prediction_type="v", wall_s=wall,
+            vol_per_min=60.0 * V_REQUEST["num"] / wall,
+            attention_launches_by_dtype=got,
+            codebook_launches=cbq.launches - codebook,
+            finite=bool(np.isfinite(vols).all()), std=float(vols.std()),
+            card=card)
+        return vols, got, cbq.launches - codebook
+
+    svc = GenerationService(cfg, _v_twin(bf), name="flagship-v")
+    runs = [serve_v(svc), serve_v(svc)]
+    del svc
+    torch.cuda.empty_cache()
+    svc = GenerationService(cfg, _v_twin(f32), name="flagship-v")
+    (a, _, _), (b, _, _), (c, _, _) = runs + [serve_v(svc)]
+    del svc
+    torch.cuda.empty_cache()
+    rel = float(np.abs(b - a).max() / np.abs(a).max())
+    vs32 = float(np.abs(a - c).max() / np.abs(c).max())
+    ok = rel <= REPEAT_REL_TOL and all(
+        np.isfinite(v).all() and got == want and codebook == 0
+        for v, got, codebook in runs)
+    say("bf16", step="serve_v", repeat_rel_err=rel, tol=REPEAT_REL_TOL,
+        bf16_vs_float32_rel=vs32, expected=want, ok=ok, card=card)
+    if not ok:
+        raise RuntimeError(f"bf16 serve_v: repeat rel_err {rel}, launches "
+                           f"{[r[1:] for r in runs]}")
+    n = 2 * want["bfloat16"]
+    return {attn.KERNEL: n, attn.KERNEL + ".bfloat16": n, cbq.KERNEL: 0}
+
+
 def _decode_cost(f32: DiffusionTrainer, bf: DiffusionTrainer,
                  walls: dict, card: str) -> None:
     """What the deterministic decode costs a served request: the decode of
@@ -5332,7 +5681,7 @@ def phase_bf16(card: str, attn_cases: Dict[str, dict],
     bfloat16 at the main path's shapes (where the kernel phase has not
     measured them), then (a) to (f) above, and after (b) the deterministic
     decode's cost against each dtype's served request (`f32_wall`, the
-    serve phase's, when it ran); (g) runs inside the spatial and tp
+    serve phase's, when it ran); (g) runs inside the ddp, spatial and tp
     phases. Returns the launch counts of its main-path pieces, each read
     right after it (the float32 twins' launches are not counted)."""
     t0 = time.perf_counter()
@@ -5350,6 +5699,7 @@ def phase_bf16(card: str, attn_cases: Dict[str, dict],
         next(bf.model.parameters()).dtype), card=card)
     _bf16_unet(f32, bf, card)
     counts, wall = _bf16_serve(bf, card)
+    v_counts = _bf16_v_request(f32, bf, card)
     _decode_cost(f32, bf, {F32: f32_wall, BF16: wall}, card)
     phase_serve_profile(bf, card, phase="bf16_serve_profile")
     del bf
@@ -5359,9 +5709,9 @@ def phase_bf16(card: str, attn_cases: Dict[str, dict],
     torch.cuda.empty_cache()
     stage1 = _bf16_stage1(card)
     gan = _bf16_gan(card)
-    total = {k: counts.get(k, 0) + train.get(k, 0) + stage1.get(k, 0)
-             + gan.get(k, 0) for k in (attn.KERNEL, attn.KERNEL
-                                        + ".bfloat16", cbq.KERNEL)}
+    total = {k: sum(c.get(k, 0) for c in (counts, v_counts, train, stage1,
+                                          gan))
+             for k in (attn.KERNEL, attn.KERNEL + ".bfloat16", cbq.KERNEL)}
     say("bf16", launches=total, wall_s=time.perf_counter() - t0, card=card)
     return total
 

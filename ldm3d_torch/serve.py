@@ -32,7 +32,7 @@ random weights (`from_random_init`), or by the caller over a trainer
 loaded with `convert.load_npz`'s state dicts.
 
 CLI (the GPU unless `--platform cpu`; adopts the run's train_meta.json
-for every flag not given):
+for every flag not given; SIGINT, ^C, stops it with exit code 0):
     python -m ldm3d_torch.serve --preset conditional_dm3d \
         --ckpt_dir ./checkpoints/conditional_dm3d_dm --port 8777
 """
@@ -303,12 +303,16 @@ def server_from_args(argv=None):
 
 
 def main(argv=None):
+    """Serve until interrupted (SIGINT, ^C): the socket is closed and the
+    process exits with 0."""
     svc, server = server_from_args(argv)
     host, port = server.server_address[:2]
     print(f"serving {svc.name} (epoch {svc.epoch}) on "
           f"http://{host}:{port}", flush=True)
     try:
         server.serve_forever()
+    except KeyboardInterrupt:
+        print("stopped", flush=True)
     finally:
         server.server_close()
 

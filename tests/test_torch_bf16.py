@@ -9,9 +9,12 @@ trainers do it from `TrainConfig()`). Three kinds of check:
   against the port module of the same path (forward hooks), for the
   U-Net, the VQ-VAE (encoder, quantizer, decoder), a VQ-GAN autoencoder
   with both critics, emavqvae and vqvae_legacy; the codebook search gets
-  float32 on every path.
+  float32 on every path; in the samplers, the denoiser's output, its
+  eps-space form and what the update receives against JAX's traced
+  program's, and every compute layer of the U-Net in bfloat16.
 - Values: single layers, each family's forward pass, a few sampler steps
-  and one train step of each trainer, port bfloat16 against JAX bfloat16.
+  (DDPM, guided DDIM and DPM++, DPM++ SDE, v-prediction DDIM) and one
+  train step of each trainer, port bfloat16 against JAX bfloat16.
 - The float32 path is the old one: the other `test_torch_*` files hold it
   at float32 tolerances.
 
@@ -39,20 +42,26 @@ import torch
 
 from __graft_entry__ import _flagship_cfg
 from ldm3d.core.config import TrainConfig as JTrainConfig
+from ldm3d.diffusion import ddpm as jddpm
+from ldm3d.diffusion.schedule import model_out_to_eps as j_to_eps
 from ldm3d.models.layers import Norm as JNorm
 from ldm3d.models.layers import conv3d_transpose as jconv3d_transpose
 from ldm3d.models.unet3d import UNet3D as JUNet3D
+from ldm3d.train import dm_trainer as jdm
 from ldm3d.train.dm_trainer import DiffusionTrainer as JTrainer
 from ldm3d.train.gan_trainer import GANTrainer as JGANTrainer
 from ldm3d.train.state import TrainState
 from ldm3d.train.vq_trainer import VQTrainer as JVQTrainer
 from ldm3d_torch.convert import convert_gan_state, convert_state, module_state
 from ldm3d_torch.core.config import TrainConfig, compute_dtype, flagship_cfg
+from ldm3d_torch.diffusion import ddpm as tddpm
+from ldm3d_torch.diffusion.schedule import model_out_to_eps as t_to_eps
 from ldm3d_torch.models import quantizers as tquant
 from ldm3d_torch.models.layers import (_COMPUTE, Conv3d, ConvTranspose3d,
                                        Dense, Embed, LayerNorm, Norm,
                                        set_compute_dtype)
 from ldm3d_torch.models.quantizers import Draws
+from ldm3d_torch.train import dm_trainer as tdm
 from ldm3d_torch.train.dm_trainer import DiffusionTrainer
 from ldm3d_torch.train.gan_trainer import GANTrainer
 from ldm3d_torch.train.vq_trainer import VQTrainer
@@ -427,8 +436,9 @@ def dm_state():
 
 def _dm_port(cfg, st, dtype, **train):
     tcfg = flagship_cfg(tiny=True)
-    tcfg = dataclasses.replace(tcfg, unet=dataclasses.replace(
-        tcfg.unet, cfg_dropout=cfg.unet.cfg_dropout))
+    tcfg = dataclasses.replace(tcfg, prediction_type=cfg.prediction_type,
+                               unet=dataclasses.replace(
+                                   tcfg.unet, cfg_dropout=cfg.unet.cfg_dropout))
     tt = DiffusionTrainer(tcfg, device="cpu",
                           train_cfg=TrainConfig(dtype=dtype, **train))
     tt.load_state_dicts(*convert_state(
@@ -443,25 +453,108 @@ def _dm_port(cfg, st, dtype, **train):
 # second JAX compile per case.
 
 
-@pytest.mark.parametrize("sampler,steps,guidance", [
-    ("ddpm", None, None), ("ddim", 3, 2.0)])
-def test_sampler_steps(dm_state, sampler, steps, guidance):
+SAMPLER_FNS = ("sample_latents", "sample_latents_ddim",
+               "sample_latents_dpmpp", "sample_latents_dpmpp_sde")
+
+
+def _record_sampler_dtypes(monkeypatch, trainer_mod, ddpm_mod, schedule_fn):
+    """The dtypes of one side's sampling (JAX's while its program traces,
+    the port's while it runs), by stage: "unet", the denoiser's output;
+    "eps", that output in eps-space (`model_out_to_eps`); "update", what
+    the sampler's update receives (after guidance). Patches the samplers
+    where the trainer module looks them up."""
+    seen = {}
+
+    def note(stage, a):
+        seen.setdefault(stage, set()).add(str(a.dtype).removeprefix(
+            "torch."))
+
+    def to_eps(sched, x_t, t, out, ptype):
+        note("unet", out)
+        eps = schedule_fn(sched, x_t, t, out, ptype)
+        note("eps", eps)
+        return eps
+    monkeypatch.setattr(trainer_mod, "model_out_to_eps", to_eps)
+    for name in SAMPLER_FNS:
+        mod = trainer_mod if hasattr(trainer_mod, name) else ddpm_mod
+        real = getattr(mod, name)
+
+        def sampler(sched, denoise_fn, *a, real=real, **kw):
+            def denoise(x, t):
+                eps = denoise_fn(x, t)
+                note("update", eps)
+                return eps
+            return real(sched, denoise, *a, **kw)
+        monkeypatch.setattr(mod, name, sampler)
+    return seen
+
+
+def _compute_layers(unet):
+    return {n: m for n, m in unet.named_modules() if isinstance(m, _COMPUTE)}
+
+
+def _compute_layer_dtypes(unet):
+    """Forward hooks on every compute layer of `unet`: the set of output
+    dtypes each gives, by name; returns the record and the hooks."""
+    seen = {}
+    handles = [m.register_forward_hook(
+        lambda mod, args, out, key=n: seen.setdefault(key, set()).add(
+            _first_leaf(out).dtype))
+        for n, m in _compute_layers(unet).items()]
+    return seen, handles
+
+
+@pytest.mark.parametrize("sampler,steps,guidance,eta,ptype", [
+    pytest.param("ddpm", None, None, 0.0, "eps", id="ddpm-None-None"),
+    pytest.param("ddim", 3, 2.0, 0.0, "eps", id="ddim-3-2.0"),
+    pytest.param("dpmpp", 3, 2.0, 0.0, "eps", id="dpmpp-3-2.0"),
+    pytest.param("dpmpp_sde", 3, None, 0.0, "eps", id="dpmpp_sde-3-None"),
+    pytest.param("ddim", 3, None, 0.5, "v", id="v-ddim-3-eta0.5")])
+def test_sampler_steps(dm_state, monkeypatch, sampler, steps, guidance, eta,
+                       ptype):
+    """A few sampler steps of JAX's compiled bfloat16 `generate_fn` and of
+    the port's bfloat16 `generate` from one state (v-prediction: the same
+    weights read as a v model on both sides) with JAX's draws injected:
+    the values by the file's rule, and the census: the dtypes of the
+    denoiser's output, of its eps-space form and of what the sampler's
+    update receives equal JAX's, and every compute layer of the U-Net
+    the port samples with computes in bfloat16."""
     cfg, st = dm_state
+    cfg = dataclasses.replace(cfg, prediction_type=ptype)
     key = jax.random.PRNGKey(5)
     tr = JTrainer(cfg, JTrainConfig(batch_size=1), conditional=True)
     fn = jax.jit(tr.generate_fn(SHAPE, decode=False, sampler=sampler,
-                                sample_steps=steps, guidance_scale=guidance))
-    ref = np.asarray(fn.lower(st, key, jnp.asarray(CTX)).compile(
-        compiler_options=FAST)(st, key, jnp.asarray(CTX)))
+                                sample_steps=steps, eta=eta,
+                                guidance_scale=guidance))
+    with monkeypatch.context() as m:
+        jax_dtypes = _record_sampler_dtypes(m, jdm, jddpm, j_to_eps)
+        program = fn.lower(st, key, jnp.asarray(CTX)).compile(
+            compiler_options=FAST)
+    ref = np.asarray(program(st, key, jnp.asarray(CTX)))
     x_t, noise = _jax_draws(key, sampler, steps, cfg.timesteps)
-    out = {}
-    for dtype in ("bfloat16", "float32"):
-        out[dtype] = _dm_port(cfg, st, dtype).generate(
+
+    def sample(tt):
+        return tt.generate(
             SHAPE, torch.from_numpy(CTX), init_noise=x_t, step_noise=noise,
-            sampler=sampler, sample_steps=steps, guidance_scale=guidance,
-            decode=False)
+            sampler=sampler, sample_steps=steps, eta=eta,
+            guidance_scale=guidance, decode=False)
+    out = {"float32": sample(_dm_port(cfg, st, "float32"))}
+    tt = _dm_port(cfg, st, "bfloat16")
+    layers, handles = _compute_layer_dtypes(tt.ema_unet)
+    try:
+        with monkeypatch.context() as m:
+            port_dtypes = _record_sampler_dtypes(m, tdm, tddpm, t_to_eps)
+            out["bfloat16"] = sample(tt)
+    finally:
+        for h in handles:
+            h.remove()
+    assert port_dtypes == jax_dtypes, (port_dtypes, jax_dtypes)
+    assert jax_dtypes["unet"] == {"bfloat16"}, jax_dtypes
+    assert layers.keys() == _compute_layers(tt.ema_unet).keys()
+    wrong = {k: v for k, v in layers.items() if v != {BF}}
+    assert not wrong, wrong
     assert out["bfloat16"].dtype == torch.float32 and ref.dtype == np.float32
-    _assert_net(out["bfloat16"], ref, out["float32"], sampler)
+    _assert_net(out["bfloat16"], ref, out["float32"], f"{ptype} {sampler}")
 
 
 def _group_errors(port_mu, ref_mu, port32_mu):

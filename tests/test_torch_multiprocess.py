@@ -76,6 +76,11 @@ LATENT_SHAPE = (B, 4, 4, 4, 8)
 # the single-device trainer tests' tolerances: metrics 1e-5 relative,
 # gradients 1e-4 of the largest of their (sub)tree
 REL_TOL, GRAD_RTOL = 1e-5, 1e-4
+# the same in bfloat16 (the JAX default dtype): both steps round bfloat16
+# activations, in other orders; tests/test_torch_spatial.py's bounds for
+# the space axis, the loss 5e-3 relative and the gradients' L2 distance
+# 5e-2 of their norm
+BF16_LOSS_RTOL, BF16_GRAD_RTOL = 5e-3, 5e-2
 
 
 def _nest(flat):
@@ -236,6 +241,19 @@ def _dm_jax(jm):
                                              drop=drop)), ref
 
 
+def _dm_bf16_case(dm):
+    """The diffusion case's step in bfloat16 (the JAX default dtype), and
+    the one-process bfloat16 step of the global batch it is held to."""
+    spec = dict(dm, train={**dm["train"], "dtype": "bfloat16"})
+    one = DiffusionTrainer(spec["cfg"], device="cpu",
+                           train_cfg=TrainConfig(**spec["train"]))
+    one.load_state_dicts(spec["state"], spec["ema"])
+    m = one.train_step_latents(spec["lat"], spec["ctx"], **spec["draws"])
+    return spec, dict(metrics={k: float(v) for k, v in m.items()},
+                      grads={n: p.grad for n, p in
+                             one.model.unet.named_parameters()})
+
+
 def _gan_one_process(cfg, train_kw, vol, mask, epoch):
     tr = GANTrainer(cfg, TrainConfig(**{"dtype": "float32", **train_kw}),
                     device="cpu",
@@ -279,6 +297,7 @@ def run(tmp_path_factory):
     spec, refs = {}, {}
     spec["vq_jax"], refs["vq_jax"] = _vq_jax(jm)
     spec["dm_jax"], refs["dm_jax"] = _dm_jax(jm)
+    spec["dm_bf16"], refs["dm_bf16"] = _dm_bf16_case(spec["dm_jax"])
 
     # NSVQ with dropout, draws from the trainer's generator
     _, tcfg = vq_cfgs("nsvq", 2, dropout=0.2)
@@ -444,6 +463,31 @@ def test_diffusion_step_matches_jax_on_a_two_device_mesh(run):
     for path, s in ref["stats"].items():
         np.testing.assert_allclose(stats[path], s, rtol=STATS_RTOL,
                                    atol=STATS_ATOL, err_msg=path)
+
+
+def test_bf16_diffusion_step_matches_one_process(run):
+    """The diffusion step in bfloat16 over the data axis against one
+    process's bfloat16 step of the global batch (both round bfloat16
+    activations; BatchNorm's moments and the gradients' mean are float32
+    sums over the group), at tests/test_torch_spatial.py's bounds for
+    the space axis: the loss to BF16_LOSS_RTOL relative, the gradients'
+    L2 distance to BF16_GRAD_RTOL of their norm. Both ranks end equal,
+    and the U-Net computed in bfloat16 on both."""
+    refs, ranks = run
+    ref, got = refs["dm_bf16"], ranks[0]["dm_bf16"]
+    for key in ("state", "ema", "grads"):
+        _equal_on_both_ranks(ranks, "dm_bf16", key)
+    assert [r["dm_bf16"]["unet_dtypes"] for r in ranks] \
+        == [["torch.bfloat16"]] * 2
+    assert ranks[0]["dm_jax"]["unet_dtypes"] == ["torch.float32"]
+    for k in ("loss", "noise_mse"):
+        np.testing.assert_allclose(got["metrics"][k], ref["metrics"][k],
+                                   rtol=BF16_LOSS_RTOL, err_msg=k)
+    num = sum(float((got["grads"][n] - g).double().square().sum())
+              for n, g in ref["grads"].items())
+    den = sum(float(g.double().square().sum())
+              for g in ref["grads"].values())
+    assert np.sqrt(num / den) <= BF16_GRAD_RTOL, np.sqrt(num / den)
 
 
 def _close_tree(got, ref, rtol, what):

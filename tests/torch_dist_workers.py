@@ -149,9 +149,14 @@ def job_steps(spec):
                                   mesh=mesh)
             tr.load_state_dicts(case["state"], case["ema"])
             lat, ctx = shard_batch(mesh, (case["lat"], case["ctx"]))
-            m = tr.train_step_latents(lat, ctx, **case["draws"])
             unet = tr.model.unet
+            dtypes = set()
+            hook = unet.register_forward_hook(
+                lambda mod, args, y: dtypes.add(str(y.dtype)))
+            m = tr.train_step_latents(lat, ctx, **case["draws"])
+            hook.remove()
             res = dict(metrics={k: float(v) for k, v in m.items()},
+                       unet_dtypes=sorted(dtypes), grads=_grads(unet),
                        state={k: t.clone() for k, t in
                               tr.model.state_dict().items()},
                        ema={k: t.clone() for k, t in
