@@ -47,6 +47,15 @@
                                                  # float64 gate, clean and
                                                  # with faults planted: each
                                                  # fault must fail by 2x
+    python3 chip_smoke.py --mesh-check           # device, build, and the
+                                                 # mesh phase's gated steps
+                                                 # with their gates,
+                                                 # printed, not judged
+    python3 chip_smoke.py --mesh-gate-faults     # device, build, and the
+                                                 # mesh phase's steps with
+                                                 # MESH_GATE_FAULTS planted
+                                                 # one at a time: each
+                                                 # fault must fail by 2x
     python3 chip_smoke.py --seed 1               # every phase from
                                                  # another seed
 
@@ -230,9 +239,32 @@ not 0:
                 same with --auto_resume 1 and process 1 failing at the
                 epoch's end (both recover and resume at epoch 0; the log
                 equals the other run's)
-     ddp, spatial and tp judge stage 2, spatial and tp stage 1 against a
-                float64 step on the card (F64_FACTOR; stage 1's float64
-                twin takes the codes the one-process float32 step chose)
+     mesh       main path 12: the JAX package's multi-axis meshes
+                (__graft_entry__.dryrun_multichip's data x space x model).
+                Launch A, four processes of this script (--mesh-worker)
+                on the one card: on data 2 x space 2 the flagship's
+                stage-1 at 128^3, global batch 4 (one codebook launch
+                each), and its latent step at global batch 8 (12
+                attention launches each; BatchNorm statistics and
+                gradients over the data x space plane), on data 1 x
+                space 4 its stage-1 at global batch 2 with remat full and
+                off (32-row slabs, two with a neighbour on each side; the
+                remat-off peak per process below 0.9 of one process's);
+                then one --train_vq epoch over the plane from the command
+                line (12 volumes: 2 steps, an eval batch, a montage, 4
+                codebook launches each), its checkpoint restored in one
+                process. Launch B, eight processes started with launch A
+                (each warms up on one tiny latent step and waits for A to
+                end): the latent step on data 2 x space 2 x model 2 (12
+                attention launches each), parameter + Adam bytes and peak
+                per process against one process's. Every step under the
+                float64 gate, its processes equal on what they hold;
+                step ms with the collectives timed by kind; then the two
+                kernels at the new per-process shapes
+     ddp, spatial, tp and mesh judge stage 2, spatial, tp and mesh stage
+                1 against a float64 step on the card (F64_FACTOR; stage
+                1's float64 twin takes the codes the one-process float32
+                step chose)
  14. train_gan  main path 7: the VQ-GAN. A warm and an adversarial step of
                 vqgan_attn at full width (R1 and the adaptive weight on,
                 32^3) on the card, f32 with TF32 off, against a float64
@@ -250,15 +282,17 @@ not 0:
  15. kernels    one JSON line with the whole run's kernel numbers
  16. last line  {"ok": true, "device": {...}}
 Sockets only on localhost, between the ddp, spatial and tp phases' (and
---bf16-gate-faults' and --s1-gate-faults') two processes, which end (or
-are killed at DDP_TIMEOUT / SPATIAL_TIMEOUT / TP_TIMEOUT) before their
-phase does, and to the cli phase's serve CLI process, stopped by SIGINT
-(killed if anything fails) before the phase ends; one profiler
+--bf16-gate-faults' and --s1-gate-faults') two processes and the mesh
+phase's four and eight, which end (or are killed at DDP_TIMEOUT /
+SPATIAL_TIMEOUT / TP_TIMEOUT / MESH_TIMEOUT) before their phase does,
+and to the cli phase's serve CLI process, stopped by SIGINT (killed if
+anything fails) before the phase ends; one profiler
 trace, written in the cli phase's temporary directory; the threads are
 the CLI's data loader prefetchers, joined when their epoch ends, and the
 native reader's pool. Nothing is written but the builds under
 ldm3d_torch/_build/ (the kernels and the native reader) and the cli,
-train_vq, ddp, spatial, tp and train_gan phases' temporary directories.
+train_vq, ddp, spatial, tp, mesh and train_gan phases' temporary
+directories.
 Imports nothing of JAX.
 """
 
@@ -723,6 +757,34 @@ F64_FACTOR = 2.0
 TP_PROCESSES = 2
 TP_S1_GRAD_RTOL = ((None, 1.5e-2),)
 TP_TIMEOUT = 480                  # seconds for the workers, all of them
+# Main path 12 (`mesh`): the JAX package's multi-axis meshes
+# (`__graft_entry__.dryrun_multichip`: data x space x model 2 x 2 x 2 on
+# eight devices, 2 x 2 on four) over processes of this script on the one
+# card (gloo, through the host). Launch A, four processes, makes the data
+# 2 x space 2 plane and the data 1 x space 4 line in that order: on the
+# plane the latent step at DDP_BATCH (BatchNorm statistics and gradients
+# over the plane's group) and stage 1 (TRAIN_VQ_SIZE^3, remat full) at
+# MESH_VQ_BATCH, then on the line stage 1 at SPATIAL_VQ_BATCH with remat
+# full and off (slabs of 32 rows at 128^3, two of them with a neighbour on
+# each side; the remat-off peak per process against one process's,
+# SPATIAL_MEMORY_RATIO); after the steps one --train_vq epoch from the
+# command line with the preset's mesh set to the plane, on
+# MESH_CLI_VOLUMES volumes at global batch MESH_VQ_BATCH, its checkpoint
+# restored in one process. Launch B, eight processes, the data 2 x space
+# 2 x model 2 cube: the latent step at DDP_BATCH, its parameter + Adam
+# bytes and peak per process against one process's. Every gated step
+# runs under the float64 gate (F64_FACTOR; SPATIAL_S2_GRAD_RTOL,
+# SPATIAL_S1_GRAD_RTOL), its one-process twin and float64 step on process
+# 0 after the sharded trainer is freed on every process (the gate
+# compares gradients kept on the host). --mesh-gate-faults plants
+# MESH_GATE_FAULTS one at a time (each launch A with that step alone):
+# each must fail its gate by S1_FAULT_MARGIN or more.
+MESH_PLANE, MESH_LINE, MESH_CUBE = (2, 2, 1), (1, 4, 1), (2, 2, 2)
+MESH_VQ_BATCH, MESH_CLI_VOLUMES = 4, 12
+MESH_TIMEOUT = 600                # seconds for one launch's workers
+MESH_GATE_FAULTS = [("plane_stage2", "grads_over_data_line"),
+                    ("plane_stage2", "bn_over_space_line"),
+                    ("line_stage1", "interior_right_halo_zero")]
 
 
 _T0 = time.perf_counter()
@@ -963,49 +1025,54 @@ def phase_codebook(card: str) -> Dict[str, dict]:
         ("tp_cli_f32", 4096, 1024, 256, torch.float32, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    results = {}
-    for name, n, k, d, dt, dup in cases:
-        x, cb = _codebook_case(gen, n, k, d, dt, dup)
-        idx = cbq.nearest_codebook_indices_cuda(x, cb)
-        torch.cuda.synchronize()
-        ref = cbq._nearest_indices_reference(x, cb)
-        # float64 distances of the values multiplied
-        dist = (cb.double() ** 2).sum(-1)[None, :] \
-            - 2.0 * x.double() @ cb.to(dt).double().T
-        rows = torch.arange(n, device="cuda")
-        gap = (dist[rows, idx.long()] - dist[rows, ref.long()]).abs()
-        err = float(gap.max())
-        differ = int((idx != ref).sum())
-        ok = err <= CB_DIST_TOL and idx.dtype == torch.int32 \
-            and idx.shape == (n,)
-        if dup:
-            ok = ok and bool((idx[:64] == 1).all())
-        c_sq = cb.float().square().sum(-1)
-        cb_t = cb.to(dt).T.contiguous()
-        kernel = partial(cbq.nearest_codebook_indices_cuda, x, cb)
-        plain = partial(cbq._nearest_indices_reference, x, cb)
+    return {case[0]: _codebook_timing(gen, card, *case) for case in cases}
 
-        def library():   # addmm + argmin on the precomputed ||c||^2
-            return torch.argmin(torch.addmm(c_sq.to(dt), x, cb_t, alpha=-2),
-                                dim=1)
-        ms, plain_ms, lib_ms = (graph_ms(kernel, 200), graph_ms(plain, 50),
-                                graph_ms(library, 200))
-        eager = dict(ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 50),
-                     library_ms=cuda_ms(library, 200))
-        bound = codebook_bound(n, k, d, dt)
-        say("kernel", kernel=cbq.KERNEL, case=name, shape=[n, k, d],
-            dtype=str(dt), indices_differ=differ, max_abs_err=err,
-            tol=CB_DIST_TOL, first_index_on_ties=dup or None, ok=ok, ms=ms,
-            plain_ms=plain_ms, library_ms=lib_ms, eager=eager, **bound,
-            card=card)
-        if not ok:
-            raise RuntimeError(f"codebook_nearest {name}: distance gap "
-                               f"{err} > {CB_DIST_TOL} or ties broken "
-                               "wrongly")
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, eager_ms=eager["ms"],
-                             **bound, shape=[n, k, d], dtype=str(dt))
-    return results
+
+def _codebook_timing(gen, card: str, name: str, n: int, k: int, d: int,
+                     dt, dup: bool) -> dict:
+    """One case of the codebook kernel against its plain version on seeded
+    inputs: its distance gap, device and eager ms, the plain version's,
+    addmm + argmin's, and the bound."""
+    x, cb = _codebook_case(gen, n, k, d, dt, dup)
+    idx = cbq.nearest_codebook_indices_cuda(x, cb)
+    torch.cuda.synchronize()
+    ref = cbq._nearest_indices_reference(x, cb)
+    # float64 distances of the values multiplied
+    dist = (cb.double() ** 2).sum(-1)[None, :] \
+        - 2.0 * x.double() @ cb.to(dt).double().T
+    rows = torch.arange(n, device="cuda")
+    gap = (dist[rows, idx.long()] - dist[rows, ref.long()]).abs()
+    err = float(gap.max())
+    differ = int((idx != ref).sum())
+    ok = err <= CB_DIST_TOL and idx.dtype == torch.int32 \
+        and idx.shape == (n,)
+    if dup:
+        ok = ok and bool((idx[:64] == 1).all())
+    c_sq = cb.float().square().sum(-1)
+    cb_t = cb.to(dt).T.contiguous()
+    kernel = partial(cbq.nearest_codebook_indices_cuda, x, cb)
+    plain = partial(cbq._nearest_indices_reference, x, cb)
+
+    def library():   # addmm + argmin on the precomputed ||c||^2
+        return torch.argmin(torch.addmm(c_sq.to(dt), x, cb_t, alpha=-2),
+                            dim=1)
+    ms, plain_ms, lib_ms = (graph_ms(kernel, 200), graph_ms(plain, 50),
+                            graph_ms(library, 200))
+    eager = dict(ms=cuda_ms(kernel, 200), plain_ms=cuda_ms(plain, 50),
+                 library_ms=cuda_ms(library, 200))
+    bound = codebook_bound(n, k, d, dt)
+    say("kernel", kernel=cbq.KERNEL, case=name, shape=[n, k, d],
+        dtype=str(dt), indices_differ=differ, max_abs_err=err,
+        tol=CB_DIST_TOL, first_index_on_ties=dup or None, ok=ok, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, eager=eager, **bound,
+        card=card)
+    if not ok:
+        raise RuntimeError(f"codebook_nearest {name}: distance gap "
+                           f"{err} > {CB_DIST_TOL} or ties broken "
+                           "wrongly")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, eager_ms=eager["ms"], **bound,
+                shape=[n, k, d], dtype=str(dt))
 
 
 # Odd shapes, untimed: each takes a path of the kernels' staging that the
@@ -3582,20 +3649,35 @@ def _s1_references(spec: dict, inp: dict, sharded, usage: torch.Tensor,
     of `sharded` (the sharded trainer's model or its whole gradients),
     the old comparison with the one-process twin (printed, not judged),
     the twin's loss, peak device memory and state bytes, and whether its
-    codebook usage equals `usage`, the sharded step's."""
+    codebook usage equals `usage`, the sharded step's. With a dict
+    spec["float64_steps"] the float64 step is kept there and taken once
+    for a batch and its codes (the mesh phase's remat-off step reuses the
+    remat-full one's: the same arithmetic)."""
     dev = spec["device"]
     twin, m1 = _ddp_s1_one_process(spec, inp), []
     with _NoTF32(), _recorded_codes() as codes:
         peak = _peak_step(dev, lambda: m1.append(twin.train_step(
             inp["vol"].to(dev), inp["mask"].to(dev))))
-    f64 = _float64_s1_twin(inp, dev)
-    t0 = time.perf_counter()
-    with _injected_codes(codes) as changed:
-        f64.train_step(inp["vol"], inp["mask"])
-        _sync(dev)
-    f64_s = time.perf_counter() - t0
+    cache = spec.get("float64_steps", {})
+    key = (SEED, spec["vq_size"], len(inp["vol"]))
+    cached = cache.get(key)
+    if cached is not None and len(cached[0]) == len(codes) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(codes, cached[0])):
+        # this process's float64 step of the same volumes and codes,
+        # taken at another remat setting (the same arithmetic)
+        _, f64_grads, f64_s, changed = cached
+    else:
+        f64 = _float64_s1_twin(inp, dev)
+        t0 = time.perf_counter()
+        with _injected_codes(codes) as changed:
+            f64.train_step(inp["vol"], inp["mask"])
+            _sync(dev)
+        f64_s = time.perf_counter() - t0
+        f64_grads = {n: g.cpu() for n, g in _grad_dict(f64.model).items()}
+        del f64
+        cache[key] = ([c.cpu() for c in codes], f64_grads, f64_s, changed)
     one = _grad_errors(sharded, twin.model, tols)
-    out = dict(gate=_f64_gate(sharded, twin.model, f64.model, tols),
+    out = dict(gate=_f64_gate(sharded, twin.model, f64_grads, tols),
                float64_step_s=f64_s, float64_codes_changed=sum(changed),
                code_rows=sum(int(c.numel()) for c in codes),
                vs_one_process={k: one[k] for k in (
@@ -3606,30 +3688,34 @@ def _s1_references(spec: dict, inp: dict, sharded, usage: torch.Tensor,
                                            twin.optimizer),
                usage_equal_1p=bool(torch.equal(
                    usage.cpu(), twin.model.quantizer.codebooks_used.cpu())))
-    del twin, f64
+    del twin
     if dev == "cuda":
         torch.cuda.empty_cache()
     return out
 
 
-def _s1_sharded_step(spec: dict, rank: int, mesh, kind: str) -> tuple:
-    """The flagship's stage-1 (TRAIN_VQ_FLAGS, remat as the preset has it)
-    at global batch SPATIAL_VQ_BATCH of TRAIN_VQ_SIZE^3 volumes over
-    `mesh`, counted: over a "spatial" mesh each rank its depth slab, over
-    a "tp" one every row with the wide kernels split (TF32 off, cuDNN
+def _s1_sharded_step(spec: dict, rank: int, mesh, kind: str,
+                     batch: int = SPATIAL_VQ_BATCH, remat=None) -> tuple:
+    """The flagship's stage-1 (TRAIN_VQ_FLAGS, remat as the preset has it
+    unless `remat` is given) at global batch `batch` of TRAIN_VQ_SIZE^3
+    volumes over `mesh`, counted: over a "spatial" mesh each rank its
+    depth slab, over a "tp" one every row with the wide kernels split,
+    over a "mesh" one (any axes) its rows and depth slab (TF32 off, cuDNN
     deterministic as the worker sets it); then on rank 0 its float64 gate
-    (`_s1_references`, the bounds `tols` of SPATIAL_S1_GRAD_RTOL /
-    TP_S1_GRAD_RTOL). Returns (this process's numbers, its trainer, the
-    inputs, its batch)."""
+    (`_s1_references`, the bounds `tols` of TP_S1_GRAD_RTOL over a "tp"
+    mesh, SPATIAL_S1_GRAD_RTOL otherwise). Returns (this process's
+    numbers, its trainer, the inputs, its batch)."""
     from ldm3d_torch.parallel.mesh import shard_batch
 
     dev = spec["device"]
-    tols = SPATIAL_S1_GRAD_RTOL if kind == "spatial" else TP_S1_GRAD_RTOL
-    inp = _ddp_s1_inputs(spec, SPATIAL_VQ_BATCH)
+    tols = TP_S1_GRAD_RTOL if kind == "tp" else SPATIAL_S1_GRAD_RTOL
+    inp = _ddp_s1_inputs(spec, batch)
+    if remat is not None:
+        inp["vcfg"] = replace(inp["vcfg"], remat=remat)
     tr = VQTrainer(inp["vcfg"], inp["tc"], device=dev,
                    mesh=mesh).init_random(SEED)
     batch = (inp["vol"], inp["mask"])
-    if kind == "spatial":
+    if kind != "tp":
         batch = shard_batch(mesh, batch, spatial_axis=3)
     v, mk = (t.to(dev) for t in batch)
     m, out = _tp_counted(dev, lambda: tr.train_step(v, mk))
@@ -3706,19 +3792,25 @@ def _ddp_s2_step(tr: DiffusionTrainer, inp: dict, dev: str) -> dict:
     return m
 
 
-def _s2_references(spec: dict, inp: dict, sharded) -> dict:
+def _s2_references(spec: dict, inp: dict, sharded, others=None) -> dict:
     """On process 0: the one-process float32 step of a twin (TF32 off,
     cuDNN as set) and the float64 step on the card, from the same init
     and draws; the gate of `sharded` (the sharded trainer's U-Net or its
-    whole gradients) and the one-process step's loss and BatchNorm
-    statistics, and the process's peak device memory in the twin's step.
-    Returns the numbers and the twin."""
+    whole gradients), and of each of `others` ({name: whole gradients of
+    another sharded step of the same inputs}) under "others", and the
+    one-process step's loss and BatchNorm statistics, and the process's
+    peak device memory in the twin's step. Returns the numbers and the
+    twin."""
     dev = spec["device"]
     twin = _ddp_s2_one_process(spec, inp)
+    held = _allocated(dev)
+    f64 = _float64_twin(twin, DDP_BATCH, dev)    # of the twin's init
+    held = _allocated(dev) - held
     m1 = []
-    peak = _peak_step(dev, lambda: m1.append(_ddp_s2_step(twin, inp, dev)))
+    # the twin's peak: the float64 twin's bytes, alive through it, apart
+    peak = _peak_step(dev, lambda: m1.append(
+        _ddp_s2_step(twin, inp, dev))) - held
     m1 = m1[0]
-    f64 = _float64_twin(_ddp_s2_one_process(spec, inp), DDP_BATCH, dev)
     t0 = time.perf_counter()
     with _float64_attention():
         f64.train_step_latents(inp["lat"].to(dev), inp["ctx"].to(dev),
@@ -3728,6 +3820,10 @@ def _s2_references(spec: dict, inp: dict, sharded) -> dict:
                              spec["s2_tols"]),
                float64_step_s=time.perf_counter() - t0,
                loss_1p=float(m1["loss"]), peak_bytes_1p=peak)
+    if others:
+        out["others"] = {name: _f64_gate(g, twin.model.unet, f64.model.unet,
+                                         spec["s2_tols"])
+                         for name, g in others.items()}
     del f64
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -3944,14 +4040,17 @@ def _ddp_mesh():
 
 
 def _ddp_main_path(spec: dict, rank: int) -> dict:
-    """The ddp phase's steps (cuDNN deterministic): stage 2 and its
-    timing, stage 1, then (g), stage 2 in bfloat16."""
+    """The ddp phase's steps (cuDNN deterministic): stage 1, stage 2 and
+    its timing, then (g), stage 2 in bfloat16. Stage 1 goes first: a
+    process's first training step pays for loading what every later one
+    uses, 12 s when it is the latent step and 1-4 s when it is stage 1
+    (PERF.md §6)."""
     torch.backends.cudnn.deterministic = True
+    s1 = _ddp_stage1(spec, rank)[0]
+    torch.cuda.empty_cache()
     s2, tr, inp = _ddp_stage2(spec, rank)
     _ddp_stage2_timing(spec, tr, inp, s2)
     del tr, inp
-    torch.cuda.empty_cache()
-    s1 = _ddp_stage1(spec, rank)[0]
     torch.cuda.empty_cache()
     bf = _s2_bf16(spec, rank, _ddp_mesh(), _whole_grads("ddp", None))
     torch.backends.cudnn.deterministic = False
@@ -3976,8 +4075,8 @@ def _ddp_check(spec: dict, rank: int) -> dict:
 
 
 def ddp_worker(spec_path: str, rank: str) -> None:
-    """One process of the ddp phase: joins the others, runs stage 2,
-    stage 1, (g) and the command line (with --ddp-check: the check's steps
+    """One process of the ddp phase: joins the others, runs stage 1,
+    stage 2, (g) and the command line (with --ddp-check: the check's steps
     alone), and writes its numbers as JSON."""
     global SEED
     with open(spec_path) as f:
@@ -4058,12 +4157,26 @@ def _run_workers(phase: str, spec_path: str, tmp: str, n: int,
     each writing its output to rank{r}.log and its numbers to rank{r}.json
     in `tmp`; killed past `timeout` seconds. Returns the numbers in rank
     order; raises (printing the logs) when a worker fails."""
+    return _wait_workers(_start_workers(phase, spec_path, tmp, n, timeout))
+
+
+def _start_workers(phase: str, spec_path: str, tmp: str, n: int,
+                   timeout: float) -> tuple:
+    """`_run_workers`' processes, started; `_wait_workers` waits for
+    them."""
     logs = [open(os.path.join(tmp, f"rank{r}.log"), "w") for r in range(n)]
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), f"--{phase}-worker",
          spec_path, str(r)], stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(n)]
-    deadline = time.monotonic() + timeout
+    return phase, tmp, n, timeout, procs, logs, time.monotonic() + timeout
+
+
+def _wait_workers(started: tuple) -> list:
+    """The numbers of `_start_workers`' processes in rank order, once all
+    have ended (killed past their deadline); raises (printing the logs)
+    when one failed."""
+    phase, tmp, n, timeout, procs, logs, deadline = started
     try:
         for p in procs:   # past the deadline: killed, exit code < 0
             p.wait(timeout=max(deadline - time.monotonic(), 1.0))
@@ -4237,17 +4350,20 @@ class _CollectiveTimer:
         dist.all_reduce = self.real
 
 
-def _spatial_timing(step, dev: str) -> dict:
+def _spatial_timing(step, dev: str, plain: bool = True) -> dict:
     """Uncounted: one step with the defaults (TF32 convolutions, cuDNN's
-    own algorithms) for its time, then one with every all-reduce timed."""
+    own algorithms) for its time, then one with every all-reduce timed;
+    without `plain` only the second, whose time is then the step's."""
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = False
     try:
-        _sync(dev)
-        t0 = time.perf_counter()
-        step()
-        _sync(dev)
-        step_ms = 1e3 * (time.perf_counter() - t0)
+        step_ms = None
+        if plain:
+            _sync(dev)
+            t0 = time.perf_counter()
+            step()
+            _sync(dev)
+            step_ms = 1e3 * (time.perf_counter() - t0)
         with _CollectiveTimer(dev) as timer:
             t0 = time.perf_counter()
             step()
@@ -4255,7 +4371,8 @@ def _spatial_timing(step, dev: str) -> dict:
             timed_ms = 1e3 * (time.perf_counter() - t0)
     finally:
         torch.backends.cudnn.deterministic = det
-    return dict(step_ms=step_ms, instrumented_step_ms=timed_ms,
+    return dict(step_ms=timed_ms if step_ms is None else step_ms,
+                instrumented_step_ms=timed_ms,
                 collective_ms=timer.ms, collective_calls=timer.calls,
                 collective_bytes=timer.bytes,
                 halo_share=timer.ms.get("halo", 0.0) / timed_ms,
@@ -4266,6 +4383,11 @@ def _spatial_mesh():
     from ldm3d_torch.core.config import MeshConfig
     from ldm3d_torch.parallel.mesh import make_mesh
     return make_mesh(MeshConfig(data=1, space=SPATIAL_PROCESSES))
+
+
+def _allocated(dev: str) -> int:
+    """The device's bytes allocated now (0 on the CPU)."""
+    return torch.cuda.memory_allocated() if dev == "cuda" else 0
 
 
 def _peak_step(dev: str, step) -> int:
@@ -4904,7 +5026,7 @@ def _tp_cli(spec: dict, rank: int) -> dict:
 
 def tp_worker(spec_path: str, rank: str) -> None:
     """One process of the tp phase: joins the other on a data 1 x model 2
-    mesh, runs stage 2 and stage 1 and the command line (with --tp-check:
+    mesh, runs stage 1 and stage 2 and the command line (with --tp-check:
     the steps alone), and writes its numbers as JSON."""
     global SEED
     with open(spec_path) as f:
@@ -4921,8 +5043,9 @@ def tp_worker(spec_path: str, rank: str) -> None:
         out["device"] = str(pdist.process_device())
         mesh = _tp_mesh()
         torch.backends.cudnn.deterministic = True
-        out["stage2"] = _tp_stage2(spec, rank, mesh)
+        # stage 1 first, as in the ddp phase (`_ddp_main_path`)
         out["stage1"] = _tp_stage1(spec, rank, mesh)
+        out["stage2"] = _tp_stage2(spec, rank, mesh)
         if not spec["check"]:
             out["stage2_bf16"] = _s2_bf16(spec, rank, mesh,
                                           _whole_grads("tp", mesh))
@@ -5130,12 +5253,551 @@ def _tp_report(card, ranks, tmp, cli_cfg, wall_s) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Main path 12: the multi-axis meshes
+# ---------------------------------------------------------------------------
+
+
+def _make_mesh(shape):
+    from ldm3d_torch.core.config import MeshConfig
+    from ldm3d_torch.parallel.mesh import make_mesh
+    return make_mesh(MeshConfig(*shape))
+
+
+def _device_digest(tensors) -> str:
+    """sha256 over checksums taken on the tensors' device: each tensor's
+    words (4-byte, or 2- and 1-byte for narrower types) summed in int64
+    (modulo 2^64), plainly and weighted by their position modulo 65521.
+    Tensors that differ give equal digests only by a checksum's
+    coincidence; `_digest` hashes every byte on the host instead, seconds
+    a gigabyte."""
+    import hashlib
+    sums = []
+    for t in tensors:
+        flat = t.detach().contiguous().view(-1)
+        size = flat.numel() * flat.element_size()
+        word = next(w for w in (torch.int32, torch.int16, torch.uint8)
+                    if size % torch.tensor([], dtype=w).element_size() == 0)
+        words = flat.view(torch.uint8).view(word).to(torch.int64)
+        weight = torch.arange(words.numel(), device=words.device) % 65521 + 1
+        sums.append(torch.stack([words.sum(), (words * weight).sum()]))
+    h = hashlib.sha256()
+    h.update(torch.stack(sums).cpu().numpy().tobytes() if sums else b"")
+    return h.hexdigest()
+
+
+def _gate_grads(model, mesh, rank: int):
+    """The whole gradients of `model` on the host for process 0's gate:
+    gathered over the model axis by process 0's model line alone (its
+    collective), None on every other process."""
+    from ldm3d_torch.parallel.mesh import DATA_AXIS, SPACE_AXIS
+    if mesh.coord(DATA_AXIS) or mesh.coord(SPACE_AXIS):
+        return None
+    grads = _tp_whole_grads(model, mesh)
+    return grads if rank == 0 else None
+
+
+def _mesh_stage2(spec: dict, rank: int, mesh) -> dict:
+    """The flagship's latent step at global batch DDP_BATCH over `mesh`
+    (each rank its rows; over 'space' the U-Net on its depth slab, over
+    'model' its shards of the wide kernels), the draws injected; its
+    timing; then, the sharded trainer freed on every rank, on rank 0 the
+    one-process twin and the float64 step of the float64 gate. With
+    spec["defer"] rank 0 keeps its gradients, statistics and loss in a
+    file for the next launch's rank 0 to judge beside its own (the same
+    references); with spec["judge"] it judges that file's step too."""
+    from ldm3d_torch.parallel import tp
+    from ldm3d_torch.parallel.mesh import MODEL_AXIS, shard_batch
+    dev, inp = spec["device"], _ddp_s2_inputs(spec)
+    parts, t0 = {}, time.perf_counter()
+    tr = DiffusionTrainer(inp["cfg"], device=dev, train_cfg=inp["tc"],
+                          mesh=mesh).init_random(SEED, "reach")
+    x, c = (t.to(dev) for t in shard_batch(mesh, (inp["lat"], inp["ctx"])))
+    parts["init"] = time.perf_counter() - t0
+    m, out = _tp_counted(dev, lambda: tr.train_step_latents(x, c,
+                                                            **inp["on"]))
+    parts["step"] = time.perf_counter() - t0 - sum(parts.values())
+    unet = tr.model.unet
+    out.update(loss=float(m["loss"]), noise_mse=float(m["noise_mse"]),
+               rows=x.shape[0],
+               attention_calls=attention_calls_per_step(unet),
+               sharded=len(tp.sharded_names(unet)),
+               model_index=mesh.coord(MODEL_AXIS),
+               state_bytes=_state_bytes(unet.parameters(), tr.optimizer),
+               # this process's own tensors: equal on every process of
+               # its model coordinate
+               params=_device_digest(tr.model.state_dict().values()),
+               ema=_device_digest(tr.ema_unet.state_dict().values()))
+    grads = _gate_grads(unet, mesh, rank)
+    stats = {n: b.to("cpu", copy=True) for n, b in unet.named_buffers()
+             if "running" in n}
+    parts["whole"] = time.perf_counter() - t0 - sum(parts.values())
+    if not spec["check"]:
+        out["timing"] = _spatial_timing(
+            lambda: tr.train_step_latents(x, c, **inp["on"]), dev,
+            plain=False)
+    parts["timing"] = time.perf_counter() - t0 - sum(parts.values())
+    del tr, unet
+    pdist.barrier()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    parts["barrier"] = time.perf_counter() - t0 - sum(parts.values())
+    out["parts_s"] = parts
+    deferred = os.path.join(spec["tmp"], "deferred_stage2.pt")
+    if rank == 0 and spec.get("defer"):
+        torch.save(dict(grads=grads, stats=stats, loss=out["loss"]),
+                   deferred)
+    elif rank == 0:
+        other = torch.load(deferred) if spec.get("judge") else None
+        ref, twin = _s2_references(
+            dict(spec, s2_tols=SPATIAL_S2_GRAD_RTOL), inp, grads,
+            others=None if other is None else {"deferred": other["grads"]})
+        ref_stats = dict(twin.model.unet.named_buffers())
+
+        def judged(loss, stats):
+            return dict(loss_1p=ref["loss_1p"],
+                        loss_rel_err=abs(loss - ref["loss_1p"])
+                        / abs(ref["loss_1p"]),
+                        stats_rel_err=max(
+                            [float((b.double() - ref_stats[n].double()
+                                    .cpu()).abs().max())
+                             / max(float(ref_stats[n].abs().max()), 1e-30)
+                             for n, b in stats.items()], default=0.0))
+        common = dict(float64_step_s=ref["float64_step_s"],
+                      peak_bytes_1p=ref["peak_bytes_1p"],
+                      state_bytes_1p=_state_bytes(
+                          twin.model.unet.parameters(), twin.optimizer))
+        out.update(**common, **judged(out["loss"], stats), gate=ref["gate"])
+        if other is not None:
+            out["deferred"] = dict(common, **judged(other["loss"],
+                                                    other["stats"]),
+                                   gate=ref["others"]["deferred"])
+        del twin, other
+    del grads
+    pdist.barrier()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    parts["references"] = time.perf_counter() - t0 - sum(parts.values())
+    return out
+
+
+def _mesh_stage1(spec: dict, rank: int, mesh, batch: int,
+                 remat=None) -> dict:
+    """The flagship's stage-1 at global batch `batch` over `mesh`, each
+    rank its rows and depth slab, under the float64 gate on rank 0
+    (`_s1_sharded_step`); its timing."""
+    dev = spec["device"]
+    t0 = time.perf_counter()
+    out, tr, _, (v, mk) = _s1_sharded_step(spec, rank, mesh, "mesh",
+                                           batch=batch, remat=remat)
+    out.update(slab=list(v.shape),
+               params=_device_digest(tr.model.state_dict().values()))
+    t1 = time.perf_counter()
+    if not spec["check"]:
+        out["timing"] = _spatial_timing(lambda: tr.train_step(v, mk), dev,
+                                        plain=False)
+    out["parts_s"] = dict(step_and_references=t1 - t0,
+                          timing=time.perf_counter() - t1)
+    del tr
+    pdist.barrier()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+# the steps of a mesh worker: (the mesh they run on, the step)
+MESH_STEPS = {
+    "plane_stage1": (MESH_PLANE, partial(_mesh_stage1, batch=MESH_VQ_BATCH)),
+    "plane_stage2": (MESH_PLANE, _mesh_stage2),
+    "line_stage1": (MESH_LINE, partial(_mesh_stage1,
+                                       batch=SPATIAL_VQ_BATCH)),
+    "line_stage1_remat_off": (MESH_LINE, partial(
+        _mesh_stage1, batch=SPATIAL_VQ_BATCH, remat=False)),
+    "cube_stage2": (MESH_CUBE, _mesh_stage2),
+}
+
+
+def _mesh_cli(spec: dict, rank: int) -> dict:
+    """One --train_vq epoch of the flagship's stage-1 from the command
+    line with the preset's mesh set to the data 2 x space 2 plane (each
+    process calls the CLI's main with --coordinator), counted."""
+    import ldm3d_torch.core.presets as presets
+    from ldm3d_torch.core.config import MeshConfig
+    tmp, dev = spec["tmp"], spec["device"]
+    n = spec["processes"]
+    argv = spec["vq_flags"] + [
+        "--cache_dir", os.path.join(tmp, "cache"), "--ckpt_dir",
+        os.path.join(tmp, "ckpt"), "--out_dir", os.path.join(tmp, "out"),
+        "--platform", "gpu" if dev == "cuda" else "cpu", "--train_vq",
+        "--synthetic", "--num_synthetic", str(MESH_CLI_VOLUMES),
+        "--volume_size", str(spec["vq_size"]), "--val_perc",
+        str(TRAIN_VQ_VAL), "--lbs", str(MESH_VQ_BATCH // n), "--epochs",
+        "1", "--image_log_freq", "1",
+        "--coordinator", f"127.0.0.1:{spec['cli_port']}",
+        "--num_processes", str(n), "--process_id", str(rank)]
+    mesh = MeshConfig(*MESH_PLANE)
+
+    def preset(name):
+        cfg = get_preset(name)
+        return replace(cfg, train=replace(cfg.train, mesh=mesh))
+    presets.get_preset = preset
+    try:
+        _sync(dev)
+        _reset_launches()        # the main path's run starts here
+        t0 = time.perf_counter()
+        cli.main(argv)
+        _sync(dev)
+    finally:
+        presets.get_preset = get_preset
+    return dict(wall_s=time.perf_counter() - t0, launches=_launches())
+
+
+def mesh_worker(spec_path: str, rank: str) -> None:
+    """One process of a launch of the mesh phase: joins the others, makes
+    the spec's meshes in order, plants the spec's fault (if any), runs
+    the spec's steps and then, with "cli", the command line, and writes
+    its numbers as JSON."""
+    global SEED
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, SEED = int(rank), spec["seed"]
+    dev, n = spec["device"], spec["processes"]
+    if dev == "cuda":
+        _build.load_all([attn.KERNEL, cbq.KERNEL])   # built by the parent
+    out, port = {}, spec["port"]
+    if spec.get("go"):
+        # started while the launch before runs: warm up, then wait for the
+        # file that says it has ended, which holds the coordinator's port
+        t0 = time.perf_counter()
+        _warm_up(dev)
+        out["warm_up_s"] = time.perf_counter() - t0
+        while not os.path.exists(spec["go"]):
+            time.sleep(0.05)
+        with open(spec["go"]) as f:
+            port = int(f.read())
+    pdist.initialize(f"127.0.0.1:{port}", n, rank,
+                     platform="gpu" if dev == "cuda" else "cpu")
+    try:
+        out["backend"] = pdist.collective_backend()
+        out["device"] = str(pdist.process_device())
+        meshes = {tuple(shape): _make_mesh(shape)
+                  for shape in spec["meshes"]}
+        spec["float64_steps"] = {}     # this process's, `_s1_references`
+        if spec["fault"]:
+            _plant_fault(spec["fault"], meshes[MESH_PLANE])
+        torch.backends.cudnn.deterministic = True
+        for step in spec["steps"]:
+            shape, run = MESH_STEPS[step]
+            t0 = time.perf_counter()
+            out[step] = run(spec, rank, meshes[shape])
+            out[step]["wall_s"] = time.perf_counter() - t0
+        torch.backends.cudnn.deterministic = False
+    finally:
+        pdist.shutdown()
+    if spec["cli"]:
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        out["cli"] = _mesh_cli(spec, rank)
+    with open(os.path.join(spec["logs"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _warm_up(dev: str) -> None:
+    """One latent step of the tiny flagship (`flagship_cfg(tiny=True)`)
+    in one process, TF32 off and cuDNN deterministic as the mesh steps
+    run: the libraries and code paths a first training step loads, loaded
+    before the mesh's first step (uncounted; a few MB)."""
+    if dev != "cuda":
+        return
+    torch.backends.cudnn.deterministic = True
+    cfg = flagship_cfg(tiny=True)
+    tr = DiffusionTrainer(cfg, device=dev, train_cfg=TrainConfig(
+        batch_size=2, ema_decay=0.999, dtype=F32)).init_random(SEED, "reach")
+    lat = torch.randn((2,) + (cfg.latent_size,) * 3
+                      + (cfg.latent_channels,), device=dev)
+    with _NoTF32():
+        tr.train_step_latents(lat, torch.tensor([0, 1], device=dev))
+        torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    _reset_launches()
+    del tr, lat
+    torch.cuda.empty_cache()
+
+
+def _mesh_start(tmp: str, n: int, steps, cli_run: bool, check: bool,
+                fault=None, **extra) -> tuple:
+    """`n` --mesh-worker processes running `steps` (and the command line
+    with `cli_run`; `extra` into their spec), started; their logs and
+    numbers in a directory of `tmp` of their own."""
+    ports = []
+    while len(ports) < 2:
+        port = pdist.free_port()
+        ports += [] if port in ports else [port]
+    meshes = []
+    for step in steps:
+        if MESH_STEPS[step][0] not in meshes:
+            meshes.append(MESH_STEPS[step][0])
+    if fault and MESH_PLANE not in meshes:
+        meshes.insert(0, MESH_PLANE)
+    logs = os.path.join(tmp, f"launch{n}")
+    os.makedirs(logs, exist_ok=True)
+    spec = dict(device=DDP_DEVICE, tiny=DDP_TINY, tmp=tmp, logs=logs,
+                port=ports[0], cli_port=ports[1], processes=n, meshes=meshes,
+                steps=steps, cli=cli_run, check=check, fault=fault,
+                vq_flags=TRAIN_VQ_FLAGS, vq_size=TRAIN_VQ_SIZE, seed=SEED,
+                **extra)
+    path = os.path.join(logs, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    return _start_workers("mesh", path, logs, n, MESH_TIMEOUT)
+
+
+def phase_mesh(card: str, check: bool = False) -> dict:
+    """Main path 12: the JAX package's multi-axis meshes. Launch A, four
+    processes of this script on the one card: on data 2 x space 2 the
+    flagship's stage-1 at 128^3 (global batch 4) and its latent step
+    (global batch 8), on data 1 x space 4 its stage-1 (global batch 2)
+    with remat full and off, each under the float64 gate, then one
+    --train_vq epoch from the command line over the plane, its checkpoint
+    restored in one process; launch B, eight processes: the latent step
+    on data 2 x space 2 x model 2 under the gate, its bytes and peak per
+    process. Launch B's processes start with launch A's, warm up and wait
+    for it to end (`mesh_worker`); its rank 0 judges the plane's latent
+    step beside the cube's (the same references). Each process zeroes
+    its launch counters before each run of the main path and reads them
+    after; the phase adds every process's. Then the kernels at the new
+    per-process shapes. With `check` (--mesh-check) only the gated steps
+    run, and their distances from float64 are printed, not judged."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ldm3d_mesh_")
+    torch.cuda.empty_cache()
+    steps_a = ["plane_stage1", "plane_stage2", "line_stage1",
+               "line_stage1_remat_off"]
+    go = os.path.join(tmp, "go")
+    started_b = _mesh_start(tmp, 8, ["cube_stage2"], False, check,
+                            judge=True, go=go)
+    try:
+        ranks_a = _wait_workers(_mesh_start(tmp, 4, steps_a, not check,
+                                            check, defer=True))
+        wall_a = time.perf_counter() - t_phase
+        with open(go + ".tmp", "w") as f:
+            f.write(str(pdist.free_port()))
+        os.replace(go + ".tmp", go)
+        t0 = time.perf_counter()
+        ranks_b = _wait_workers(started_b)
+        wall_b = time.perf_counter() - t0
+        ranks_a[0]["plane_stage2"].update(
+            ranks_b[0]["cube_stage2"].pop("deferred"))
+        if check:
+            for ranks, steps in ((ranks_a, steps_a),
+                                 (ranks_b, ["cube_stage2"])):
+                for step in steps:
+                    say("mesh_check", part=step, seed=SEED,
+                        result=ranks[0][step], card=card)
+            return {}
+        if DDP_DEVICE == "cuda":
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+            _attention_case(gen, card, "mesh_f32", 4, 32, 64, 512,
+                            torch.float32)
+            _codebook_timing(gen, card, "mesh_plane_f32", 512, 1024, 256,
+                             torch.float32, False)
+            _codebook_timing(gen, card, "mesh_line_f32", 256, 1024, 256,
+                             torch.float32, False)
+        return _mesh_report(card, ranks_a, ranks_b, tmp, dict(
+            launch_a=wall_a, launch_b_after_a=wall_b,
+            launch_b_warm_up=[r["warm_up_s"] for r in ranks_b],
+            phase=time.perf_counter() - t_phase))
+    finally:
+        for p in started_b[4]:      # launch B's processes, if A failed
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in started_b[5]:
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _mesh_restored(tmp: str) -> bool:
+    """The plane's --train_vq checkpoint restores into a one-process
+    trainer: one process's keys and shapes, every tensor finite."""
+    cfg = cli.apply_overrides(get_preset(TRAIN_VQ_FLAGS[1]),
+                              cli.build_parser().parse_args(TRAIN_VQ_FLAGS))
+    path = os.path.join(tmp, "ckpt", cfg.name + "_vq")
+    state, _ = CheckpointManager(path).restore(1)
+    one = VQTrainer(cfg.vqvae, replace(cfg.train, dtype=F32),
+                    device=DDP_DEVICE)
+    want = {k: t.shape for k, t in one.model.state_dict().items()}
+    one.load_state_dict(state)
+    got = one.model.state_dict()
+    ok = ({k: t.shape for k, t in got.items()} == want
+          and all(bool(torch.isfinite(t).all()) for t in got.values()
+                  if t.is_floating_point()))
+    del one
+    return ok
+
+
+def _mesh_report(card, ranks_a, ranks_b, tmp, wall_s) -> dict:
+    """The mesh phase's checks and lines; returns every process's launch
+    counts."""
+    on_card = DDP_DEVICE == "cuda"
+    vq_cfg = cli.apply_overrides(get_preset(TRAIN_VQ_FLAGS[1]),
+                                 cli.build_parser().parse_args(
+                                     TRAIN_VQ_FLAGS))
+    vtr, vva = train_val_split(MESH_CLI_VOLUMES, TRAIN_VQ_VAL,
+                               vq_cfg.train.seed)
+    steps = len(vtr) // MESH_VQ_BATCH
+    val_batches = len(vva) // MESH_VQ_BATCH
+    calls = ranks_a[0]["plane_stage2"]["attention_calls"]
+    stage2 = {attn.KERNEL: calls, cbq.KERNEL: 0}
+    stage1 = {attn.KERNEL: 0, cbq.KERNEL: 1}
+    want = {"plane_stage2": stage2, "plane_stage1": stage1,
+            "line_stage1": stage1, "line_stage1_remat_off": stage1,
+            # a launch per train step, eval batch and montage
+            "cli": {attn.KERNEL: 0, cbq.KERNEL: steps + val_batches + 1},
+            "cube_stage2": stage2}
+    if not on_card:   # the plain versions run on the CPU: no launches
+        want = {k: {attn.KERNEL: 0, cbq.KERNEL: 0} for k in want}
+    ranks_of = {k: ranks_b if k == "cube_stage2" else ranks_a for k in want}
+    got = {k: [r[k]["launches"] for r in ranks_of[k]] for k in want}
+    launches_ok = all(g == want[k] for k, gs in got.items() for g in gs)
+    backend = sorted({r["backend"] for r in ranks_a + ranks_b})
+    names = {MESH_PLANE: "data 2 x space 2", MESH_LINE: "data 1 x space 4",
+             MESH_CUBE: "data 2 x space 2 x model 2"}
+
+    def share(t):
+        return (sum(t["collective_ms"].values())
+                / t["instrumented_step_ms"])
+    oks = {}
+    for step in ("plane_stage2", "cube_stage2"):
+        rs = [r[step] for r in ranks_of[step]]
+        ref = rs[0]
+        # every process against the first of its model coordinate (the
+        # processes that hold the same tensors)
+        first = {}
+        for r in rs:
+            first.setdefault(r["model_index"], r)
+        equal = all(r[k] == first[r["model_index"]][k] for r in rs
+                    for k in ("params", "ema", "loss", "noise_mse"))
+        ratio = max(r["state_bytes"] for r in rs) / ref["state_bytes_1p"]
+        oks[step] = (equal and ref["gate"]["ok"]
+                     and ref["loss_rel_err"] <= DDP_LOSS_RTOL
+                     and ref["stats_rel_err"] <= DDP_LOSS_RTOL
+                     and (step != "cube_stage2"
+                          or not on_card or (ref["sharded"] > 0
+                                             and ratio < 1.0)))
+        say("mesh", step=step, mesh=names[MESH_STEPS[step][0]],
+            processes=len(rs), backend=backend, batch=DDP_BATCH,
+            rows_per_process=ref["rows"], sharded_tensors=ref["sharded"],
+            loss=ref["loss"], loss_1p=ref["loss_1p"],
+            loss_rel_err=ref["loss_rel_err"], loss_tol=DDP_LOSS_RTOL,
+            grad_gate=ref["gate"], float64_step_s=ref["float64_step_s"],
+            seed=SEED, stats_rel_err=ref["stats_rel_err"],
+            stats_tol=DDP_LOSS_RTOL, ranks_bitwise_equal=equal,
+            first_step_ms=[r["first_step_ms"] for r in rs],
+            step_ms=[r["timing"]["step_ms"] for r in rs],
+            collective_share=[share(r["timing"]) for r in rs],
+            timing=[r["timing"] for r in rs],
+            state_bytes=[r["state_bytes"] for r in rs],
+            state_bytes_one_process=ref["state_bytes_1p"],
+            state_bytes_ratio=ratio,
+            peak_bytes=[r["peak_bytes"] for r in rs],
+            peak_bytes_one_process=ref["peak_bytes_1p"],
+            peak_ratio=(max(r["peak_bytes"] for r in rs)
+                        / ref["peak_bytes_1p"]) if on_card else None,
+            wall_s=ref["wall_s"], parts_s=ref["parts_s"],
+            launches=got[step], expected=want[step], ok=oks[step],
+            card=card)
+    for step in ("plane_stage1", "line_stage1", "line_stage1_remat_off"):
+        rs = [r[step] for r in ranks_a]
+        ref = rs[0]
+        equal = all(r[k] == ref[k] for r in rs
+                    for k in ("usage", "codebook", "params", "loss"))
+        peak = max(r["peak_bytes"] for r in rs)
+        ratio = peak / ref["twin_peak_bytes"] if on_card else None
+        memory_ok = (step != "line_stage1_remat_off" or not on_card
+                     or ratio < SPATIAL_MEMORY_RATIO)
+        oks[step] = (equal and ref["gate"]["ok"] and memory_ok
+                     and ref["loss_rel_err"] <= DDP_LOSS_RTOL
+                     and ref["usage_equal_1p"])
+        say("mesh", step=step, mesh=names[MESH_STEPS[step][0]],
+            processes=len(rs), batch=(MESH_VQ_BATCH if step.startswith(
+                "plane") else SPATIAL_VQ_BATCH), volume=TRAIN_VQ_SIZE,
+            slab=ref["slab"], remat=ref["remat"], loss=ref["loss"],
+            loss_1p=ref["loss_1p"], loss_rel_err=ref["loss_rel_err"],
+            loss_tol=DDP_LOSS_RTOL, **_s1_gate_fields(ref),
+            ranks_bitwise_equal=equal,
+            first_step_ms=[r["first_step_ms"] for r in rs],
+            step_ms=[r["timing"]["step_ms"] for r in rs],
+            collective_share=[share(r["timing"]) for r in rs],
+            timing=[r["timing"] for r in rs],
+            peak_bytes=[r["peak_bytes"] for r in rs],
+            peak_bytes_one_process=ref["twin_peak_bytes"],
+            peak_ratio=ratio, peak_ratio_tol=(
+                SPATIAL_MEMORY_RATIO if step == "line_stage1_remat_off"
+                else None),
+            wall_s=ref["wall_s"], parts_s=ref["parts_s"],
+            launches=got[step], expected=want[step], ok=oks[step],
+            card=card)
+    ckpt = os.path.join(tmp, "ckpt")
+    dirs = sorted(os.listdir(ckpt))
+    log = _log_rows(os.path.join(ckpt, dirs[0], "training.log")) \
+        if len(dirs) == 1 else []
+    kept = CheckpointManager(os.path.join(ckpt, dirs[0])).all_epochs() \
+        if len(dirs) == 1 else []
+    restored = len(dirs) == 1 and _mesh_restored(tmp)
+    oks["cli"] = (kept == [1] and len(log) == 1 and restored
+                  and all(np.isfinite(list(row.values())).all()
+                          for row in log))
+    say("mesh", step="cli", flags=TRAIN_VQ_FLAGS,
+        mesh=dict(zip(("data", "space", "model"), MESH_PLANE)),
+        lbs=MESH_VQ_BATCH // len(ranks_a), volumes=MESH_CLI_VOLUMES,
+        steps=steps, val_batches=val_batches, checkpoint_dirs=dirs,
+        checkpoints=kept, restored_in_one_process=restored, log=log,
+        wall_s=[r["cli"]["wall_s"] for r in ranks_a], launches=got["cli"],
+        expected=want["cli"], ok=oks["cli"], card=card)
+    counts = {attn.KERNEL: 0, cbq.KERNEL: 0}
+    for gs in got.values():
+        for g in gs:
+            for k in counts:
+                counts[k] += g[k]
+    ok = all(oks.values()) and launches_ok
+    say("mesh", backend=backend, launches=counts, wall_s=wall_s,
+        steps_ok=oks, launches_ok=launches_ok, ok=ok, card=card)
+    if not ok:
+        raise RuntimeError(f"mesh: {oks}, launches {got} against {want}")
+    return counts
+
+
+def phase_mesh_gate_faults(card: str) -> None:
+    """--mesh-gate-faults: each of MESH_GATE_FAULTS planted in launch A's
+    four processes, its step alone under the float64 gate; each must fail
+    the gate by S1_FAULT_MARGIN or more."""
+    wrong = []
+    for step, fault in MESH_GATE_FAULTS:
+        tmp = tempfile.mkdtemp(prefix="ldm3d_mesh_gate_")
+        try:
+            ranks = _wait_workers(_mesh_start(tmp, 4, [step], False, True,
+                                              fault))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        gate = ranks[0][step]["gate"]
+        margin = _gate_margin(gate)
+        ok = margin >= S1_FAULT_MARGIN
+        say("mesh_gate_faults", step=step, fault=fault,
+            gate_passed=gate["ok"], fails_by=margin,
+            margin_tol=S1_FAULT_MARGIN, gate=gate, ok=ok, card=card)
+        if not ok:
+            wrong.append((step, fault))
+    if wrong:
+        raise RuntimeError(f"mesh_gate_faults: wrong verdicts for {wrong}")
+
+
 def _whole_grads(kind: str, mesh):
     """A function of a module that gives its whole gradients on the CPU
-    over a `kind` ("ddp", "spatial" or "tp") mesh: each process's own,
-    already reduced over the data axis or computed over depth slabs;
+    over a `kind` ("ddp", "spatial", "tp" or "mesh") mesh: each process's
+    own, already reduced over the data axis or computed over depth slabs;
     gathered over a model axis (a collective)."""
-    if kind == "tp":
+    if kind in ("tp", "mesh"):
         return lambda unet: _tp_whole_grads(unet, mesh)
     return lambda unet: {n: p.grad.cpu() for n, p in unet.named_parameters()
                          if p.grad is not None}
@@ -5230,10 +5892,13 @@ def _bf16_s2_report(phase: str, ranks, card: str):
     return ok, {attn.KERNEL: n, attn.KERNEL + ".bfloat16": n}
 
 
-def _plant_fault(fault: str) -> None:
+def _plant_fault(fault: str, mesh=None) -> None:
     """Break this process's sharding on purpose (--bf16-gate-faults,
-    --s1-gate-faults)."""
-    from ldm3d_torch.parallel import halo, tp
+    --s1-gate-faults, --mesh-gate-faults; `mesh` the plane of the mesh
+    phase's faults)."""
+    from ldm3d_torch.models import layers
+    from ldm3d_torch.parallel import halo, spatial, tp
+    from ldm3d_torch.train import dm_trainer, vq_trainer
     if fault == "drop_halo_grad":       # the halos' gradients not sent back
         halo._return_halo_grads = lambda *a, **kw: None
     elif fault == "drop_halo_grad_32":  # the same, at 32-row slabs only
@@ -5255,8 +5920,30 @@ def _plant_fault(fault: str) -> None:
     elif fault == "column_grad_unsummed":   # not summed over the group
         tp._Copy.backward = staticmethod(lambda ctx, grad: (grad, None))
     elif fault == "grads_unreduced":    # each process keeps its own rows'
-        from ldm3d_torch.train import dm_trainer
         dm_trainer.reduce_gradients = lambda *a, **kw: None
+    elif fault == "grads_over_data_line":   # not over the whole plane
+        def over_data(params, group, **kw):
+            pdist.reduce_gradients(params, mesh.group("data"), **kw)
+        dm_trainer.reduce_gradients = over_data
+        vq_trainer.reduce_gradients = over_data
+    elif fault == "bn_over_space_line":     # BatchNorm's over a slab line
+        moments = layers._global_var_mean
+
+        def over_space(x, dims, group):
+            line = spatial.sharded()
+            return moments(x, dims, group if line is None
+                           else line.group("space"))
+        layers._global_var_mean = over_space
+    elif fault == "interior_right_halo_zero":   # at space 4 and more
+        exchange = halo._exchange
+
+        def zero_right(x, left, right, dim, reflect, index, count, group):
+            lo, hi = exchange(x, left, right, dim, reflect, index, count,
+                              group)
+            if 0 < index < count - 1:
+                hi = torch.zeros_like(hi)
+            return lo, hi
+        halo._exchange = zero_right
     else:
         raise ValueError(f"unknown fault {fault!r}")
 
@@ -5779,6 +6466,14 @@ def main() -> None:
         phase_gate_faults(card, "stage1", S1_GATE_FAULTS)
         say("done", wall_s=time.perf_counter() - t_start, card=card)
         return
+    if "--mesh-check" in sys.argv[1:]:
+        phase_mesh(card, check=True)
+        say("done", wall_s=time.perf_counter() - t_start, card=card)
+        return
+    if "--mesh-gate-faults" in sys.argv[1:]:
+        phase_mesh_gate_faults(card)
+        say("done", wall_s=time.perf_counter() - t_start, card=card)
+        return
     if "--train-compare-check" in sys.argv[1:]:
         train = phase_train(card)
         phase_train_compare_check(train["trainer"], train["latents"])
@@ -5824,6 +6519,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     counts["tp"] = phase_tp(card)
     torch.cuda.empty_cache()
+    counts["mesh"] = phase_mesh(card)
+    torch.cuda.empty_cache()
     counts["train_gan"] = phase_train_gan(card)
     kernels = [
         _kernel_line(attn.KERNEL, "ldm3d_torch/csrc/voxel_attention.cu",
@@ -5853,5 +6550,7 @@ if __name__ == "__main__":
         tp_worker(*sys.argv[2:])
     elif sys.argv[1:2] == ["--gate-worker"]:
         gate_worker(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(*sys.argv[2:])
     else:
         main()

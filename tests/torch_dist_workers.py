@@ -1,7 +1,7 @@
 """Worker processes of the port's multi-process tests
 (tests/test_torch_parallel.py, tests/test_torch_multiprocess.py,
 tests/test_torch_spatial.py, tests/test_torch_tp.py,
-tests/test_torch_cli.py).
+tests/test_torch_meshes.py, tests/test_torch_cli.py).
 
     python tests/torch_dist_workers.py <job> <rank> <processes> <port> <dir>
 
@@ -27,13 +27,15 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def launch(job: str, directory, n: int = 2, timeout: float = 120.0):
-    """Run `job` in `n` worker processes; returns their outputs in rank
-    order. Fails when a worker fails or outlives `timeout` seconds (all
-    are then killed)."""
+def launch(job: str, directory, n: int = 2, timeout: float = 120.0,
+           threads: int = 2):
+    """Run `job` in `n` worker processes of `threads` torch threads each;
+    returns their outputs in rank order. Fails when a worker fails or
+    outlives `timeout` seconds (all are then killed)."""
     from ldm3d_torch.parallel.distributed import free_port
     port = free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=os.pathsep.join(
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads),
+               PYTHONPATH=os.pathsep.join(
         [os.path.dirname(HERE), os.environ.get("PYTHONPATH", "")]))
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), job, str(r), str(n),
@@ -563,8 +565,71 @@ def job_tp(spec):
     return out
 
 
+def _mesh_step(case, mesh):
+    """A trainer's step over `mesh` from the whole state the test gives
+    (`load_state_dict`), each process its rows and depth slab of the
+    batch (`shard_batch(..., spatial_axis=3)`), the draws the global
+    batch's: the metrics, the whole gradients and state, and the bytes
+    of this process's own parameters; a VQ case first evaluates, a
+    diffusion case with "generate" then samples from its EMA U-Net."""
+    import copy
+
+    from ldm3d_torch.models.quantizers import Draws
+    from ldm3d_torch.parallel.mesh import data_shard, shard_batch
+    tr = _tp_trainer(case, mesh)
+    tr.load_state_dict(copy.deepcopy(case["state"]))
+    kind, res = case["kind"], {}
+    if kind == "dm":
+        vol, ctx = shard_batch(mesh, (case["vol"], case["ctx"]),
+                               spatial_axis=3)
+        m = tr.train_step(vol, ctx, **case["draws"])
+        model = tr.model.unet
+    else:
+        vol, mask = shard_batch(mesh, (case["vol"], case["mask"]),
+                                spatial_axis=3)
+        if kind == "vq":
+            res["eval"] = {k: float(v) for k, v in
+                           tr.eval_step(vol, mask).items()}
+        else:
+            tr.epoch = case["epoch"]
+        draws = Draws(shard=data_shard(mesh), **case["draws"]) \
+            if case.get("draws") else None
+        m = tr.train_step(vol, mask, draws)
+        model = tr.model
+    res.update(metrics={k: float(v) for k, v in m.items()},
+               grads=_whole_grads(model, mesh),
+               state=copy.deepcopy(tr.state_dict()),
+               param_bytes=sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
+               slab=list(vol.shape))
+    if "generate" in case:
+        gen = case["generate"]
+        res["volumes"] = tr.generate(
+            gen["shape"], gen["ctx"], init_noise=gen["init_noise"],
+            step_noise=gen["step_noise"].__getitem__, sampler="ddim",
+            sample_steps=gen["steps"], eta=gen["eta"], decode=True)
+    return res
+
+
+def job_meshes(spec):
+    """Every case of `spec` over the (data, space, model) mesh it names:
+    ops on depth slabs and trainer steps. Every rank makes the meshes in
+    the order of the cases."""
+    from ldm3d_torch.core.config import MeshConfig
+    from ldm3d_torch.parallel.mesh import make_mesh
+
+    meshes, out = {}, {}
+    for name, case in spec.items():
+        shape = tuple(case["mesh"])
+        if shape not in meshes:
+            meshes[shape] = make_mesh(MeshConfig(*shape))
+        run = _spatial_op if case["kind"] == "op" else _mesh_step
+        out[name] = run(case, meshes[shape])
+    return out
+
+
 JOBS = {"halo": job_halo, "steps": job_steps, "spatial": job_spatial,
-        "tp": job_tp}
+        "tp": job_tp, "meshes": job_meshes}
 # jobs that join the process group themselves (rank, processes, port,
 # directory)
 JOINING = {"cli": job_cli}
@@ -572,7 +637,7 @@ JOINING = {"cli": job_cli}
 
 def main(argv) -> None:
     job, rank, n, port, directory = argv
-    torch.set_num_threads(2)
+    torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "2")))
     if job in JOINING:
         spec = torch.load(os.path.join(directory, f"{job}_in.pt"),
                           weights_only=False)
