@@ -165,6 +165,22 @@ not 0:
                 this process as the CLI builds it (600 bf16 attention
                 launches, counted), the HTTP front's cost; SIGINT stops
                 it with exit code 0
+     tools      main path 13: the repository's tools on the port
+                (ldm3d_torch/tools/), on the cli phase's run before its
+                directory goes: export_flagship of its checkpoint (the
+                latest epoch: no latent_fid logged) to a float16 .npz
+                snapshot; the serve CLI's service over the snapshot and
+                over the checkpoint with its weights rounded to float16
+                answer one DDIM 20 request each (bf16, 240 attention
+                launches each; max |diff| printed, within 1e-5, 0.0
+                expected); context_effect on the checkpoint (4 classes
+                and the null token at 5 timesteps: 300 bf16 attention
+                launches); recalibrate_bn on a BatchNorm flagship
+                stage-1 saved at init (float32, one batch of 8 of the
+                on-device corpus: one codebook launch), the weights and
+                the quantizer's buffers bit for bit unchanged, every
+                statistic moved, finite and within RECAL_F64_RTOL of a
+                float64 twin's change on the card
      quantizers  (after encode) each of the five quantizer kinds, one
                 training-mode forward and backward at 1,024 rows, K = 64,
                 on the card against the CPU with injected draws
@@ -328,6 +344,7 @@ import ldm3d_torch.ops.quantize as cbq  # noqa: E402
 from ldm3d_torch.cli import main as cli  # noqa: E402
 from ldm3d_torch.core.config import (QuantizerConfig,  # noqa: E402
                                      TrainConfig, flagship_cfg, replace)
+from ldm3d_torch.core import presets  # noqa: E402
 from ldm3d_torch.core.presets import get_preset  # noqa: E402
 from ldm3d_torch.data.nifti import load_nifti  # noqa: E402
 from ldm3d_torch.data.pipeline import (  # noqa: E402
@@ -343,7 +360,10 @@ from ldm3d_torch.models.vqvae import VQVAE  # noqa: E402
 from ldm3d_torch.ops import _build  # noqa: E402
 from ldm3d_torch.ops.metrics import volume_psnr, volume_ssim  # noqa: E402
 from ldm3d_torch.parallel import distributed as pdist  # noqa: E402
-from ldm3d_torch.serve import GenerationService  # noqa: E402
+from ldm3d_torch.serve import (GenerationService,  # noqa: E402
+                               server_from_args)
+from ldm3d_torch.tools import (context_effect,  # noqa: E402
+                               export_flagship, recalibrate_bn)
 from ldm3d_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from ldm3d_torch.train.dm_trainer import (DiffusionTrainer,  # noqa: E402
                                           LatentDiffusion, auto_latent_scale)
@@ -505,6 +525,33 @@ HTTP_REQUESTS = [
 HTTP_START_TIMEOUT = 300   # s: the process's start, the checkpoint read
 HTTP_REQUEST_TIMEOUT = 300
 HTTP_STOP_TIMEOUT = 60
+
+# The tools phase (after cli, on its run directory): export_flagship's
+# snapshot of the run, a request served from it and from the checkpoint
+# with its weights rounded to float16 (the serve CLI's services, bf16; the
+# same weights, so the same volumes, within CLI_SERVE_REL_TOL and 0.0
+# expected: generate decodes deterministically), context_effect on the
+# checkpoint (5 timesteps x 5 contexts, the null token included, 12
+# attention launches a forward), and recalibrate_bn on a BatchNorm
+# flagship stage-1 (vqvae_dm_stage1's own norm) saved at init, in float32
+# as every phase but bf16 (TOOLS_S1_PRESET, the preset with `--dtype
+# float32`, which the tool has not), over one batch of the on-device
+# corpus, one pass (one codebook launch).
+TOOLS_SERVE = ["--preset", "conditional_dm3d", "--norm", "group", "--port",
+               "0"]
+TOOLS_CLASSES = 4                 # context_effect --num_classes, the run's
+TOOLS_S1_PRESET = "vqvae_dm_stage1_float32"
+TOOLS_RECAL_VOLUMES = 9           # --num_synthetic: 8 train, 1 held out
+TOOLS_RECAL_PASSES = 1
+# The recalibrated statistics' change from init against a float64 twin's
+# on the card (the same init, batch and codes; per tensor, relative to the
+# largest float64 change): each statistic is a mean over 8 x 64^3 or more
+# activations of float32 cuDNN convs, whose forward lies 3.7e-6-6.0e-6 of
+# its output from float64 (ROADMAP item 5), compounded through up to 24
+# convs; 1e-3 is the bound. A missed update, a wrong momentum or batch
+# moves a change by its own size (error ~1).
+RECAL_F64_RTOL = 1e-3
+
 # The quantizers phase: each kind, one training-mode forward and backward
 # at [2, 8, 8, 8, 32] (1,024 rows) and K = 64 (3 stages for rnsvq), card
 # against CPU from the same buffers and injected draws. The card picks
@@ -2401,15 +2448,17 @@ def _serve_cli(argv: list, tmp: str, dev: str, size: int, card: str,
 
 def phase_cli(card: str) -> dict:
     """Main path 5: the port's command line at full flagship width, in
-    process, in a temporary directory removed at the end: the flagship
+    process, in a temporary directory (removed at once if the phase fails,
+    else by the caller after `phase_tools` has used its run): the flagship
     config from the conditional_dm3d preset and flags, --create_dataset
     --synthetic at 128^3, --train_dm --cache_latents for one epoch, an
     exact-resume check, --resume_ckpt -1 to a second epoch, --test_dm with
     DDIM, and GenerationService.from_checkpoint serving one request. The
     counters are zeroed before each of those user-facing steps and read
     after it; the checks between them (the resume step, the trainer's own
-    generate) are not counted. Returns the launch counts and the first
-    epoch's training.log row (the ddp phase's one-process reference)."""
+    generate) are not counted. Returns the launch counts, the first
+    epoch's training.log row (the ddp phase's one-process reference), the
+    directory, the run's checkpoint directory and its cache."""
     tmp = tempfile.mkdtemp(prefix="ldm3d_cli_")
     dev = CLI_DEVICE
     counts = {attn.KERNEL: 0, cbq.KERNEL: 0}
@@ -2671,12 +2720,198 @@ def phase_cli(card: str) -> dict:
                    tmp, dev, cfg.data.volume_size, card, counts)
         say("cli", launches=counts, peak_train=peak_train,
             peak_serve=peak_serve, card=card)
-        return dict(counts=counts, train_log=train_log)
+        return dict(counts=counts, train_log=train_log, tmp=tmp,
+                    ckpt_dir=ckpt_dir, cache_dir=os.path.join(tmp, "cache"))
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
     finally:
         cli._encode_corpus = real_encode
         CheckpointManager.save = real_save
         CheckpointManager.restore = real_restore
-        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _round_to_float16(svc: GenerationService) -> None:
+    """Every float of the service's model and EMA U-Net rounded to float16
+    and back, as a snapshot holds them."""
+    with torch.no_grad():
+        for module in (svc.trainer.model, svc.trainer.ema_unet):
+            for t in module.state_dict().values():
+                if t.is_floating_point():
+                    t.copy_(t.half().float())
+
+
+def _recalibration_twin(vcfg, tc: TrainConfig, batches, codes, dev: str):
+    """The recalibration in float64 on `dev`: the init the stage-1 was
+    saved from (VQTrainer.init_random(SEED)), widened, over the batches
+    the tool read, with the codes its float32 run chose
+    (`_injected_codes`: no kernel launch). Returns (the twin, the rows its
+    own float64 search would have changed)."""
+    twin = VQTrainer(vcfg, tc, device=dev).init_random(SEED)
+    twin.model.double()
+    twin._batch = lambda v, m: (v.to(dev, torch.float64),
+                                m.to(dev, torch.float64))
+    with _injected_codes(codes) as changed:
+        twin.recalibrate_batch_stats(batches, passes=1)
+    return twin, sum(changed)
+
+
+def phase_tools(card: str, cli_run: dict) -> dict:
+    """The repository's tools on the port (`ldm3d_torch/tools/`), on the cli
+    phase's run (its directory is the caller's to remove): export_flagship
+    of its stage-2 checkpoint, one request served from the snapshot and
+    one from the checkpoint with its weights rounded to float16 (the serve
+    CLI's services), context_effect on the checkpoint, and recalibrate_bn
+    on a BatchNorm flagship stage-1 saved at init, held to a float64 twin.
+    Each tool runs as a user calls it, on the GPU by default, its launches
+    counted. Returns the launch counts."""
+    t0 = time.perf_counter()
+    tmp, ckpt_dir, dev = cli_run["tmp"], cli_run["ckpt_dir"], CLI_DEVICE
+    plat = [] if dev == "cuda" else ["--platform", "cpu"]
+    counts, bf16 = {attn.KERNEL: 0, cbq.KERNEL: 0}, []
+
+    def counted(fn, *a, **kw):   # each piece's bf16 attention launches too
+        out = _counted(counts, fn, *a, **kw)
+        bf16.append(attn.launches_by_dtype["bfloat16"])
+        return out
+
+    npz = os.path.join(tmp, "snapshot", "flagship_f16.npz")
+    meta, export_s, got = counted(export_flagship.main,
+                                  ["--ckpt", ckpt_dir, "--out", npz] + plat)
+    latest = CheckpointManager(ckpt_dir).latest_epoch()
+    say("tools", step="export_flagship", epoch=meta["epoch"],
+        latest_epoch=latest, bytes=os.path.getsize(npz),
+        arrays=meta["num_arrays"], collections=meta["collections"],
+        wall_s=export_s, launches=got, card=card)
+    # no latent_fid logged by the cli run: the latest epoch
+    if meta["epoch"] != latest or any(got.values()) \
+            or "ema_params" not in meta["collections"]:
+        raise RuntimeError(f"tools export: {meta}, launches {got}")
+
+    services = {}
+    for name, where in (("snapshot", ["--ckpt_dir", npz]),
+                        ("checkpoint", ["--ckpt_dir", ckpt_dir, "--epoch",
+                                        str(meta["epoch"])])):
+        _sync(dev)
+        t1 = time.perf_counter()
+        svc, server = server_from_args(TOOLS_SERVE + where + plat)
+        server.server_close()
+        _sync(dev)
+        services[name] = (svc, time.perf_counter() - t1)
+    _round_to_float16(services["checkpoint"][0])
+    calls = attention_calls_per_step(services["snapshot"][0].trainer.model
+                                     .unet)
+    served, ok = {}, True
+    want = {attn.KERNEL: calls * CLI_REQUEST["sample_steps"], cbq.KERNEL: 0}
+    for name, (svc, load_s) in services.items():
+        vols, wall, got = counted(svc.generate, **CLI_REQUEST)
+        served[name] = vols
+        ok = ok and bool(np.isfinite(vols).all()) and (
+            dev != "cuda" or got == want)
+        say("tools", step="serve_" + name, load_s=load_s, epoch=svc.epoch,
+            dtype=svc.trainer.train_cfg.dtype, request=CLI_REQUEST,
+            wall_s=wall, finite=bool(np.isfinite(vols).all()),
+            shape=list(vols.shape), launches=got, expected=want,
+            launches_by_dtype=dict(attn.launches_by_dtype), card=card)
+    del services, svc
+    a, b = served["snapshot"], served["checkpoint"]
+    max_abs = float(np.abs(a - b).max())
+    rel = max_abs / float(np.abs(b).max())
+    say("tools", step="snapshot_vs_checkpoint_f16", max_abs_diff=max_abs,
+        rel_err=rel, tol=CLI_SERVE_REL_TOL, card=card)
+    if rel > CLI_SERVE_REL_TOL or not ok:
+        raise RuntimeError(f"tools serve: snapshot against the float16 "
+                           f"checkpoint {max_abs} ({rel} relative), "
+                           f"finite and counted {ok}")
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    rows, ce_s, got = counted(context_effect.main, [
+        "--ckpt", ckpt_dir, "--num_classes", str(TOOLS_CLASSES)] + plat)
+    want = {attn.KERNEL: calls * len(context_effect.FRACS)
+            * (TOOLS_CLASSES + 1), cbq.KERNEL: 0}
+    finite = all(np.isfinite(r[1:]).all() and min(r[1:]) > 0 for r in rows)
+    say("tools", step="context_effect", rows=rows, wall_s=ce_s,
+        launches=got, expected=want,
+        launches_by_dtype=dict(attn.launches_by_dtype), card=card)
+    if len(rows) != len(context_effect.FRACS) or not finite \
+            or (dev == "cuda" and got != want):
+        raise RuntimeError(f"tools context_effect: rows {rows}, launches "
+                           f"{got}")
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    presets.register(TOOLS_S1_PRESET)(lambda: replace(
+        get_preset("vqvae_dm_stage1"),
+        train=_f32(get_preset("vqvae_dm_stage1").train)))
+    s1_cfg = get_preset(TOOLS_S1_PRESET)
+    s1_dir = os.path.join(tmp, "stage1_bn", "vqvae_dm_stage1_vq")
+    init = VQTrainer(s1_cfg.vqvae, s1_cfg.train, device=dev).init_random(
+        SEED)
+    CheckpointManager(s1_dir).save(0, init.state_dict())
+    del init
+    batches, real = [], VQTrainer.recalibrate_batch_stats
+
+    def recorded(self, loader, passes=3):   # the batches the tool reads
+        batches.extend(batch[:2] for batch in loader)
+        return real(self, batches, passes)
+    VQTrainer.recalibrate_batch_stats = recorded
+    try:
+        with _NoTF32(), _recorded_codes() as codes:
+            out_dir, recal_s, got = counted(recalibrate_bn.main, [
+                "--preset", TOOLS_S1_PRESET, "--ckpt_dir", s1_dir,
+                "--cache_dir", cli_run["cache_dir"], "--num_synthetic",
+                str(TOOLS_RECAL_VOLUMES), "--lbs", str(TRAIN_BATCH),
+                "--passes", str(TOOLS_RECAL_PASSES)] + plat)
+    finally:
+        VQTrainer.recalibrate_batch_stats = real
+    before, _ = CheckpointManager(s1_dir).restore(0)
+    after, epoch = CheckpointManager(out_dir).restore()
+    t1 = time.perf_counter()
+    twin, changed = _recalibration_twin(s1_cfg.vqvae, s1_cfg.train,
+                                        batches, codes, dev)
+    _sync(dev)
+    twin_s = time.perf_counter() - t1
+    twin_state = twin.model.state_dict()
+    errs, moved, finite = {}, 0, True
+    for k, t in after["model"].items():
+        if "running" not in k:
+            continue
+        d32 = t.double() - before["model"][k].double()
+        d64 = twin_state[k].cpu() - before["model"][k].double()
+        errs[k] = float((d32 - d64).abs().max()) / max(
+            float(d64.abs().max()), 1e-30)
+        moved += bool(d32.abs().max() > 0)
+        finite = finite and bool(torch.isfinite(t).all())
+    changed_keys = [k for k, t in after["model"].items()
+                    if "running" not in k
+                    and not torch.equal(t, before["model"][k])]
+    same_state = (after["step"] == before["step"] and torch.equal(
+        after["generator"], before["generator"]))
+    worst = max(errs, key=errs.get)
+    want = {attn.KERNEL: 0, cbq.KERNEL: len(batches) * TOOLS_RECAL_PASSES}
+    say("tools", step="recalibrate_bn", out_dir=os.path.relpath(out_dir,
+                                                                tmp),
+        epoch=epoch, batches=len(batches), statistics=len(errs),
+        moved=moved, finite=finite, weights_changed=changed_keys,
+        state_unchanged=same_state, f64_rel_err=errs[worst],
+        f64_worst=worst, tol=RECAL_F64_RTOL, float64_codes_changed=changed,
+        wall_s=recal_s, float64_twin_s=twin_s, launches=got, expected=want,
+        card=card)
+    del twin, twin_state, before, after
+    if (out_dir != s1_dir + "_bnr" or epoch != 0 or changed_keys
+            or not same_state
+            or moved != len(errs) or not finite
+            or errs[worst] > RECAL_F64_RTOL
+            or (dev == "cuda" and got != want)):
+        raise RuntimeError(f"tools recalibrate_bn: weights changed "
+                           f"{changed_keys}, "
+                           f"moved {moved}/{len(errs)}, float64 error "
+                           f"{errs[worst]} at {worst}, launches {got}")
+    counts[attn.KERNEL + ".bfloat16"] = sum(bf16)   # _kernel_line's split
+    say("tools", launches=counts, wall_s=time.perf_counter() - t0,
+        card=card)
+    return counts
 
 
 def _max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -6510,6 +6745,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     cli_run = phase_cli(card)
     counts["cli"] = cli_run["counts"]
+    try:
+        counts["tools"] = phase_tools(card, cli_run)
+    finally:
+        shutil.rmtree(cli_run["tmp"], ignore_errors=True)
     torch.cuda.empty_cache()
     counts["train_vq"] = phase_train_vq(card)
     torch.cuda.empty_cache()

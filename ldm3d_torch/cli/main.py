@@ -107,7 +107,7 @@ from ldm3d_torch.core.config import replace
 from ldm3d_torch.core.device import resolve_device
 from ldm3d_torch.parallel import distributed as pdist
 from ldm3d_torch.parallel.spatial import gather_volume
-from ldm3d_torch.train.meta import adopt_meta, train_meta
+from ldm3d_torch.train.meta import adopt_meta, load_meta, train_meta
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -592,8 +592,8 @@ def _dm_trainer(cfg, device, mesh=None):
 
 def _adopt_dm_meta(cfg, args):
     """`adopt_meta` of the run's own train_meta.json."""
-    return adopt_meta(cfg, args, os.path.join(_ckpt_dir(cfg, "dm"),
-                                              "train_meta.json"))
+    return adopt_meta(cfg, args, load_meta(os.path.join(
+        _ckpt_dir(cfg, "dm"), "train_meta.json")))
 
 
 def _encode_corpus(trainer, loader, t0: float, mesh=None):

@@ -83,9 +83,16 @@ def _leaf(path: str, arr: np.ndarray, stats: bool) -> Tuple[str, np.ndarray]:
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
-    """float32 (bool stays bool: the EMA quantizer's `need_init`)."""
-    dtype = np.bool_ if arr.dtype == np.bool_ else np.float32
-    return torch.from_numpy(np.array(arr, dtype=dtype, order="C"))
+    """A C-contiguous float32 copy (bool stays bool: the EMA quantizer's
+    `need_init`). A writable array (a snapshot's, or a transposed view of
+    one) is cast and laid out by torch in one pass."""
+    arr = np.asarray(arr)
+    if not arr.flags.writeable:      # torch.from_numpy wants writable
+        dtype = np.bool_ if arr.dtype == np.bool_ else np.float32
+        return torch.from_numpy(np.array(arr, dtype=dtype, order="C"))
+    src = torch.from_numpy(arr)
+    dtype = torch.bool if src.dtype == torch.bool else torch.float32
+    return torch.empty(src.shape, dtype=dtype).copy_(src)
 
 
 def module_state(params: Mapping, batch_stats: Optional[Mapping] = None
@@ -137,39 +144,49 @@ def load_npz(path: str) -> Tuple[Dict[str, torch.Tensor],
         return convert_state({k: z[k] for k in z.files if k != "__meta__"})
 
 
-def _flax_leaf(module: nn.Module, name: str, t: torch.Tensor
-               ) -> Tuple[str, str, np.ndarray]:
-    """(collection, flax leaf name, array) of one parameter or buffer."""
-    t = t.detach() if t.dtype == torch.bool else t.detach().float()
-    arr = t.cpu().numpy().copy()                    # not a view of t
+def _flax_name(module: nn.Module, name: str, t: torch.Tensor
+               ) -> Tuple[str, str, Optional[Tuple[int, ...]]]:
+    """(collection, flax leaf name, the permutation to the flax layout or
+    None) of one parameter or buffer."""
     if name == "running_mean":
-        return "batch_stats", "mean", arr
+        return "batch_stats", "mean", None
     if name == "running_var":
-        return "batch_stats", "var", arr
+        return "batch_stats", "var", None
     if name in _VQ_STATS and name in module._buffers:
-        return "vq_stats", name, arr
+        return "vq_stats", name, None
     if name in ("bias", "alpha", "codebook", "codebooks"):
-        return "params", name, arr
+        return "params", name, None
     if name != "weight":
         raise ValueError(f"unknown parameter {name} of {type(module)}")
     if isinstance(module, nn.Embedding):
-        return "params", "embedding", arr
-    if arr.ndim == 5:
-        return "params", "kernel", arr.transpose(2, 3, 4, 1, 0)
-    if arr.ndim == 4:
-        return "params", "kernel", arr.transpose(2, 3, 1, 0)
-    if arr.ndim == 2:
-        return "params", "kernel", arr.T
-    return "params", "scale", arr      # a norm's weight
+        return "params", "embedding", None
+    perm = {5: (2, 3, 4, 1, 0), 4: (2, 3, 1, 0), 2: (1, 0)}.get(t.dim())
+    return "params", ("kernel" if perm else "scale"), perm   # scale: a norm's
 
 
-def flax_state(module: nn.Module, prefix: str = ""
+def _flax_leaf(module: nn.Module, name: str, t: torch.Tensor,
+               dtype: torch.dtype = torch.float32
+               ) -> Tuple[str, str, np.ndarray]:
+    """(collection, flax leaf name, array) of one parameter or buffer: a
+    C-contiguous copy in the flax layout, floats in `dtype` (the layout
+    and the cast done where the tensor lives, before it is copied out)."""
+    coll, leaf, perm = _flax_name(module, name, t)
+    t = t.detach() if t.dtype == torch.bool else t.detach().to(dtype)
+    if perm is not None:
+        t = t.permute(perm)
+    arr = t.clone(memory_format=torch.contiguous_format).cpu().numpy()
+    return coll, leaf, arr
+
+
+def flax_state(module: nn.Module, prefix: str = "",
+               dtype: torch.dtype = torch.float32
                ) -> Dict[str, Dict[str, np.ndarray]]:
     """The inverse of `convert_state` for one module: its parameters and
-    buffers as {collection: {flax path: array}} in the flax layout, paths
-    '/'-joined under `prefix` (e.g. "unet"). For an EMA copy of the U-Net,
-    take the "params" collection. A tensor-parallel module's shards are
-    gathered whole (inside `parallel.tp.model_sharding`; a collective)."""
+    buffers as {collection: {flax path: array}} in the flax layout, floats
+    in `dtype`, paths '/'-joined under `prefix` (e.g. "unet"). For an EMA
+    copy of the U-Net, take the "params" collection. A tensor-parallel
+    module's shards are gathered whole (inside
+    `parallel.tp.model_sharding`; a collective)."""
     from ldm3d_torch.parallel import tp
     out: Dict[str, Dict[str, np.ndarray]] = {}
     for mod_name, mod in module.named_modules():
@@ -177,7 +194,7 @@ def flax_state(module: nn.Module, prefix: str = ""
                  for n, _ in mod.named_parameters(recurse=False)] \
             + list(mod.named_buffers(recurse=False))
         for name, t in items:
-            coll, leaf, arr = _flax_leaf(mod, name, t)
+            coll, leaf, arr = _flax_leaf(mod, name, t, dtype)
             path = "/".join(p for p in (prefix, *mod_name.split("."), leaf)
                             if p)
             out.setdefault(coll, {})[path] = arr

@@ -31,10 +31,13 @@ over a checkpoint of a `--train_dm` run (`from_checkpoint`), over seeded
 random weights (`from_random_init`), or by the caller over a trainer
 loaded with `convert.load_npz`'s state dicts.
 
-CLI (the GPU unless `--platform cpu`; adopts the run's train_meta.json
-for every flag not given; SIGINT, ^C, stops it with exit code 0):
+CLI (the GPU unless `--platform cpu`; adopts the run's train_meta.json,
+or a snapshot's meta, for every flag not given; SIGINT, ^C, stops it with
+exit code 0):
     python -m ldm3d_torch.serve --preset conditional_dm3d \
         --ckpt_dir ./checkpoints/conditional_dm3d_dm --port 8777
+    python -m ldm3d_torch.serve --preset conditional_dm3d --norm group \
+        --ckpt_dir runs/flagship/flagship_f16.npz --port 8777
 """
 
 from __future__ import annotations
@@ -114,6 +117,29 @@ class GenerationService:
         trainer.load_state_dict(state, optimizer=False)
         svc = cls(trainer.cfg, trainer, name=exp_cfg.name)
         svc.epoch = ep
+        return svc
+
+    @classmethod
+    def from_snapshot(cls, exp_cfg, path: str, device=None):
+        """Load a `.npz` snapshot (`utils.export`; the JAX package's layout,
+        as `tools.export_flagship` writes it) into a trainer of
+        `exp_cfg.diffusion`, computing in `exp_cfg.train.dtype`. Its EMA
+        weights are loaded, and sampled from, when its meta records
+        ema_decay > 0, as an exported train_meta.json does (strict both
+        ways, as the JAX package's `load_state_npz`). The caller adopts
+        the snapshot's meta (`export.load_meta_npz`) into `exp_cfg`
+        first."""
+        from ldm3d_torch.utils.export import load_meta_npz, load_state_npz
+
+        meta = load_meta_npz(path)
+        trainer = DiffusionTrainer(exp_cfg.diffusion, device=device,
+                                   train_cfg=TrainConfig(
+                                       dtype=exp_cfg.train.dtype,
+                                       ema_decay=float(meta.get(
+                                           "ema_decay", 0.0))))
+        load_state_npz(path, trainer)
+        svc = cls(trainer.cfg, trainer, name=exp_cfg.name)
+        svc.epoch = meta.get("epoch")
         return svc
 
     @property
@@ -249,7 +275,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--preset", default="conditional_dm3d")
     ap.add_argument("--ckpt_dir", required=True,
                     help="checkpoint dir of the --train_dm run "
-                         "({ckpt_dir}/{name}_dm of its CLI)")
+                         "({ckpt_dir}/{name}_dm of its CLI), or a .npz "
+                         "snapshot of one (tools.export_flagship)")
     ap.add_argument("--epoch", type=int, default=None)
     ap.add_argument("--cfg_dropout", type=float, default=None)
     ap.add_argument("--prediction_type", default=None,
@@ -260,7 +287,8 @@ def _parser() -> argparse.ArgumentParser:
                     default=None)
     ap.add_argument("--ema", action="store_true",
                     help="sample from the EMA weights (the default when "
-                         "train_meta.json records ema_decay > 0)")
+                         "train_meta.json records ema_decay > 0; a "
+                         "snapshot's meta decides for it)")
     ap.add_argument("--norm", default=None, choices=["batch", "group"])
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8777)
@@ -275,7 +303,8 @@ def server_from_args(argv=None):
     `--ckpt_dir`) for every sampling invariant not given."""
     from ldm3d_torch.core.device import resolve_device
     from ldm3d_torch.core.presets import get_preset
-    from ldm3d_torch.train.meta import adopt_meta
+    from ldm3d_torch.train.meta import adopt_meta, load_meta
+    from ldm3d_torch.utils.export import load_meta_npz
 
     args = _parser().parse_args(argv)
     device = resolve_device("cpu" if args.platform == "cpu" else None)
@@ -294,11 +323,16 @@ def server_from_args(argv=None):
         diff = replace(diff, clip_sample_range=args.clip_sample_range)
     if args.norm is not None:
         diff = replace(diff, vqvae=replace(diff.vqvae, norm=args.norm))
-    cfg = adopt_meta(replace(cfg, diffusion=diff), args,
-                     os.path.join(args.ckpt_dir, "train_meta.json"))
-    svc = GenerationService.from_checkpoint(
-        cfg, args.ckpt_dir, args.epoch,
-        ema=args.ema or cfg.train.ema_decay > 0, device=device)
+    snapshot = os.path.isfile(args.ckpt_dir)
+    meta = load_meta_npz(args.ckpt_dir) if snapshot else load_meta(
+        os.path.join(args.ckpt_dir, "train_meta.json"))
+    cfg = adopt_meta(replace(cfg, diffusion=diff), args, meta)
+    if snapshot:
+        svc = GenerationService.from_snapshot(cfg, args.ckpt_dir, device)
+    else:
+        svc = GenerationService.from_checkpoint(
+            cfg, args.ckpt_dir, args.epoch,
+            ema=args.ema or cfg.train.ema_decay > 0, device=device)
     return svc, serve(svc, args.host, args.port)
 
 

@@ -36,26 +36,29 @@ from ldm3d_torch.parallel.tp import model_sharding
 _COLLECTIONS = ("params", "ema_params", "vq_stats", "batch_stats")
 
 
-def _arrays(module: nn.Module, prefix: str = "") -> Dict[str, np.ndarray]:
-    """{collection/flax path: array} of a module's weights and buffers
-    (a module with a `flax_state()` of its own, the VQ-GAN's networks,
-    maps itself)."""
+def _arrays(module: nn.Module, prefix: str = "",
+            dtype: torch.dtype = torch.float32) -> Dict[str, np.ndarray]:
+    """{collection/flax path: array} of a module's weights and buffers,
+    floats in `dtype` (a module with a `flax_state()` of its own, the
+    VQ-GAN's networks, maps itself, in float32)."""
     tree = module.flax_state() if hasattr(module, "flax_state") \
-        else flax_state(module, prefix)
+        else flax_state(module, prefix, dtype)
     return {f"{coll}/{path}": arr for coll, t in tree.items()
             for path, arr in t.items()}
 
 
-def state_arrays(trainer) -> Dict[str, np.ndarray]:
+def state_arrays(trainer, dtype: torch.dtype = torch.float32
+                 ) -> Dict[str, np.ndarray]:
     """A trainer's sampling state (`trainer.snapshot_modules()`: the model
-    and an EMA U-Net or None) in the snapshot layout, float32; whole
-    arrays under tensor parallelism (a collective over the model group)."""
+    and an EMA U-Net or None) in the snapshot layout, floats in `dtype`;
+    whole arrays under tensor parallelism (a collective over the model
+    group)."""
     model, ema = trainer.snapshot_modules()
     with torch.no_grad(), model_sharding(getattr(trainer, "mesh", None)):
-        out = _arrays(model)
+        out = _arrays(model, dtype=dtype)
         if ema is not None:
             out.update({"ema_params/" + k.split("/", 1)[1]: a
-                        for k, a in _arrays(ema).items()
+                        for k, a in _arrays(ema, dtype=dtype).items()
                         if k.startswith("params/")})
     return out
 
@@ -63,10 +66,12 @@ def state_arrays(trainer) -> Dict[str, np.ndarray]:
 def save_state_npz(path: str, trainer, meta: Optional[dict] = None,
                    dtype=np.float16) -> dict:
     """Write a trainer's sampling state to `path` (.npz), float arrays cast
-    to `dtype`. Returns the metadata dict written."""
+    to `dtype` (on the trainer's device where its modules map themselves
+    through `convert.flax_state`). Returns the metadata dict written."""
     arrays = {}
-    for key, arr in state_arrays(trainer).items():
-        if np.issubdtype(arr.dtype, np.floating):
+    cast = torch.float16 if np.dtype(dtype) == np.float16 else torch.float32
+    for key, arr in state_arrays(trainer, cast).items():
+        if np.issubdtype(arr.dtype, np.floating) and arr.dtype != dtype:
             arr = arr.astype(dtype)
         arrays[key] = arr
     meta = dict(meta or {})
@@ -74,7 +79,9 @@ def save_state_npz(path: str, trainer, meta: Optional[dict] = None,
     meta["num_arrays"] = len(arrays)
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
                                        dtype=np.uint8)
-    np.savez_compressed(path, **arrays)
+    # stored, not deflated: deflate barely shrinks float16 weights and
+    # would take most of a flagship export's time; np.load reads both
+    np.savez(path, **arrays)
     return meta
 
 
@@ -85,8 +92,9 @@ def load_meta_npz(path: str) -> dict:
 
 def _match(path: str, template: Dict[str, np.ndarray]
            ) -> Dict[str, np.ndarray]:
-    """The snapshot's arrays for every key of `template`, float32; strict
-    per collection, as the JAX package's `load_state_npz`."""
+    """The snapshot's arrays for every key of `template` (as stored:
+    `convert` widens them); strict per collection, as the JAX package's
+    `load_state_npz`."""
     with np.load(path) as z:
         arrays = {k: z[k] for k in z.files if k != "__meta__"}
     out = {}
@@ -107,8 +115,7 @@ def _match(path: str, template: Dict[str, np.ndarray]
             if arr.shape != template[key].shape:
                 raise ValueError(f"{key}: snapshot shape {arr.shape} != "
                                  f"template {template[key].shape}")
-            out[key] = arr if arr.dtype == np.bool_ \
-                else arr.astype(np.float32)
+            out[key] = arr
     stray = [k for k in arrays if k.split("/", 1)[0] in _COLLECTIONS]
     if stray:
         raise ValueError(f"snapshot has {len(stray)} arrays the trainer "
@@ -122,14 +129,15 @@ def load_state_npz(path: str, trainer):
     are left as they are (a snapshot is for sampling). Returns the
     trainer."""
     convert = getattr(trainer, "convert_snapshot", convert_state)
-    trainer.load_state_dicts(*convert(_match(path, state_arrays(trainer))))
+    template = state_arrays(trainer, torch.float16)   # keys and shapes
+    trainer.load_state_dicts(*convert(_match(path, template)))
     return trainer
 
 
 def load_stage1_npz(path: str, trainer) -> dict:
     """Load a stage-1 VQ-VAE snapshot into `trainer`'s frozen VQ-VAE
     (strict). Returns the snapshot's metadata."""
-    arrays = _match(path, _arrays(trainer.model.vqvae))
+    arrays = _match(path, _arrays(trainer.model.vqvae, dtype=torch.float16))
     state, _ = convert_state({k.split("/", 1)[0] + "/vqvae/"
                               + k.split("/", 1)[1]: a
                               for k, a in arrays.items()})

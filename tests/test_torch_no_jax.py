@@ -13,12 +13,14 @@ at `vqgan_attn` on 16^3 volumes (--train_vq for a warm and an
 adversarial epoch, --test_vq), a --fidelity_sweep under --profile, a
 bayes --sweep of one --train_vq point on --device_data, the native
 reader, the profiling helpers, the offline plots, `parallel/` (a
-one-process mesh, halo conv and spatial context) and a two-process
+one-process mesh, halo conv and spatial context), a two-process
 --train_vq
-(--cpu_devices 2, whose processes start afresh). The sources of the
-port (every module under `ldm3d_torch/`, `parallel/` included,
-so the CLI, data, checkpoint and export modules too) and of
-`chip_smoke.py` are also searched for such imports.
+(--cpu_devices 2, whose processes start afresh) and the tools
+(`ldm3d_torch/tools/`: a snapshot exported and served,
+recalibrate_bn on the stage-1, emit_sbatch and the reports), with `bench`, `__graft_entry__` and `tools` blocked too. The
+sources of the port (every module under `ldm3d_torch/`, `parallel/` and
+`tools/` included, so the CLI, data, checkpoint and export modules too)
+and of `chip_smoke.py` are also searched for imports of any of them.
 """
 
 import os
@@ -33,7 +35,8 @@ from torch_threads import TORCH_THREADS
 from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "flax", "optax", "ldm3d")
+BLOCKED = ("jax", "flax", "optax", "ldm3d", "bench", "__graft_entry__",
+           "tools")
 
 _REHEARSAL = f"""
 import sys
@@ -151,6 +154,29 @@ with tempfile.TemporaryDirectory() as d:
     cli_main(s1 + ["--train_vq", "--epochs", "1", "--lbs", "1",
                    "--cpu_devices", "2", "--ckpt_dir", d + "/mp"])
     assert os.listdir(d + "/mp") == ["smoke_vq"]
+    from ldm3d_torch.tools import (dm_comparison, emit_sbatch,
+                                   export_flagship, gan_ab, quality_report,
+                                   recalibrate_bn)
+    export_flagship.flagship_cfg = lambda: get_preset("smoke_cond").diffusion
+    dm = d + "/ckpt/smoke_cond_dm"
+    export_flagship.main(["--ckpt", dm, "--out", d + "/f16.npz",
+                          "--platform", "cpu"])
+    from ldm3d_torch.serve import server_from_args
+    snap, server = server_from_args(["--preset", "smoke_cond", "--ckpt_dir",
+                                     d + "/f16.npz", "--platform", "cpu",
+                                     "--port", "0"])
+    server.server_close()
+    assert np.isfinite(snap.generate(num=1, sampler="ddim",
+                                     sample_steps=2)).all()
+    recalibrate_bn.main(["--preset", "smoke", "--ckpt_dir",
+                         d + "/ckpt/smoke_vq", "--cache_dir", d + "/cache",
+                         "--lbs", "2", "--passes", "1", "--platform", "cpu"])
+    assert os.listdir(d + "/ckpt/smoke_vq_bnr") == ["1.pt"]
+    emit_sbatch.main(["--preset", "smoke", "--nodes", "2", "--out",
+                      d + "/s.sbatch"])
+    quality_report.main([log])
+    dm_comparison.main(["A=" + dm + "/training.log"])
+    gan_ab.main(["A=" + log, "B=" + log])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None)
 assert not loaded, loaded
@@ -176,8 +202,9 @@ def test_tiny_slice_runs_with_jax_blocked():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|flax|optax|ldm3d)\b|"
-    r"from\s+(jax|flax|optax|ldm3d)(\.|\s))", re.M)
+    r"^\s*(import\s+(jax|flax|optax|ldm3d|bench|__graft_entry__|tools)\b|"
+    r"from\s+(jax|flax|optax|ldm3d|bench|__graft_entry__|tools)(\.|\s))",
+    re.M)
 
 
 def _port_sources():
@@ -191,8 +218,8 @@ def _port_sources():
 def test_port_sources_import_no_jax():
     hits = []
     sources = list(_port_sources())
-    assert os.path.join(REPO, "ldm3d_torch", "parallel", "spatial.py") \
-        in sources
+    for module in (("parallel", "spatial.py"), ("tools", "r5_diag.py")):
+        assert os.path.join(REPO, "ldm3d_torch", *module) in sources
     for path in sources:
         with open(path) as f:
             for m in _FORBIDDEN.finditer(f.read()):
